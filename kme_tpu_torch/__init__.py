@@ -1,0 +1,13 @@
+"""kme_tpu_torch — the matching engine ported to PyTorch and CUDA.
+
+A second package beside `kme_tpu` (the JAX/Pallas reference, which it
+never imports). It mirrors `kme_tpu`'s module names so each counterpart
+is easy to find; every Pallas kernel on a ported path becomes a kernel
+written by hand for an NVIDIA Hopper card (`csrc/`), with a plain
+PyTorch version beside it that runs on CPU tensors.
+
+Ported so far: the fixed-mode sequential matching engine, from wire JSON
+to MatchOut lines (`runtime/seqsession.py` over `engine/seq.py` and
+`csrc/seq_step.cu`). Entry points run on the card unless the caller
+passes `device="cpu"`.
+"""

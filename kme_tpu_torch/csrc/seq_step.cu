@@ -1,0 +1,712 @@
+// seq_step: the fixed-mode sequential matching kernel for Hopper (sm_90a).
+//
+// Replaces kme_tpu/engine/seq.py `build_seq_step` (the Pallas kernel body
+// :346-1531 launched by `pl.pallas_call` at :1549), compat='fixed', books
+// held on the card, and `build_seq_scan` (:1576): K chunks of B messages
+// run in ONE launch, the chunk loop inside the kernel. The state planes
+// (same names, shapes and int32 lo/hi split as the JAX package) are
+// updated in place; the output plane layout is byte-for-byte the JAX
+// one (kme_tpu_torch/engine/seq.py `out_rows`).
+//
+// What bounds it on this card: not bandwidth. Each message reads and
+// writes a few hundred bytes of state, but message m+1 may depend on
+// every byte message m wrote (same book, same account, same hash tile),
+// so the work is one sequential dependence chain of dependent loads,
+// warp reductions and stores through L1/L2 (the whole state, ~9 MB at
+// the serving defaults, stays resident in the 50 MB L2). Its time is
+// the chain's latency: per message, a few dozen dependent L2 round
+// trips and shuffle reductions.
+//
+// What the one-warp design does about it: the chain cannot be split, so
+// the kernel runs on ONE warp of one block and keeps every step on the
+// shortest path — every scalar the TPU kernel parks in its SMEM row is
+// a register all 32 lanes hold (warp-uniform control flow, no block
+// barriers), each lane owns 4 of a row's 128 columns (one 16-byte load
+// per lane per row), the 128-wide masked min/max reductions become a
+// per-lane reduction plus five __shfl_xor_sync steps, and the sweep
+// scratch lives in shared memory. Staging a lane's rows, a parallel
+// barrier scan and CUDA graphs are later work.
+//
+// Java wrap arithmetic: signed overflow is undefined in C++, so every
+// 32-bit wrap is done in uint32_t and every 64-bit lo/hi value is joined
+// into uint64_t on load and split on store.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int LN = 128;
+constexpr int BIG = 1 << 30;
+constexpr unsigned FULL = 0xffffffffu;
+
+constexpr int L_NOP = 0, L_BUY = 1, L_SELL = 2, L_CANCEL = 3, L_CREATE = 4,
+              L_TRANSFER = 5, L_ADD_SYMBOL = 6, L_PAYOUT_YES = 7,
+              L_PAYOUT_NO = 8, L_REMOVE_SYMBOL = 9;
+constexpr int LERR_OK = 0, LERR_FILLBUF_FULL = 3, LERR_HASH_FULL = 4;
+constexpr int N_METRICS = 12, NB = 16, HIST_LANE0 = 2 + N_METRICS;
+
+struct Args {
+  const int32_t *act, *oidlo, *oidhi, *aid, *price, *size, *lane;
+  // state planes: deliberately NOT const/__restrict__, so no load goes
+  // through the non-coherent read-only path while the kernel writes them
+  int32_t *bo_lo, *bo_hi, *ba, *bp, *bs, *bq, *seqc, *bex, *bal_lo,
+      *bal_hi, *bal_u, *hk, *ha_lo, *ha_hi, *hv_lo, *hv_hi, *dep, *err;
+  int32_t *out;
+  int K, S, NR, A, E, B, CAPR, FB, PROBE;
+};
+
+// ---- wrap arithmetic -----------------------------------------------------
+__device__ __forceinline__ int32_t wadd(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a + (uint32_t)b);
+}
+__device__ __forceinline__ int32_t wsub(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a - (uint32_t)b);
+}
+__device__ __forceinline__ int32_t wmul(int32_t a, int32_t b) {
+  return (int32_t)((uint32_t)a * (uint32_t)b);
+}
+__device__ __forceinline__ int32_t wneg(int32_t a) {
+  return (int32_t)(0u - (uint32_t)a);
+}
+__device__ __forceinline__ int64_t add64(int64_t a, int64_t b) {
+  return (int64_t)((uint64_t)a + (uint64_t)b);
+}
+__device__ __forceinline__ int64_t sub64(int64_t a, int64_t b) {
+  return (int64_t)((uint64_t)a - (uint64_t)b);
+}
+__device__ __forceinline__ int64_t j64(int32_t lo, int32_t hi) {
+  return (int64_t)(((uint64_t)(uint32_t)hi << 32) | (uint64_t)(uint32_t)lo);
+}
+// the JAX kernel's `_muls64`: i32 x small i32 via a 16-bit split, each
+// partial wrapped at 32 bits (exact for |b| <= 2^14)
+__device__ __forceinline__ int64_t muls64(int32_t a, int32_t b) {
+  int32_t t1 = wmul(a & 0xFFFF, b);
+  int32_t t2 = wmul(a >> 16, b);
+  return (int64_t)t2 * 65536 + (int64_t)t1;
+}
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
+__device__ __forceinline__ int64_t max64(int64_t a, int64_t b) {
+  return a < b ? b : a;
+}
+
+// ---- warp primitives -----------------------------------------------------
+__device__ __forceinline__ int wmin(int v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+__device__ __forceinline__ int wmax(int v) {
+#pragma unroll
+  for (int o = 16; o; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+// one scalar store by lane 0, ordered against every lane's earlier reads
+// and later reads of the same word
+__device__ __forceinline__ void sput(int32_t* p, int idx, int32_t v) {
+  __syncwarp();
+  if (threadIdx.x == 0) p[idx] = v;
+  __syncwarp();
+}
+__device__ __forceinline__ void sput64(int32_t* lo, int32_t* hi, int idx,
+                                       int64_t v) {
+  __syncwarp();
+  if (threadIdx.x == 0) {
+    lo[idx] = (int32_t)(uint32_t)(uint64_t)v;
+    hi[idx] = (int32_t)(uint32_t)((uint64_t)v >> 32);
+  }
+  __syncwarp();
+}
+__device__ __forceinline__ int4 ld4(const int32_t* p) {
+  return *reinterpret_cast<const int4*>(p);
+}
+__device__ __forceinline__ void st4(int32_t* p, int4 v) {
+  *reinterpret_cast<int4*>(p) = v;
+}
+__device__ __forceinline__ int el(const int4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ int hbucket(int v) {
+  int b = 0;
+#pragma unroll
+  for (int k = 0; k < NB - 1; ++k) b += v >= (1 << k);
+  return b;
+}
+
+// ---- engine state access -------------------------------------------------
+struct Eng {
+  Args a;
+  int tid, tmask;
+
+  __device__ void set_err(int code) {
+    if (a.err[0] == LERR_OK) sput(a.err, 0, code);
+  }
+  __device__ int64_t bal(int acc) { return j64(a.bal_lo[acc], a.bal_hi[acc]); }
+  __device__ void bal_add(int acc, int64_t d) {
+    sput64(a.bal_lo, a.bal_hi, acc, add64(bal(acc), d));
+  }
+
+  // -- position hash: tile-granular linear probing from a Fibonacci home
+  __device__ int home(int key) {
+    return ((int32_t)((uint32_t)key * 0x9E3779B9u) >> 7) & tmask;
+  }
+  __device__ void tile(int t, int key, int& hx, int& em) {
+    int4 v = ld4(a.hk + t * LN + 4 * tid);
+    int h = BIG, e = BIG;
+#pragma unroll
+    for (int j = 3; j >= 0; --j) {
+      int k = el(v, j);
+      if (k == key) h = 4 * tid + j;
+      if (k == 0) e = 4 * tid + j;
+    }
+    hx = wmin(h);
+    em = wmin(e);
+  }
+  // -> flat entry or -1 (absent)
+  __device__ int h_find(int key) {
+    int t0 = home(key), hx, em;
+    tile(t0, key, hx, em);
+    if (hx < BIG) return t0 * LN + hx;
+    if (em < BIG || 1 >= a.PROBE) return -1;
+    int t = (t0 + 1) & tmask, probes = 1, res = -1;
+    while (true) {
+      tile(t, key, hx, em);
+      bool stop = hx < BIG || em < BIG || probes + 1 >= a.PROBE;
+      if (hx < BIG) res = t * LN + hx;
+      t = (t + 1) & tmask;
+      ++probes;
+      if (stop) break;
+    }
+    return res;
+  }
+  // find-or-insert -> flat entry or -1 (= HASH_FULL)
+  __device__ int h_claim(int key) {
+    int t0 = home(key), hx, em;
+    tile(t0, key, hx, em);
+    if (hx < BIG) return t0 * LN + hx;
+    if (em < BIG) {
+      sput(a.hk, t0 * LN + em, key);
+      return t0 * LN + em;
+    }
+    if (1 >= a.PROBE) return -1;
+    int t = (t0 + 1) & tmask, probes = 1, res = -1;
+    while (true) {
+      tile(t, key, hx, em);
+      bool ins = hx >= BIG && em < BIG;
+      if (hx < BIG) res = t * LN + hx;
+      if (ins) {
+        res = t * LN + em;
+        sput(a.hk, res, key);
+      }
+      bool stop = hx < BIG || ins || probes + 1 >= a.PROBE;
+      t = (t + 1) & tmask;
+      ++probes;
+      if (stop) break;
+    }
+    return res;
+  }
+  __device__ int pos_key(int lane, int acc) { return lane * a.A + acc + 1; }
+  __device__ void pos_get(int lane, int acc, int64_t& amt, int64_t& avail) {
+    int e = h_find(pos_key(lane, acc));
+    if (e < 0) {
+      amt = 0;
+      avail = 0;
+      return;
+    }
+    amt = j64(a.ha_lo[e], a.ha_hi[e]);
+    avail = j64(a.hv_lo[e], a.hv_hi[e]);
+  }
+  // -> err flag
+  __device__ bool pos_set(int lane, int acc, int64_t amt, int64_t avail) {
+    int e = h_claim(pos_key(lane, acc));
+    if (e < 0) return true;
+    sput64(a.ha_lo, a.ha_hi, e, amt);
+    sput64(a.hv_lo, a.hv_hi, e, avail);
+    return false;
+  }
+  // fillOrder's position half (KProcessor.java:276-287), fixed mode
+  __device__ bool fill_one(int lane, int acc, int32_t sgn_fill) {
+    int64_t amt, avail;
+    pos_get(lane, acc, amt, avail);
+    int64_t na = add64(amt, sgn_fill), nv = add64(avail, sgn_fill);
+    return pos_set(lane, acc, na, na == 0 ? 0 : nv);
+  }
+  // postRemoveAdjustments (KProcessor.java:325-333): the balance credit
+  __device__ int64_t release_margin(int lane, int acc, bool isbuy,
+                                    int32_t price, int32_t size) {
+    int32_t sgnd = isbuy ? size : wneg(size);
+    int64_t amt, avail;
+    pos_get(lane, acc, amt, avail);
+    int64_t blocked = sub64(amt, avail);
+    int64_t nsg = -(int64_t)sgnd;
+    int64_t adj = isbuy ? max64(min64(blocked, 0), nsg)
+                        : min64(max64(blocked, 0), nsg);
+    int32_t unit = isbuy ? price : wsub(price, 100);
+    int64_t rel = muls64(wadd(sgnd, (int32_t)(uint32_t)(uint64_t)adj), unit);
+    if (adj != 0 && pos_set(lane, acc, amt, add64(avail, adj)))
+      set_err(LERR_HASH_FULL);
+    return rel;
+  }
+};
+
+__global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
+  extern __shared__ __align__(16) int32_t smem[];
+  Eng g;
+  g.a = args;
+  g.tid = threadIdx.x;
+  g.tmask = args.CAPR - 1;
+  const Args& a = g.a;
+  const int tid = g.tid;
+  const int NR = a.NR, W = NR * LN, B = a.B, BR = B / LN;
+  const int NROWS = 1 + 5 * BR + 5 * (a.FB / LN);
+  int32_t* wsz = smem;           // sweep scratch: opposite side sizes
+  int32_t* fslot = smem + W;     // swept maker slots
+  int32_t* fsize = fslot + LN;   // swept fill sizes
+
+  for (int k = 0; k < a.K; ++k) {
+    const size_t mo = (size_t)k * B;
+    int32_t* out = a.out + (size_t)k * NROWS * LN;
+    int hist[4] = {0, 0, 0, 0};   // this lane's 4 columns of row 0
+    int32_t met[N_METRICS];
+#pragma unroll
+    for (int i = 0; i < N_METRICS; ++i) met[i] = 0;
+    int fill_total = 0;
+
+    auto hist_obs = [&](int lane0, int v) {
+      int c = lane0 + hbucket(v);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) hist[j] += c == 4 * tid + j;
+    };
+
+    for (int m = 0; m < B; ++m) {
+      const int act = a.act[mo + m], lane = a.lane[mo + m];
+      const int acc = a.aid[mo + m];
+      const int32_t limit = a.price[mo + m], size = a.size[mo + m];
+      const int32_t t_oidlo = a.oidlo[mo + m], t_oidhi = a.oidhi[mo + m];
+      const bool is_buy = act == L_BUY;
+      const bool is_trade = is_buy || act == L_SELL;
+      const bool is_cancel = act == L_CANCEL;
+      const bool is_barrier = act == L_PAYOUT_YES || act == L_PAYOUT_NO ||
+                              act == L_REMOVE_SYMBOL;
+      const int side = is_buy ? 0 : 1, opp = 1 - side;
+      const int32_t sgn = is_buy ? 1 : -1;
+      const int base_own = (lane * 2 * NR + side * NR) * LN;
+      const int base_opp = (lane * 2 * NR + opp * NR) * LN;
+
+      const bool bex_v = a.bex[lane] != 0;
+      const int64_t bal = g.bal(acc);
+      const bool bal_ok = a.bal_u[acc] != 0;
+
+      // ---- CREATE / TRANSFER / ADD_SYMBOL
+      const bool create_ok = act == L_CREATE && !bal_ok;
+      const bool transfer_ok = act == L_TRANSFER && bal_ok &&
+                               !(bal < (int64_t)wneg(size));
+      const bool addsym_ok = act == L_ADD_SYMBOL && !bex_v;
+      if (create_ok) sput(a.bal_u, acc, 1);
+      if (transfer_ok) g.bal_add(acc, (int64_t)size);
+      if (addsym_ok) sput(a.bex, lane, 1);
+
+      bool t_ok = false, t_acc = false, capr = false, append = false;
+      bool do_rest = false, c_ok = false;
+      int32_t resid_v = size, nf = 0, tail_lo = 0, tail_hi = 0, nempt_v = 0;
+
+      // ---- TRADE
+      if (is_trade) {
+        const bool valid = limit >= 0 && limit < 126 && size > 0;
+        const int32_t sgnd = is_buy ? size : wneg(size);
+        int64_t pamt, pav;
+        g.pos_get(lane, acc, pamt, pav);
+        const int64_t nsg = -(int64_t)sgnd;
+        const int64_t adj = is_buy ? max64(min64(pav, 0), nsg)
+                                   : min64(max64(pav, 0), nsg);
+        const int32_t unit = is_buy ? limit : wsub(limit, 100);
+        const int64_t risk =
+            muls64(wadd(sgnd, (int32_t)(uint32_t)(uint64_t)adj), unit);
+        t_ok = valid && bex_v && bal_ok && !(bal < risk);
+
+        // phase 1: non-mutating sweep over a scratch copy of the opposite
+        // side's sizes, reset on EVERY trade message (rejected ones too)
+        __syncwarp();
+        for (int r = 0; r < NR; ++r)
+          st4(wsz + r * LN + 4 * tid, ld4(a.bs + base_opp + r * LN + 4 * tid));
+        __syncwarp();
+        int32_t remaining = t_ok ? size : 0;
+        int nfill = 0, nempt = 0;
+        bool ovf = false;
+        while (remaining != 0) {
+          // best price*sgn, then lowest seq, then lowest flat slot
+          int loc = BIG;
+          for (int r = 0; r < NR; ++r) {
+            int4 p4 = ld4(a.bp + base_opp + r * LN + 4 * tid);
+            int4 w4 = ld4(wsz + r * LN + 4 * tid);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              int32_t p = el(p4, j);
+              if (el(w4, j) > 0 && wmul(wsub(p, limit), sgn) <= 0)
+                loc = min(loc, wmul(p, sgn));
+            }
+          }
+          const int pstar = wmin(loc);
+          if (pstar >= BIG) break;   // no crossing maker: anyc false
+          if (nfill >= a.E) {          // exceed: the max_fills envelope
+            ovf = true;
+            break;
+          }
+          loc = BIG;
+          for (int r = 0; r < NR; ++r) {
+            int4 p4 = ld4(a.bp + base_opp + r * LN + 4 * tid);
+            int4 q4 = ld4(a.bq + base_opp + r * LN + 4 * tid);
+            int4 w4 = ld4(wsz + r * LN + 4 * tid);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              int32_t p = el(p4, j);
+              if (el(w4, j) > 0 && wmul(wsub(p, limit), sgn) <= 0 &&
+                  wmul(p, sgn) == pstar)
+                loc = min(loc, el(q4, j));
+            }
+          }
+          const int sstar = wmin(loc);
+          loc = BIG;
+          for (int r = 0; r < NR; ++r) {
+            int4 p4 = ld4(a.bp + base_opp + r * LN + 4 * tid);
+            int4 q4 = ld4(a.bq + base_opp + r * LN + 4 * tid);
+            int4 w4 = ld4(wsz + r * LN + 4 * tid);
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              int32_t p = el(p4, j);
+              if (el(w4, j) > 0 && wmul(wsub(p, limit), sgn) <= 0 &&
+                  wmul(p, sgn) == pstar && el(q4, j) == sstar)
+                loc = min(loc, r * LN + 4 * tid + j);
+            }
+          }
+          const int flat = wmin(loc);
+          const int32_t have = wsz[flat];
+          const int32_t fill = min(remaining, have);
+          sput(wsz, flat, have - fill);
+          sput(fslot, nfill, flat);
+          sput(fsize, nfill, fill);
+          remaining -= fill;
+          nempt += have == fill;
+          ++nfill;
+        }
+        const int32_t residual = remaining;
+
+        // capacity envelope + Q9 bucket-tail echo (own side)
+        int ffree = BIG, smax = -1;
+        bool same_any = false;
+        for (int r = 0; r < NR; ++r) {
+          int4 w4 = ld4(a.bs + base_own + r * LN + 4 * tid);
+          int4 p4 = ld4(a.bp + base_own + r * LN + 4 * tid);
+          int4 q4 = ld4(a.bq + base_own + r * LN + 4 * tid);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (el(w4, j) == 0) ffree = min(ffree, r * LN + 4 * tid + j);
+            if (el(w4, j) > 0 && el(p4, j) == limit) {
+              same_any = true;
+              smax = max(smax, el(q4, j));
+            }
+          }
+        }
+        const int free_flat = wmin(ffree);
+        const bool nonempty = __any_sync(FULL, same_any);
+        smax = wmax(smax);
+        int tfc = 0;
+        if (nonempty) {
+          int tl = BIG;
+          for (int r = 0; r < NR; ++r) {
+            int4 w4 = ld4(a.bs + base_own + r * LN + 4 * tid);
+            int4 p4 = ld4(a.bp + base_own + r * LN + 4 * tid);
+            int4 q4 = ld4(a.bq + base_own + r * LN + 4 * tid);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (el(w4, j) > 0 && el(p4, j) == limit && el(q4, j) == smax)
+                tl = min(tl, r * LN + 4 * tid + j);
+          }
+          tfc = wmin(tl);
+        }
+        tail_lo = a.bo_lo[base_own + tfc];
+        tail_hi = a.bo_hi[base_own + tfc];
+        const bool rest_want = t_ok && residual > 0;
+        capr = t_ok && (ovf || (rest_want && free_flat >= BIG));
+        t_acc = t_ok && !capr;
+        do_rest = rest_want && t_acc && free_flat < BIG;
+        append = nonempty && do_rest;
+
+        // phase 2: apply
+        if (t_acc) {
+          g.bal_add(acc, sub64(0, risk));
+          if (adj != 0 && g.pos_set(lane, acc, pamt, sub64(pav, adj)))
+            g.set_err(LERR_HASH_FULL);
+          __syncwarp();
+          for (int r = 0; r < NR; ++r)
+            st4(a.bs + base_opp + r * LN + 4 * tid,
+                ld4(wsz + r * LN + 4 * tid));
+          __syncwarp();
+          for (int e2 = 0; e2 < nfill; ++e2) {
+            const int flat = fslot[e2];
+            const int32_t fill = fsize[e2];
+            const int maid = a.ba[base_opp + flat];
+            const int32_t mprice = a.bp[base_opp + flat];
+            const int pf = fill_total + e2;
+            if (pf < a.FB && tid == 0) {
+              int32_t* fr = out + (size_t)(1 + 5 * BR + (pf >> 7) * 5) * LN +
+                            (pf & 127);
+              fr[0] = a.bo_lo[base_opp + flat];
+              fr[LN] = a.bo_hi[base_opp + flat];
+              fr[2 * LN] = maid;
+              fr[3 * LN] = mprice;
+              fr[4 * LN] = fill;
+            }
+            const int32_t msz = is_buy ? wneg(fill) : fill;
+            const bool me = g.fill_one(lane, maid, msz);
+            const bool te = g.fill_one(lane, acc, wneg(msz));
+            g.bal_add(acc, (int64_t)wmul(wneg(msz), wsub(limit, mprice)));
+            if (me || te) g.set_err(LERR_HASH_FULL);
+          }
+          if (fill_total + nfill > a.FB) g.set_err(LERR_FILLBUF_FULL);
+          if (do_rest) {
+            const int32_t seqv = a.seqc[lane];
+            const int s = base_own + free_flat;
+            sput(a.bo_lo, s, t_oidlo);
+            sput(a.bo_hi, s, t_oidhi);
+            sput(a.ba, s, acc);
+            sput(a.bp, s, limit);
+            sput(a.bs, s, residual);
+            sput(a.bq, s, seqv);
+            sput(a.seqc, lane, wadd(seqv, 1));
+          }
+          resid_v = residual;
+          nf = nfill;
+          nempt_v = nempt;
+        }
+      }
+
+      // ---- CANCEL
+      if (is_cancel) {
+        int f[2];
+        for (int s = 0; s < 2; ++s) {
+          const int bb = (lane * 2 * NR + s * NR) * LN;
+          int loc = BIG;
+          for (int r = 0; r < NR; ++r) {
+            int4 w4 = ld4(a.bs + bb + r * LN + 4 * tid);
+            int4 l4 = ld4(a.bo_lo + bb + r * LN + 4 * tid);
+            int4 h4 = ld4(a.bo_hi + bb + r * LN + 4 * tid);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (el(w4, j) > 0 && el(l4, j) == t_oidlo && el(h4, j) == t_oidhi)
+                loc = min(loc, r * LN + 4 * tid + j);
+          }
+          f[s] = wmin(loc);
+        }
+        const int c_side = f[0] < BIG ? 0 : 1;
+        const int c_flat = f[c_side];
+        const int cb = (lane * 2 * NR + c_side * NR) * LN;
+        if (c_flat < BIG && a.ba[cb + c_flat] == acc) {
+          c_ok = true;
+          const int32_t c_price = a.bp[cb + c_flat];
+          const int32_t c_size = a.bs[cb + c_flat];
+          sput(a.bs, cb + c_flat, 0);
+          g.bal_add(acc, g.release_margin(lane, acc, c_side == 0, c_price,
+                                          c_size));
+        }
+      }
+
+      // ---- BARRIERS (payout / remove)
+      const bool barrier_do = is_barrier && bex_v;
+      if (barrier_do) {
+        // wipe both sides with margin release: buy side first, (price,
+        // seq) order within a side
+        for (int ws = 0; ws < 2; ++ws) {
+          const int bb = (lane * 2 * NR + ws * NR) * LN;
+          while (true) {
+            int loc = BIG;
+            for (int r = 0; r < NR; ++r) {
+              int4 w4 = ld4(a.bs + bb + r * LN + 4 * tid);
+              int4 p4 = ld4(a.bp + bb + r * LN + 4 * tid);
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                if (el(w4, j) > 0) loc = min(loc, el(p4, j));
+            }
+            const int pmin = wmin(loc);
+            if (pmin >= BIG) break;
+            loc = BIG;
+            for (int r = 0; r < NR; ++r) {
+              int4 w4 = ld4(a.bs + bb + r * LN + 4 * tid);
+              int4 p4 = ld4(a.bp + bb + r * LN + 4 * tid);
+              int4 q4 = ld4(a.bq + bb + r * LN + 4 * tid);
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                if (el(w4, j) > 0 && el(p4, j) == pmin) loc = min(loc, el(q4, j));
+            }
+            const int smin = wmin(loc);
+            loc = BIG;
+            for (int r = 0; r < NR; ++r) {
+              int4 w4 = ld4(a.bs + bb + r * LN + 4 * tid);
+              int4 p4 = ld4(a.bp + bb + r * LN + 4 * tid);
+              int4 q4 = ld4(a.bq + bb + r * LN + 4 * tid);
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                if (el(w4, j) > 0 && el(p4, j) == pmin && el(q4, j) == smin)
+                  loc = min(loc, r * LN + 4 * tid + j);
+            }
+            const int fc = wmin(loc);
+            const int o_aid = a.ba[bb + fc];
+            const int32_t o_price = a.bp[bb + fc], o_size = a.bs[bb + fc];
+            sput(a.bs, bb + fc, 0);
+            g.bal_add(o_aid, g.release_margin(lane, o_aid, ws == 0, o_price,
+                                              o_size));
+          }
+        }
+        sput(a.bex, lane, 0);
+        if (act != L_REMOVE_SYMBOL) {
+          // payout: credit (YES) / just delete (NO) the lane's positions
+          // — a hash scan; a zeroed amt/avail IS deletion (keys stay).
+          // Each live entry is a distinct account, so lanes credit their
+          // own columns' accounts without conflict.
+          const int klo = lane * a.A + 1;
+          const bool credit = act == L_PAYOUT_YES;
+          __syncwarp();
+          for (int tr = 0; tr < a.CAPR; ++tr) {
+            const int o = tr * LN + 4 * tid;
+            int4 k4 = ld4(a.hk + o);
+            bool mine[4], any = false;
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              mine[j] = el(k4, j) >= klo && el(k4, j) < klo + a.A;
+              any |= mine[j];
+            }
+            if (!__any_sync(FULL, any)) continue;
+            if (credit) {
+              int4 lo4 = ld4(a.ha_lo + o), hi4 = ld4(a.ha_hi + o);
+#pragma unroll
+              for (int j = 0; j < 4; ++j) {
+                const int64_t amt = j64(el(lo4, j), el(hi4, j));
+                if (mine[j] && amt != 0) {
+                  const int acc2 = el(k4, j) - klo;
+                  const int64_t v = add64(
+                      j64(a.bal_lo[acc2], a.bal_hi[acc2]),
+                      (int64_t)((uint64_t)amt * (uint64_t)(int64_t)size));
+                  a.bal_lo[acc2] = (int32_t)(uint32_t)(uint64_t)v;
+                  a.bal_hi[acc2] = (int32_t)(uint32_t)((uint64_t)v >> 32);
+                }
+              }
+            }
+#pragma unroll
+            for (int j = 0; j < 4; ++j) {
+              if (mine[j]) {
+                a.ha_lo[o + j] = 0;
+                a.ha_hi[o + j] = 0;
+                a.hv_lo[o + j] = 0;
+                a.hv_hi[o + j] = 0;
+              }
+            }
+          }
+          __syncwarp();
+        }
+      }
+
+      // ---- dep plane + histograms + outputs + metrics
+      if (t_acc) hist_obs(HIST_LANE0, nf);
+      if (t_acc || c_ok || barrier_do) {
+        const int32_t newd =
+            barrier_do ? 0
+                       : wsub(wsub(wadd(a.dep[lane], (int32_t)do_rest), nempt_v),
+                              (int32_t)c_ok);
+        sput(a.dep, lane, newd);
+        if (t_acc || c_ok) hist_obs(HIST_LANE0 + NB, newd);
+      }
+      bool ok;
+      if (is_trade) ok = t_acc;
+      else if (is_cancel) ok = c_ok;
+      else if (act == L_CREATE) ok = create_ok;
+      else if (act == L_TRANSFER) ok = transfer_ok;
+      else if (act == L_ADD_SYMBOL) ok = addsym_ok;
+      else if (is_barrier) ok = barrier_do;
+      else ok = act == L_NOP;
+      if (tid == 0) {
+        out[(size_t)(1 + 0 * BR) * LN + m] =
+            (int32_t)ok | ((int32_t)capr << 1) | ((int32_t)append << 2);
+        out[(size_t)(1 + 1 * BR) * LN + m] = resid_v;
+        out[(size_t)(1 + 2 * BR) * LN + m] = nf;
+        out[(size_t)(1 + 3 * BR) * LN + m] = tail_lo;
+        out[(size_t)(1 + 4 * BR) * LN + m] = tail_hi;
+      }
+      met[0] = wadd(met[0], act != L_NOP);
+      met[1] = wadd(met[1], t_acc);
+      met[2] = wadd(met[2], nf);
+      met[3] = wadd(met[3], t_acc ? wsub(size, resid_v) : 0);
+      met[4] = wadd(met[4], capr);
+      met[5] = wadd(met[5], is_trade && !t_ok);
+      met[6] = wadd(met[6], do_rest);
+      met[7] = wadd(met[7], c_ok);
+      met[8] = wadd(met[8], is_cancel && !c_ok);
+      met[9] = wadd(met[9], transfer_ok);
+      met[10] = wadd(met[10], (act == L_CREATE && !create_ok) ||
+                                  (act == L_TRANSFER && !transfer_ok) ||
+                                  (act == L_ADD_SYMBOL && !addsym_ok));
+      met[11] = wadd(met[11], barrier_do);
+      fill_total += nf;
+    }
+
+    // batch occupancy: ONE observation per non-empty call
+    if (met[0] > 0) hist_obs(HIST_LANE0 + 2 * NB, met[0]);
+    __syncwarp();
+    const int32_t errv = a.err[0];
+    int32_t row[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = 4 * tid + j;
+      int32_t v = hist[j];   // zero outside the histogram window
+      if (c == 0) v = errv;
+      if (c == 1) v = fill_total;
+#pragma unroll
+      for (int i = 0; i < N_METRICS; ++i)
+        if (c == 2 + i) v = met[i];
+      row[j] = v;
+    }
+    st4(out + 4 * tid, make_int4(row[0], row[1], row[2], row[3]));
+    __syncwarp();
+  }
+}
+
+}  // namespace
+
+// Plain C entry: ptrs = 7 message columns (K, B), 18 state planes, the
+// (K, rows, 128) output; dims = K, S, NR, A, E, B, CAPR, FB, PROBE.
+// Returns the launch's cudaGetLastError() (0 = launched).
+extern "C" int kme_seq_scan(void** ptrs, int nptrs, const int* dims,
+                            int ndims, void* stream) {
+  if (nptrs != 26 || ndims != 9) return (int)cudaErrorInvalidValue;
+  Args a;
+  int i = 0;
+  const int32_t** msg[7] = {&a.act, &a.oidlo, &a.oidhi, &a.aid,
+                            &a.price, &a.size, &a.lane};
+  for (auto p : msg) *p = static_cast<const int32_t*>(ptrs[i++]);
+  int32_t** st[18] = {&a.bo_lo, &a.bo_hi, &a.ba,   &a.bp,     &a.bs,
+                      &a.bq,    &a.seqc,  &a.bex,  &a.bal_lo, &a.bal_hi,
+                      &a.bal_u, &a.hk,    &a.ha_lo, &a.ha_hi, &a.hv_lo,
+                      &a.hv_hi, &a.dep,   &a.err};
+  for (auto p : st) *p = static_cast<int32_t*>(ptrs[i++]);
+  a.out = static_cast<int32_t*>(ptrs[i++]);
+  a.K = dims[0];
+  a.S = dims[1];
+  a.NR = dims[2];
+  a.A = dims[3];
+  a.E = dims[4];
+  a.B = dims[5];
+  a.CAPR = dims[6];
+  a.FB = dims[7];
+  a.PROBE = dims[8];
+  const size_t smem = (size_t)(a.NR * LN + 2 * LN) * sizeof(int32_t);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        seq_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  seq_scan_kernel<<<1, 32, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,111 @@
+"""Card-only tests of the port: the seq_step CUDA kernel against its plain
+PyTorch version, bit for bit, and the session on the card against the
+session on the CPU.
+
+Every test here carries the `cuda` marker and skips where
+`torch.cuda.is_available()` is false (a CUDA kernel has no CPU mode).
+The file imports nothing of JAX, so it also runs on a machine with a card
+and no JAX, where tests/conftest.py (which imports JAX) is left out:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from kme_tpu_torch import native
+from kme_tpu_torch.engine import seq as SQ
+from kme_tpu_torch.runtime.seqsession import SeqSession
+from kme_tpu_torch.workload import harness_stream, zipf_symbol_stream
+
+torch.set_num_threads(1)
+
+KW = dict(lanes=8, slots=256, accounts=128, max_fills=32, batch=256,
+          pos_cap=1 << 11, fill_cap=1 << 12, probe_max=16)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the seq_step CUDA kernel has no "
+                    "CPU mode")
+    return torch.device("cuda")
+
+
+def _chunks(cfg, msgs):
+    from kme_tpu_torch.runtime.seqsession import SeqRouter
+
+    router = SeqRouter(cfg.lanes, cfg.accounts)
+    out = []
+    for lo in range(0, len(msgs), cfg.batch):
+        cols, _ = router.route(msgs[lo:lo + cfg.batch])
+        out.append(SQ.pack_msgs(cfg, cols, len(cols["act"])))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stream", ["zipf", "harness"])
+def test_seq_step_on_card_matches_plain_version(cuda_device, stream):
+    """Two-row books (slots=256), payouts, invalid harness prices: each
+    batch leaves bit-identical planes and output; one launch per call."""
+    cfg = SQ.SeqConfig(**KW)
+    msgs = (zipf_symbol_stream(1500, num_symbols=7, num_accounts=60, seed=2,
+                               payout_per_mille=8) if stream == "zipf"
+            else harness_stream(1500, seed=3, payout_opcode_bug=False))
+    gpu = SQ.make_seq_state(cfg, cuda_device)
+    cpu = SQ.make_seq_state(cfg, "cpu")
+    before = SQ.LAUNCHES["seq_step"]
+    chunks = _chunks(cfg, msgs)
+    for c in chunks:
+        og = SQ.seq_step(cfg, gpu, SQ.msgs_to_device(c, cuda_device)).cpu()
+        oc = SQ.seq_step(cfg, cpu, SQ.msgs_to_device(c, "cpu"))
+        assert torch.equal(og, oc)   # both zero-filled beyond the prefix
+        for k in SQ.state_keys(cfg):
+            assert torch.equal(gpu[k].cpu(), cpu[k]), k
+    assert SQ.LAUNCHES["seq_step"] - before == len(chunks)
+
+
+@pytest.mark.cuda
+def test_seq_scan_on_card_is_one_launch(cuda_device):
+    cfg = SQ.SeqConfig(**KW)
+    chunks = _chunks(cfg, zipf_symbol_stream(1200, num_symbols=7,
+                                             num_accounts=60, seed=6))
+    stacked = {f: np.stack([c[f] for c in chunks]) for f in SQ.MSG_FIELDS}
+    gpu = SQ.make_seq_state(cfg, cuda_device)
+    cpu = SQ.make_seq_state(cfg, "cpu")
+    before = SQ.LAUNCHES["seq_step"]
+    og = SQ.seq_scan(cfg, gpu, {f: torch.from_numpy(v).to(cuda_device)
+                                for f, v in stacked.items()})
+    assert SQ.LAUNCHES["seq_step"] - before == 1
+    oc = SQ.seq_scan(cfg, cpu, {f: torch.from_numpy(v)
+                                for f, v in stacked.items()})
+    assert torch.equal(og.cpu(), oc)
+    for k in SQ.state_keys(cfg):
+        assert torch.equal(gpu[k].cpu(), cpu[k]), k
+
+
+@pytest.mark.cuda
+def test_session_on_card_matches_cpu(cuda_device):
+    cfg = SQ.SeqConfig(**KW)
+    msgs = zipf_symbol_stream(2000, num_symbols=7, num_accounts=60, seed=4,
+                              payout_per_mille=6)
+    gpu, cpu = SeqSession(cfg), SeqSession(cfg, device="cpu")
+    assert gpu.device.type == "cuda"
+    for lo in range(0, len(msgs), 700):
+        assert gpu.process_wire(msgs[lo:lo + 700]) == \
+            cpu.process_wire(msgs[lo:lo + 700])
+    assert gpu.export_state() == cpu.export_state()
+    assert gpu.metrics() == cpu.metrics()
+    assert gpu.histograms() == cpu.histograms()
+
+
+@pytest.mark.cuda
+def test_wrapper_refuses_mixed_devices(cuda_device):
+    cfg = SQ.SeqConfig(**KW)
+    msgs = SQ.msgs_to_device(SQ.pack_msgs(cfg, {
+        f: np.zeros(0, np.int64) for f in ("act", "oid", "aid", "price",
+                                           "size", "lane")}, 0), cuda_device)
+    with pytest.raises(ValueError):
+        SQ.seq_step(cfg, SQ.make_seq_state(cfg, "cpu"), msgs)
+    assert native.build("seq_step").endswith(".so")
