@@ -2,25 +2,38 @@
 
     python3 chip_smoke.py            # the whole run (one card)
 
-Drives the port's main path — wire JSON -> SeqSession.process_wire ->
-the seq_step CUDA kernel -> MatchOut lines — at the width of the
-`kme-serve` defaults (1024 symbols, 4096 accounts, 128 slots, 16 max
-fills, 1024-message batches), and holds the kernel bit for bit against
-its plain PyTorch version. Phases, in order; any failure exits non-zero:
+Drives the port's main paths — wire JSON -> SeqSession.process_wire ->
+the seq_step CUDA kernel -> MatchOut lines — at full width, and holds the
+kernel bit for bit against its plain PyTorch version. Three paths, one
+per kernel configuration: the `kme-serve` defaults (B1: fixed mode, 1024
+symbols, 4096 accounts, 128 slots, 16 max fills, 1024-message batches),
+the same at `--slots 8192` (B3: deep books, which the service turns on
+above 512 slots) and `kme-serve --compat java --slots 8192` (B2 with B3).
+Phases, in order; any failure exits non-zero:
 
 1. card and build: the card's name and power limit, a fresh build of
    the kernel, its source's sha256 and its ptxas report;
 2. small: a small stream through a session on the card and one on the
    CPU (plain version) must give the same MatchOut lines and planes;
-3. kernel vs plain at full width: three batches of the zipf stream (the
+2b. small java: the same for the java harness stream, java mode at 256
+   slots (Q1 symbol 0, Q2, Q9, Q11), all 25 planes;
+3. B1 vs plain at full width: three batches of the zipf stream (the
    first with trades, one with a PAYOUT, the last) must leave
    bit-identical state planes, header rows and used fill prefix; so
    must one full-width batch of a low-deposit stream, where the margin
    check rejects orders;
-4. the stream end to end through process_wire, with the kernel's launch
-   count held to the dispatch count, then a timed replay of the same
-   dispatches (CUDA events) with each dispatch's byte bound;
-5. summary: one `kernels` JSON line, then the device line last.
+4. B1 main path: the stream end to end through process_wire, with the
+   kernel's launch count held to the dispatch count, then a timed replay
+   of the same dispatches (CUDA events) with each dispatch's byte bound;
+3b. B3 at 8192 slots: phase 3's three checks on the same stream, then
+   its main path as in phase 4, with the capacity rejects beside phase
+   4's;
+3c. B2 with B3, java mode at 8192 slots, on the java zipf stream: three
+   checked batches (the first with trades holds a Q2 ghost fill), then
+   the main path, whose MatchOut must be the java oracle's (line count
+   and sha256 below), and the end state's open orders and positions;
+5. summary: one `kernels` JSON line, the card line, then the device line
+   last.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -35,10 +48,29 @@ import time
 
 FULL = dict(lanes=1024, slots=128, accounts=4096, max_fills=16, batch=1024,
             pos_cap=1 << 17, fill_cap=1 << 15, probe_max=64)
+DEEP = dict(FULL, slots=8192, hbm_books=True)
+JAVA = dict(DEEP, compat="java")
 SMALL = dict(lanes=16, slots=128, accounts=256, max_fills=16, batch=256,
              pos_cap=1 << 12, fill_cap=1 << 12, probe_max=8)
+SMALL_JAVA = dict(lanes=8, slots=256, accounts=128, max_fills=64, batch=256,
+                  pos_cap=1 << 13, fill_cap=1 << 14, probe_max=16,
+                  compat="java", hbm_books=True)
+STREAM = dict(num_events=100_000, num_symbols=1024, num_accounts=4096, seed=0,
+              payout_per_mille=2)
+# the java stream and what the java oracle (kme_tpu.oracle.OracleEngine
+# ("java")) gives for it: MatchOut lines, each followed by "\n", and the
+# open orders and positions at its end (tests/test_torch_seq_java.py
+# recomputes them)
+JAVA_STREAM = dict(STREAM, payout_per_mille=0)
+JAVA_LINES = 358_730
+JAVA_SHA256 = \
+    "183a22c60e0130a4a8e34eaa8549bd09cae3f607f590edaff4a7cf628058b10b"
+JAVA_OPEN_ORDERS = 16_759
+JAVA_POSITIONS = 48_317
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 ROW_BYTES = 128 * 4
+JAVA_HASH = ("hka_lo", "hka_hi", "hkb_lo", "hkb_hi", "hstate",
+             "ha_lo", "ha_hi", "hv_lo", "hv_hi")
 
 
 def fail(msg: str) -> None:
@@ -82,19 +114,40 @@ def planes_equal(SQ, cfg, a: dict, b: dict, out_a, out_b):
     return err, bad
 
 
+def java_home(cfg, kal, kah, kbl, kbh):
+    """The java hash's home tile of 128-bit keys (4 int32 word arrays)."""
+    import numpy as np
+
+    def mul(v, c):
+        return (v.astype(np.int64) * c) & 0xFFFFFFFF
+
+    h = (mul(kal, 0x9E3779B9) ^ mul(kah, 0x85EBCA6B) ^ mul(kbl, 0xC2B2AE35)
+         ^ mul(kbh, 69069))
+    return (h.astype(np.uint32).view(np.int32) >> 7) & (cfg.caprows - 1)
+
+
 def batch_bytes(SQ, cfg, cols: dict, out, pre: dict, post: dict,
                 barriers: int) -> int:
     """Least bytes one dispatch must move, counted from this batch: its
     message columns read once; each state row its messages must read,
-    once per plane (the book blocks of book-touching messages, the
-    lane rows, the balance rows of takers, makers and credited accounts,
-    the hash rows at the home tiles of the takers' and makers' position
-    keys, and for an executed PAYOUT the whole key plane plus the amount
-    rows where the lane's keys sit, from the pre-batch hash); each state
-    row it changed, written once; the output's used rows."""
+    once per plane (of each book-touching lane, all 2*NR `bs` rows, which
+    the free-slot search and the sweep scan whole, and of the other book
+    planes only what live orders need: the `bo`/`bp`/`bq` rows that hold
+    a live order before the batch, and the `ba` rows of the makers
+    filled (Q2 ghosts included), of the orders cancelled and of the
+    orders a barrier settles; the lane rows, the balance rows of takers,
+    makers and credited accounts, the hash rows at the home tiles of the
+    takers' and makers' position keys — in java mode the 9 hash planes
+    at the home tiles of the real 128-bit keys and the raw-aid rows of
+    the makers — and for an executed PAYOUT the whole key plane plus the
+    amount rows where the lane's keys sit, from the pre-batch hash);
+    each state row it changed, written once (java's (amount, available)
+    keys are counted there); the output's used rows."""
     import numpy as np
+    import torch
 
     B, NR, A = cfg.batch, cfg.nr, cfg.accounts
+    java = cfg.compat == "java"
     act, lane, aid = cols["act"], cols["lane"], cols["aid"]
     res = SQ.unpack_out(cfg, out.cpu().numpy(), B)
     f_aid = res["fills"][1].astype(np.int64)
@@ -103,20 +156,58 @@ def batch_bytes(SQ, cfg, cols: dict, out, pre: dict, post: dict,
     read = {}
     book = np.isin(act, [SQ.L_BUY, SQ.L_SELL, SQ.L_CANCEL, SQ.L_PAYOUT_YES,
                          SQ.L_PAYOUT_NO, SQ.L_REMOVE_SYMBOL])
-    blk = (lane[book].astype(np.int64)[:, None] * 2 * NR
+    blk = (np.unique(lane[book]).astype(np.int64)[:, None] * 2 * NR
            + np.arange(2 * NR)).ravel()
-    for k in ("bo_lo", "bo_hi", "ba", "bp", "bs", "bq"):
-        read[k] = [blk]
-    for k in ("seqc", "bex", "dep"):
+    read["bs"] = [blk]
+    # the live orders before the batch, by (lane, oid) -> row
+    at = torch.nonzero(pre["bs"] > 0)
+    rows = at[:, 0].cpu().numpy().astype(np.int64)
+    oids = ((pre["bo_lo"][at[:, 0], at[:, 1]].cpu().numpy().astype(np.int64)
+             & 0xFFFFFFFF)
+            | (pre["bo_hi"][at[:, 0], at[:, 1]].cpu().numpy()
+               .astype(np.int64) << 32))
+    del at
+    live = np.intersect1d(rows, blk)
+    for k in ("bo_lo", "bo_hi", "bp", "bq"):
+        read[k] = [live]
+    where = dict(zip(zip((rows // (2 * NR)).tolist(), oids.tolist()),
+                     rows.tolist()))
+    cancel = act == SQ.L_CANCEL
+    c_oid = ((cols["oid_lo"][cancel].astype(np.int64) & 0xFFFFFFFF)
+             | (cols["oid_hi"][cancel].astype(np.int64) << 32))
+    wanted = (list(zip(f_lane.tolist(), res["fills"][0].tolist()))
+              + list(zip(lane[cancel].tolist(), c_oid.tolist())))
+    ba = [where[k] for k in wanted if k in where]
+    settle = np.unique(lane[np.isin(act, [SQ.L_PAYOUT_YES, SQ.L_PAYOUT_NO,
+                                          SQ.L_REMOVE_SYMBOL])])
+    ba.extend(rows[np.isin(rows // (2 * NR), settle)].tolist())
+    read["ba"] = [np.asarray(ba, np.int64)]
+    for k in ("seqc", "bex") + (() if java else ("dep",)):
         read[k] = [lane[dev] >> 7]
     accs = [aid[dev].astype(np.int64), f_aid]
     trade = np.isin(act, [SQ.L_BUY, SQ.L_SELL, SQ.L_CANCEL])
-    keys = np.concatenate([lane[trade].astype(np.int64) * A + aid[trade] + 1,
-                           f_lane * A + f_aid + 1])
-    h = ((keys * -1640531527) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
-    tiles = (h >> 7) & (cfg.caprows - 1)
-    for k in ("hk", "ha_lo", "ha_hi", "hv_lo", "hv_hi"):
-        read[k] = [tiles]
+    if java:
+        def word(plane, idx):
+            return post[plane].reshape(-1).cpu().numpy()[idx]
+
+        nf = res["nfill"]
+        keys = [np.concatenate([cols["aidr_lo"][trade], word("araw_lo", f_aid)]),
+                np.concatenate([cols["aidr_hi"][trade], word("araw_hi", f_aid)]),
+                np.concatenate([cols["sidr_lo"][trade],
+                                np.repeat(cols["sidr_lo"], nf)]),
+                np.concatenate([cols["sidr_hi"][trade],
+                                np.repeat(cols["sidr_hi"], nf)])]
+        tiles = java_home(cfg, *keys)
+        for k in JAVA_HASH:
+            read[k] = [tiles]
+        read["araw_lo"] = read["araw_hi"] = [f_aid >> 7]
+    else:
+        keys = np.concatenate([lane[trade].astype(np.int64) * A + aid[trade]
+                               + 1, f_lane * A + f_aid + 1])
+        h = ((keys * -1640531527) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+        tiles = (h >> 7) & (cfg.caprows - 1)
+        for k in ("hk", "ha_lo", "ha_hi", "hv_lo", "hv_hi"):
+            read[k] = [tiles]
     pays = np.flatnonzero(np.isin(act, [SQ.L_PAYOUT_YES, SQ.L_PAYOUT_NO]))
     if barriers and len(pays):
         hk = pre["hk"].cpu().numpy()
@@ -135,8 +226,153 @@ def batch_bytes(SQ, cfg, cols: dict, out, pre: dict, post: dict,
     changed = sum(int((pre[k] != post[k]).any(dim=1).sum())
                   for k in SQ.state_keys(cfg))
     ft = int(out[0, 1])
-    return (7 * 4 * B + (nread + changed) * ROW_BYTES
+    return (len(SQ.msg_fields(cfg)) * 4 * B + (nread + changed) * ROW_BYTES
             + SQ.used_rows(cfg, ft) * ROW_BYTES)
+
+
+def route_chunks(SQ, SeqRouter, cfg, msgs):
+    """The stream cut into the session's dispatches, packed as the
+    kernel's message columns (one chunk per `batch` messages)."""
+    router = SeqRouter(cfg.lanes, cfg.accounts, cfg.compat)
+    chunks = []
+    for lo in range(0, len(msgs), cfg.batch):
+        cols, _ = router.route(msgs[lo:lo + cfg.batch])
+        chunks.append(SQ.pack_msgs(cfg, cols, len(cols["act"])))
+    return chunks
+
+
+def trade_chunk(SQ, chunks):
+    return next(i for i, c in enumerate(chunks)
+                if ((c["act"] == SQ.L_BUY) | (c["act"] == SQ.L_SELL)).any())
+
+
+def check_batches(SQ, cfg, chunks, checks, label):
+    """Every chunk through the kernel from an empty state; each chunk in
+    `checks` also through the plain version from the same pre-state:
+    planes, header rows and used fill prefix must be equal. -> (state,
+    max abs err, plain ms per checked batch, outputs of the checked
+    batches)."""
+    import torch
+
+    state = SQ.make_seq_state(cfg)
+    max_err, plain_ms, outs = 0, [], {}
+    for i, c in enumerate(chunks):
+        dm = SQ.msgs_to_device(c, "cuda")
+        if i in checks:
+            pre = SQ.state_to_numpy(state)
+        out = SQ.seq_step(cfg, state, dm)
+        if i in checks:
+            torch.cuda.synchronize()
+            ref_state = SQ.state_from_numpy(cfg, pre, "cpu")
+            del pre
+            t = time.perf_counter()
+            ref_out = SQ.seq_step(cfg, ref_state, SQ.msgs_to_device(c, "cpu"))
+            plain_ms.append((time.perf_counter() - t) * 1e3)
+            err, bad = planes_equal(SQ, cfg, state, ref_state, out, ref_out)
+            del ref_state
+            max_err = max(max_err, err)
+            if bad:
+                fail(f"{label} batch {i}: kernel != plain version in {bad} "
+                     f"(max abs err {err})")
+            outs[i] = out.cpu()
+            log(f"{label} batch {i}: {int((c['act'] != 0).sum())} messages, "
+                f"fill_total {int(out[0, 1])}, kernel == plain version bit "
+                f"for bit ({len(state)} planes, {SQ.hdr_rows(cfg)} header "
+                f"rows, used fill prefix); plain version {plain_ms[-1]:.1f} "
+                f"ms on the host CPU")
+    torch.cuda.synchronize()
+    if int(state["err"][0, 0]) != 0:
+        fail(f"{label}: sticky error {int(state['err'][0, 0])} in the "
+             f"checked run")
+    return state, max_err, plain_ms, outs
+
+
+def main_path(SQ, ses, msgs, label):
+    """The stream end to end through process_wire with every launch count
+    set to 0 just before and read just after. -> (MatchOut lines, sha256,
+    host wall s, launches by configuration)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in SQ.LAUNCHES:
+        SQ.LAUNCHES[key] = 0
+    hasher = hashlib.sha256()
+    nlines = 0
+    t = time.perf_counter()
+    for lo in range(0, len(msgs), ses.cfg.batch):
+        for lines in ses.process_wire(msgs[lo:lo + ses.cfg.batch]):
+            for ln in lines:
+                hasher.update(ln.encode())
+                hasher.update(b"\n")
+            nlines += len(lines)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(SQ.LAUNCHES)
+    key = ses.cfg.compat
+    if launches[key] != ses.dispatches or launches[key] == 0:
+        fail(f"{label}: launches {launches[key]} != dispatches "
+             f"{ses.dispatches}")
+    if sum(launches.values()) != launches[key]:
+        fail(f"{label}: launches of another configuration {launches}")
+    log(f"{label} end to end: {len(msgs)} messages in {wall:.3f} s = "
+        f"{len(msgs) / wall:.0f} msg/s (host clock, synchronized); "
+        f"{ses.dispatches} dispatches, {launches[key]} kernel launches")
+    phases = dict(ses.phases, lines_s=wall - sum(ses.phases.values()))
+    log(f"{label} phases (s, host clock; fetch_s includes waiting for the "
+        "kernel, lines_s is building the MatchOut lines): "
+        + json.dumps({k: round(v, 4) for k, v in phases.items()}))
+    log(f"{label} max_memory_allocated {torch.cuda.max_memory_allocated()} "
+        f"bytes")
+    log(f"{label} MatchOut: {nlines} lines, sha256 {hasher.hexdigest()}")
+    return nlines, hasher.hexdigest(), wall, launches[key]
+
+
+def timed_replay(SQ, cfg, chunks, nmsgs, wall, card, label):
+    """The same dispatches again from an empty state, CUDA events around
+    each launch, and each dispatch's byte bound. -> (mean ms, bound ms)."""
+    import torch
+    from kme_tpu_torch.engine.lanes import MET_BARRIERS
+
+    state = SQ.make_seq_state(cfg)
+    dev_chunks = [SQ.msgs_to_device(c, "cuda") for c in chunks]
+    scratch = SQ.make_seq_state(cfg)
+    for c in dev_chunks[:3]:          # warm-up on a scratch state
+        SQ.seq_step(cfg, scratch, c)
+    torch.cuda.synchronize()
+    del scratch
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in dev_chunks]
+    bytes_per = []
+    for (e0, e1), c, hc in zip(ev, dev_chunks, chunks):
+        pre = {k: v.clone() for k, v in state.items()}
+        e0.record()
+        out = SQ.seq_step(cfg, state, c)
+        e1.record()
+        bytes_per.append(batch_bytes(SQ, cfg, hc, out, pre, state,
+                                     int(out[0, 2 + MET_BARRIERS])))
+        del pre
+    torch.cuda.synchronize()
+    ms = [e0.elapsed_time(e1) for e0, e1 in ev]
+    kern_ms = sum(ms) / len(ms)
+    bound_ms = sum(bytes_per) / len(bytes_per) / HBM_BYTES_PER_S * 1e3
+    log(f"{label} kernel: {kern_ms:.4f} ms per {cfg.batch}-message dispatch "
+        f"(mean of {len(ms)}, min {min(ms):.4f}, max {max(ms):.4f}) = "
+        f"{sum(ms) * 1e6 / nmsgs:.0f} ns/message; byte bound "
+        f"{bound_ms:.6f} ms per dispatch ({sum(bytes_per) / len(ms):.0f} B "
+        f"at 3.35 TB/s); card {card}")
+    log(f"{label} kernel time of the stream {sum(ms) / 1e3:.4f} s = "
+        f"{sum(ms) / 1e3 / wall:.1%} of the end-to-end wall")
+    return kern_ms, bound_ms
+
+
+def kernel_entry(name, replaces, launches, max_err, kern_ms, plain_ms,
+                 bound_ms):
+    return {"name": name, "route": "cuda",
+            "source": "kme_tpu_torch/csrc/seq_step.cu", "replaces": replaces,
+            "launches": launches, "max_abs_err": max_err, "ms": kern_ms,
+            "plain_ms": sum(plain_ms) / len(plain_ms), "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None}
 
 
 def main() -> int:
@@ -149,16 +385,17 @@ def main() -> int:
     try:
         from kme_tpu_torch import native
         from kme_tpu_torch.engine import seq as SQ
-        from kme_tpu_torch.engine.lanes import MET_BARRIERS, MET_REJ_RISK
+        from kme_tpu_torch.engine.lanes import MET_REJ_RISK
         from kme_tpu_torch.runtime.seqsession import SeqRouter, SeqSession
         from kme_tpu_torch.wire import dumps_order, parse_order
-        from kme_tpu_torch.workload import zipf_symbol_stream
+        from kme_tpu_torch.workload import harness_stream, zipf_symbol_stream
     except ImportError as e:
         fail(f"the port's package is not importable here ({e}); run from "
              f"the root of a checkout")
     if "jax" in sys.modules or any(m == "kme_tpu" or m.startswith("kme_tpu.")
                                    for m in sys.modules):
         fail("the port imported JAX or the JAX package")
+    kernels = []
 
     # ---- 1. card and build
     card = card_line()
@@ -171,40 +408,36 @@ def main() -> int:
         f"csrc/seq_step.cu sha256 {native.source_sha256('seq_step')}; ptxas:")
     log(native.build_logs.get("seq_step", ""))
 
-    # ---- 2. small: card session vs CPU session
-    cfg_s = SQ.SeqConfig(**SMALL)
-    msgs = zipf_symbol_stream(3000, num_symbols=12, num_accounts=200, seed=5,
-                              payout_per_mille=6)
-    gpu, cpu = SeqSession(cfg_s), SeqSession(cfg_s, device="cpu")
-    for lo in range(0, len(msgs), 700):
-        part = msgs[lo:lo + 700]
-        if gpu.process_wire(part) != cpu.process_wire(part):
-            fail(f"small stream: MatchOut differs in messages {lo}..")
-    torch.cuda.synchronize()
-    for k in SQ.state_keys(cfg_s):
-        if not torch.equal(gpu.state[k].cpu(), cpu.state[k]):
-            fail(f"small stream: state plane {k} differs")
-    log(f"small: {len(msgs)} messages, card == plain version "
-        f"(MatchOut lines and all state planes)")
+    # ---- 2. small: card session vs CPU session; 2b. the same in java mode
+    for label, kw, msgs in (
+            ("small", SMALL, zipf_symbol_stream(
+                3000, num_symbols=12, num_accounts=200, seed=5,
+                payout_per_mille=6)),
+            ("small java", SMALL_JAVA, harness_stream(1500, seed=3))):
+        cfg_s = SQ.SeqConfig(**kw)
+        gpu, cpu = SeqSession(cfg_s), SeqSession(cfg_s, device="cpu")
+        for lo in range(0, len(msgs), 700):
+            part = msgs[lo:lo + 700]
+            if gpu.process_wire(part) != cpu.process_wire(part):
+                fail(f"{label} stream: MatchOut differs in messages {lo}..")
+        torch.cuda.synchronize()
+        for k in SQ.state_keys(cfg_s):
+            if not torch.equal(gpu.state[k].cpu(), cpu.state[k]):
+                fail(f"{label} stream: state plane {k} differs")
+        log(f"{label}: {len(msgs)} messages, card == plain version "
+            f"(MatchOut lines and all {len(gpu.state)} state planes)")
 
-    # ---- 3. kernel vs plain version at full width
+    # ---- 3. B1 vs plain version at full width
     cfg = SQ.SeqConfig(**FULL)
     t = time.perf_counter()
-    msgs = zipf_symbol_stream(100_000, num_symbols=1024, num_accounts=4096,
-                              seed=0, payout_per_mille=2)
-    wire = [dumps_order(m) for m in msgs]
-    msgs = [parse_order(w) for w in wire]
+    msgs = zipf_symbol_stream(**STREAM)
+    msgs = [parse_order(dumps_order(m)) for m in msgs]
     log(f"stream: {len(msgs)} messages, "
         f"{sum(m.action == 200 for m in msgs)} PAYOUT barriers, parsed from "
         f"JSON in {time.perf_counter() - t:.1f} s")
     B = cfg.batch
-    router = SeqRouter(cfg.lanes, cfg.accounts)
-    chunks = []
-    for lo in range(0, len(msgs), B):
-        cols, _ = router.route(msgs[lo:lo + B])
-        chunks.append(SQ.pack_msgs(cfg, cols, len(cols["act"])))
-    first_trade = next(i for i, c in enumerate(chunks)
-                       if ((c["act"] == SQ.L_BUY) | (c["act"] == SQ.L_SELL)).any())
+    chunks = route_chunks(SQ, SeqRouter, cfg, msgs)
+    first_trade = trade_chunk(SQ, chunks)
     last = len(chunks) - 1
     pays = [i for i, c in enumerate(chunks)
             if ((c["act"] == SQ.L_PAYOUT_YES)
@@ -214,32 +447,7 @@ def main() -> int:
     # a PAYOUT batch of its own when the first-trades batch holds one too
     pay = next((i for i in pays if i not in (first_trade, last)), pays[0])
     checks = sorted({first_trade, pay, last})
-    state = SQ.make_seq_state(cfg)
-    max_err, plain_ms = 0, []
-    for i, c in enumerate(chunks):
-        dm = SQ.msgs_to_device(c, "cuda")
-        if i in checks:
-            pre = SQ.state_to_numpy(state)
-        out = SQ.seq_step(cfg, state, dm)
-        if i in checks:
-            torch.cuda.synchronize()
-            ref_state = SQ.state_from_numpy(cfg, pre, "cpu")
-            t = time.perf_counter()
-            ref_out = SQ.seq_step(cfg, ref_state, SQ.msgs_to_device(c, "cpu"))
-            plain_ms.append((time.perf_counter() - t) * 1e3)
-            err, bad = planes_equal(SQ, cfg, state, ref_state, out, ref_out)
-            max_err = max(max_err, err)
-            if bad:
-                fail(f"batch {i}: kernel != plain version in {bad} "
-                     f"(max abs err {err})")
-            log(f"batch {i}: {int((c['act'] != 0).sum())} messages, "
-                f"fill_total {int(out[0, 1])}, kernel == plain version "
-                f"bit for bit (18 planes, {SQ.hdr_rows(cfg)} header rows, "
-                f"used fill prefix); plain version {plain_ms[-1]:.1f} ms "
-                f"on the host CPU")
-    torch.cuda.synchronize()
-    if int(state["err"][0, 0]) != 0:
-        fail(f"sticky error {int(state['err'][0, 0])} in the checked run")
+    state, max_err, plain_ms, _ = check_batches(SQ, cfg, chunks, checks, "B1")
     log(f"checked batches {checks}: first with trades {first_trade}, "
         f"with a PAYOUT {pay}, last {last}")
 
@@ -280,25 +488,9 @@ def main() -> int:
         f"{int(outs[i][0, 1])}, kernel == plain version bit for bit")
     del lstate, outs, pres
 
-    # ---- 4. the stream end to end through the session
+    # ---- 4. B1 main path: the stream end to end through the session
     ses = SeqSession(cfg)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    SQ.LAUNCHES["seq_step"] = 0
-    hasher = hashlib.sha256()
-    nlines = 0
-    t = time.perf_counter()
-    for lo in range(0, len(msgs), B):
-        for lines in ses.process_wire(msgs[lo:lo + B]):
-            for ln in lines:
-                hasher.update(ln.encode())
-                hasher.update(b"\n")
-            nlines += len(lines)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t
-    launches = SQ.LAUNCHES["seq_step"]
-    if launches != ses.dispatches or launches == 0:
-        fail(f"launches {launches} != dispatches {ses.dispatches}")
+    _, _, wall, launches = main_path(SQ, ses, msgs, "B1")
     met = ses.metrics()
     canon = SQ.export_canonical(cfg, ses.state)
     if int(canon["err"]) != 0:
@@ -308,56 +500,91 @@ def main() -> int:
         fail(f"{neg} negative balances after the stream")
     if not torch.equal(ses.state["bal_lo"], state["bal_lo"]):
         fail("session run and chunked check run disagree on balances")
-    log(f"end to end: {len(msgs)} messages in {wall:.3f} s = "
-        f"{len(msgs) / wall:.0f} msg/s (host clock, synchronized); "
-        f"{ses.dispatches} dispatches, {launches} kernel launches")
-    phases = dict(ses.phases, lines_s=wall - sum(ses.phases.values()))
-    log("phases (s, host clock; fetch_s includes waiting for the kernel, "
-        "lines_s is building the MatchOut lines): "
-        + json.dumps({k: round(v, 4) for k, v in phases.items()}))
     log(f"fills {met['fills']}, accepted trades {met['trades_ok']}, "
         f"capacity rejects {met['rej_capacity']}, risk rejects "
         f"{met['rej_risk']}, barriers {met['barriers']}, open orders "
         f"{met['open_orders']}, positions {met['positions']}")
-    log(f"max_memory_allocated {torch.cuda.max_memory_allocated()} bytes")
-    log(f"MatchOut: {nlines} lines, sha256 {hasher.hexdigest()}")
+    cap_128 = met["rej_capacity"]
+    del ses, state
+    kern_ms, bound_ms = timed_replay(SQ, cfg, chunks, len(msgs), wall, card,
+                                     "B1")
+    kernels.append(kernel_entry("seq_step", "kme_tpu/engine/seq.py:1549",
+                                launches, max_err, kern_ms, plain_ms,
+                                bound_ms))
 
-    # timed replay of the same dispatches: CUDA events around each launch
-    state = SQ.make_seq_state(cfg)
-    dev_chunks = [SQ.msgs_to_device(c, "cuda") for c in chunks]
-    for c in dev_chunks[:3]:          # warm-up on a scratch state
-        SQ.seq_step(cfg, SQ.make_seq_state(cfg), c)
-    torch.cuda.synchronize()
-    ev = [(torch.cuda.Event(enable_timing=True),
-           torch.cuda.Event(enable_timing=True)) for _ in dev_chunks]
-    bytes_per = []
-    for (e0, e1), c, hc in zip(ev, dev_chunks, chunks):
-        pre = {k: v.clone() for k, v in state.items()}
-        e0.record()
-        out = SQ.seq_step(cfg, state, c)
-        e1.record()
-        bytes_per.append(batch_bytes(SQ, cfg, hc, out, pre, state,
-                                     int(out[0, 2 + MET_BARRIERS])))
-    torch.cuda.synchronize()
-    ms = [e0.elapsed_time(e1) for e0, e1 in ev]
-    kern_ms = sum(ms) / len(ms)
-    bound_ms = sum(bytes_per) / len(bytes_per) / HBM_BYTES_PER_S * 1e3
-    log(f"kernel: {kern_ms:.4f} ms per {B}-message dispatch (mean of "
-        f"{len(ms)}, min {min(ms):.4f}, max {max(ms):.4f}) = "
-        f"{sum(ms) * 1e6 / len(msgs):.0f} ns/message; byte bound "
-        f"{bound_ms:.6f} ms per dispatch ({sum(bytes_per) / len(ms):.0f} B "
-        f"at 3.35 TB/s); card {card}")
-    log(f"kernel time of the stream {sum(ms) / 1e3:.4f} s = "
-        f"{sum(ms) / 1e3 / wall:.1%} of the end-to-end wall")
+    # ---- 3b. B3: deep books (8192 slots) on the same stream
+    cfg = SQ.SeqConfig(**DEEP)
+    chunks = route_chunks(SQ, SeqRouter, cfg, msgs)
+    state, max_err, plain_ms, _ = check_batches(SQ, cfg, chunks, checks, "B3")
+    bal_lo = state["bal_lo"].clone()
+    del state
+    ses = SeqSession(cfg)
+    _, _, wall, launches = main_path(SQ, ses, msgs, "B3")
+    met = ses.metrics()
+    err = int(ses.state["err"][0, 0])
+    if err != 0:
+        fail(f"B3: sticky error {err} after the stream")
+    if not torch.equal(ses.state["bal_lo"], bal_lo):
+        fail("B3: session run and chunked check run disagree on balances")
+    log(f"B3 fills {met['fills']}, accepted trades {met['trades_ok']}, "
+        f"capacity rejects {met['rej_capacity']} (at 128 slots, phase 4: "
+        f"{cap_128}), risk rejects {met['rej_risk']}, barriers "
+        f"{met['barriers']}, open orders {met['open_orders']}, positions "
+        f"{met['positions']}, deepest side {met['max_book_depth']}, sticky "
+        f"error {err}")
+    del ses
+    kern_ms, bound_ms = timed_replay(SQ, cfg, chunks, len(msgs), wall, card,
+                                     "B3")
+    kernels.append(kernel_entry("seq_step_deep", "kme_tpu/engine/seq.py:1549",
+                                launches, max_err, kern_ms, plain_ms,
+                                bound_ms))
+
+    # ---- 3c. B2 with B3: java mode at 8192 slots, the java zipf stream
+    cfg = SQ.SeqConfig(**JAVA)
+    t = time.perf_counter()
+    msgs = zipf_symbol_stream(**JAVA_STREAM)
+    msgs = [parse_order(dumps_order(m)) for m in msgs]
+    log(f"java stream: {len(msgs)} messages, parsed from JSON in "
+        f"{time.perf_counter() - t:.1f} s")
+    chunks = route_chunks(SQ, SeqRouter, cfg, msgs)
+    first_trade = trade_chunk(SQ, chunks)
+    checks = sorted({first_trade, len(chunks) // 2, len(chunks) - 1})
+    state, max_err, plain_ms, outs = check_batches(SQ, cfg, chunks, checks,
+                                                   "B2")
+    ghosts = int((SQ.unpack_out(cfg, outs[first_trade].numpy(), cfg.batch)
+                  ["fills"][3] == 0).sum())
+    if ghosts == 0:
+        fail(f"B2: the first batch with trades ({first_trade}) holds no Q2 "
+             f"ghost fill")
+    log(f"B2 checked batches {checks}: the first with trades holds {ghosts} "
+        f"zero-size Q2 ghost fills")
+    del state, outs
+    ses = SeqSession(cfg)
+    nlines, sha, wall, launches = main_path(SQ, ses, msgs, "B2")
+    if (nlines, sha) != (JAVA_LINES, JAVA_SHA256):
+        fail(f"B2: MatchOut {nlines} lines sha256 {sha}; the java oracle "
+             f"gives {JAVA_LINES} lines sha256 {JAVA_SHA256}")
+    j = SQ.export_java(cfg, ses.state)
+    open_orders = int((j["slot_size"] > 0).sum())
+    npos = len(j["positions"])
+    if int(j["err"]) != 0:
+        fail(f"B2: sticky error {int(j['err'])} after the stream")
+    if (open_orders, npos) != (JAVA_OPEN_ORDERS, JAVA_POSITIONS):
+        fail(f"B2: {open_orders} open orders and {npos} positions at the "
+             f"end; the java oracle has {JAVA_OPEN_ORDERS} and "
+             f"{JAVA_POSITIONS}")
+    log(f"B2 MatchOut == the java oracle's ({JAVA_LINES} lines, sha256 "
+        f"{JAVA_SHA256}); {open_orders} open orders, {npos} positions (real "
+        f"and Q11 keys), sticky error 0")
+    del ses, j
+    kern_ms, bound_ms = timed_replay(SQ, cfg, chunks, len(msgs), wall, card,
+                                     "B2")
+    kernels.append(kernel_entry("seq_step_java", "kme_tpu/engine/seq.py:1549",
+                                launches, max_err, kern_ms, plain_ms,
+                                bound_ms))
 
     # ---- 5. summary
-    print(json.dumps({"kernels": [{
-        "name": "seq_step", "route": "cuda",
-        "source": "kme_tpu_torch/csrc/seq_step.cu",
-        "replaces": "kme_tpu/engine/seq.py:1549",
-        "launches": launches, "max_abs_err": max_err,
-        "ms": kern_ms, "plain_ms": sum(plain_ms) / len(plain_ms),
-        "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}]}))
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,12 +1,33 @@
-// seq_step: the fixed-mode sequential matching kernel for Hopper (sm_90a).
+// seq_step: the sequential matching kernel for Hopper (sm_90a), in every
+// configuration of the TPU kernel.
 //
 // Replaces kme_tpu/engine/seq.py `build_seq_step` (the Pallas kernel body
-// :346-1531 launched by `pl.pallas_call` at :1549), compat='fixed', books
-// held on the card, and `build_seq_scan` (:1576): K chunks of B messages
-// run in ONE launch, the chunk loop inside the kernel. The state planes
-// (same names, shapes and int32 lo/hi split as the JAX package) are
-// updated in place; the output plane layout is byte-for-byte the JAX
-// one (kme_tpu_torch/engine/seq.py `out_rows`).
+// :346-1531 launched by `pl.pallas_call` at :1549) and `build_seq_scan`
+// (:1576): K chunks of B messages run in ONE launch, the chunk loop
+// inside the kernel. The state planes (same names, shapes and int32
+// lo/hi split as the JAX package) are updated in place; the output plane
+// layout is byte-for-byte the JAX one (kme_tpu_torch/engine/seq.py
+// `out_rows`). One template, two instantiations:
+//
+// - seq_scan_kernel<false>, entry kme_seq_scan: compat='fixed';
+// - seq_scan_kernel<true>, entry kme_seq_scan_java: compat='java' (the
+//   JAVA branches of the Pallas body: Q1 merged symbol-0 book, Q2 ghost
+//   fill, Q11 128-bit-key tombstoned position hash :566-754, raw-id
+//   tables :897-914, fatal LERR_JAVA_DOMAIN / LERR_JAVA_CAP, no barriers
+//   and no dep plane).
+//
+// hbm_books=True (the TPU's deep books, :785-805) is the same kernel at
+// more rows per side (NR = slots/128, 64 at 8192 slots). The TPU needs a
+// separate path because VMEM cannot hold deep books, so it keeps them in
+// HBM and copies one symbol's rows into a VMEM cache at each switch. Here
+// every book row is read in place from device memory at any depth. At
+// 8192 slots x 1024 symbols the six book planes take 403 MB, more than
+// the 50 MB L2, so the L2 becomes the card's counterpart of that cache: a
+// hot symbol's 2*NR rows x 6 planes (393 KB) stay resident by locality.
+// A shared-memory cache cannot hold them (227 KB per block); staging the
+// opposite side's price/size/seq rows (96 KB) is later work. The sweep
+// scratch holds NR + 2 rows in shared memory (33.8 KB at 8192 slots);
+// above 48 KB (slots >= 12160) the launcher opts in to more.
 //
 // What bounds it on this card: not bandwidth. Each message reads and
 // writes a few hundred bytes of state, but message m+1 may depend on
@@ -43,15 +64,22 @@ constexpr unsigned FULL = 0xffffffffu;
 constexpr int L_NOP = 0, L_BUY = 1, L_SELL = 2, L_CANCEL = 3, L_CREATE = 4,
               L_TRANSFER = 5, L_ADD_SYMBOL = 6, L_PAYOUT_YES = 7,
               L_PAYOUT_NO = 8, L_REMOVE_SYMBOL = 9;
-constexpr int LERR_OK = 0, LERR_FILLBUF_FULL = 3, LERR_HASH_FULL = 4;
+constexpr int LERR_OK = 0, LERR_FILLBUF_FULL = 3, LERR_HASH_FULL = 4,
+              LERR_JAVA_DOMAIN = 5, LERR_JAVA_CAP = 6;
+constexpr int AMASK = (1 << 30) - 1;  // java: ba = aid index | is_buy << 30
 constexpr int N_METRICS = 12, NB = 16, HIST_LANE0 = 2 + N_METRICS;
 
 struct Args {
   const int32_t *act, *oidlo, *oidhi, *aid, *price, *size, *lane;
+  // java mode only: raw Java-long aid / sid (lo, hi) and the Q1 flag
+  const int32_t *aidrlo, *aidrhi, *sidrlo, *sidrhi, *flags;
   // state planes: deliberately NOT const/__restrict__, so no load goes
   // through the non-coherent read-only path while the kernel writes them
   int32_t *bo_lo, *bo_hi, *ba, *bp, *bs, *bq, *seqc, *bex, *bal_lo,
-      *bal_hi, *bal_u, *hk, *ha_lo, *ha_hi, *hv_lo, *hv_hi, *dep, *err;
+      *bal_hi, *bal_u, *ha_lo, *ha_hi, *hv_lo, *hv_hi, *err;
+  int32_t *hk, *dep;                                    // fixed mode only
+  int32_t *hka_lo, *hka_hi, *hkb_lo, *hkb_hi, *hstate,  // java mode only
+      *araw_lo, *araw_hi, *sraw_lo, *sraw_hi;
   int32_t *out;
   int K, S, NR, A, E, B, CAPR, FB, PROBE;
 };
@@ -90,6 +118,25 @@ __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
 }
 __device__ __forceinline__ int64_t max64(int64_t a, int64_t b) {
   return a < b ? b : a;
+}
+__device__ __forceinline__ int32_t lo32(int64_t v) {
+  return (int32_t)(uint32_t)(uint64_t)v;
+}
+__device__ __forceinline__ int32_t hi32(int64_t v) {
+  return (int32_t)(uint32_t)((uint64_t)v >> 32);
+}
+// postRemoveAdjustments' arithmetic (KProcessor.java:325-333): the
+// available adjustment and the balance credit of removing an order
+__device__ __forceinline__ void margin(bool isbuy, int32_t price,
+                                      int32_t size, int64_t amt,
+                                      int64_t avail, int64_t& adj,
+                                      int64_t& rel) {
+  const int32_t sgnd = isbuy ? size : wneg(size);
+  const int64_t blocked = sub64(amt, avail);
+  const int64_t nsg = -(int64_t)sgnd;
+  adj = isbuy ? max64(min64(blocked, 0), nsg) : min64(max64(blocked, 0), nsg);
+  const int32_t unit = isbuy ? price : wsub(price, 100);
+  rel = muls64(wadd(sgnd, lo32(adj)), unit);
 }
 
 // ---- warp primitives -----------------------------------------------------
@@ -147,6 +194,9 @@ struct Eng {
   __device__ int64_t bal(int acc) { return j64(a.bal_lo[acc], a.bal_hi[acc]); }
   __device__ void bal_add(int acc, int64_t d) {
     sput64(a.bal_lo, a.bal_hi, acc, add64(bal(acc), d));
+  }
+  __device__ int64_t val(const int32_t* lo, const int32_t* hi, int e) {
+    return j64(lo[e], hi[e]);
   }
 
   // -- position hash: tile-granular linear probing from a Fibonacci home
@@ -237,21 +287,155 @@ struct Eng {
   // postRemoveAdjustments (KProcessor.java:325-333): the balance credit
   __device__ int64_t release_margin(int lane, int acc, bool isbuy,
                                     int32_t price, int32_t size) {
-    int32_t sgnd = isbuy ? size : wneg(size);
-    int64_t amt, avail;
+    int64_t amt, avail, adj, rel;
     pos_get(lane, acc, amt, avail);
-    int64_t blocked = sub64(amt, avail);
-    int64_t nsg = -(int64_t)sgnd;
-    int64_t adj = isbuy ? max64(min64(blocked, 0), nsg)
-                        : min64(max64(blocked, 0), nsg);
-    int32_t unit = isbuy ? price : wsub(price, 100);
-    int64_t rel = muls64(wadd(sgnd, (int32_t)(uint32_t)(uint64_t)adj), unit);
+    margin(isbuy, price, size, amt, avail, adj, rel);
     if (adj != 0 && pos_set(lane, acc, amt, add64(avail, adj)))
       set_err(LERR_HASH_FULL);
     return rel;
   }
+
+  // -- java position hash (Q11): 128-bit keys k = (a lo, a hi, b lo, b hi)
+  // — the real (aid, sid) key or an (amount, available) key — with a state
+  // plane (0 empty, 1 live, 2 tombstone), tile-granular linear probing
+  __device__ int jhome(int4 k) {
+    const uint32_t h = (uint32_t)k.x * 0x9E3779B9u ^
+                       (uint32_t)k.y * 0x85EBCA6Bu ^
+                       (uint32_t)k.z * 0xC2B2AE35u ^ (uint32_t)k.w * 69069u;
+    return ((int32_t)h >> 7) & tmask;
+  }
+  // one tile -> lane minima: live match, empty, reusable (not live)
+  __device__ void jtile(int t, int4 k, int& hx, int& em, int& fr) {
+    const int o = t * LN + 4 * tid;
+    const int4 s4 = ld4(a.hstate + o), al = ld4(a.hka_lo + o),
+               ah = ld4(a.hka_hi + o), bl = ld4(a.hkb_lo + o),
+               bh = ld4(a.hkb_hi + o);
+    int h = BIG, e = BIG, f = BIG;
+#pragma unroll
+    for (int j = 3; j >= 0; --j) {
+      const int st = el(s4, j);
+      if (st == 1 && el(al, j) == k.x && el(ah, j) == k.y &&
+          el(bl, j) == k.z && el(bh, j) == k.w)
+        h = 4 * tid + j;
+      if (st == 0) e = 4 * tid + j;
+      if (st != 1) f = 4 * tid + j;
+    }
+    hx = wmin(h);
+    em = wmin(e);
+    fr = wmin(f);
+  }
+  // -> flat entry or -1; `err` when nothing was found and the probe bound
+  // was reached. Tombstones are passed over, an empty slot ends the probe.
+  __device__ int jfind(int4 k, bool& err) {
+    const int t0 = jhome(k);
+    int hx, em, fr;
+    jtile(t0, k, hx, em, fr);
+    err = false;
+    if (hx < BIG) return t0 * LN + hx;
+    if (em < BIG || 1 >= a.PROBE) {
+      err = 1 >= a.PROBE;
+      return -1;
+    }
+    int t = (t0 + 1) & tmask, probes = 1, res = -1;
+    while (true) {
+      jtile(t, k, hx, em, fr);
+      const bool stop = hx < BIG || em < BIG || probes + 1 >= a.PROBE;
+      if (hx < BIG) res = t * LN + hx;
+      t = (t + 1) & tmask;
+      ++probes;
+      if (stop) break;
+    }
+    err = res < 0 && probes >= a.PROBE;
+    return res;
+  }
+  // -> the live match if there is one, else the first reusable slot on the
+  // probe path (lowest lane of the first tile with one), else -1
+  __device__ int jslot(int4 k) {
+    const int t0 = jhome(k);
+    int hx, em, fr;
+    jtile(t0, k, hx, em, fr);
+    int res = hx < BIG ? t0 * LN + hx : -1;
+    int reuse = fr < BIG ? t0 * LN + fr : -1;
+    if (!(hx < BIG || em < BIG || 1 >= a.PROBE)) {
+      int t = (t0 + 1) & tmask, probes = 1;
+      while (true) {
+        jtile(t, k, hx, em, fr);
+        if (reuse < 0 && fr < BIG) reuse = t * LN + fr;
+        if (hx < BIG) res = t * LN + hx;
+        const bool stop = hx < BIG || em < BIG || probes + 1 >= a.PROBE;
+        t = (t + 1) & tmask;
+        ++probes;
+        if (stop) break;
+      }
+    }
+    return res >= 0 ? res : reuse;
+  }
+  __device__ void jvals(int e, int64_t& amt, int64_t& avail) {
+    amt = e >= 0 ? val(a.ha_lo, a.ha_hi, e) : 0;
+    avail = e >= 0 ? val(a.hv_lo, a.hv_hi, e) : 0;
+  }
+  __device__ void jwrite(int e, int4 k, int64_t amt, int64_t avail) {
+    if (e < 0) return;
+    __syncwarp();
+    if (tid == 0) {
+      a.hstate[e] = 1;
+      a.hka_lo[e] = k.x;
+      a.hka_hi[e] = k.y;
+      a.hkb_lo[e] = k.z;
+      a.hkb_hi[e] = k.w;
+      a.ha_lo[e] = lo32(amt);
+      a.ha_hi[e] = hi32(amt);
+      a.hv_lo[e] = lo32(avail);
+      a.hv_hi[e] = hi32(avail);
+    }
+    __syncwarp();
+  }
+  // insert-or-update `k`; a probe path with no room is HASH_FULL
+  __device__ void jclaim(int4 k, int64_t amt, int64_t avail) {
+    const int e = jslot(k);
+    jwrite(e, k, amt, avail);
+    if (e < 0) set_err(LERR_HASH_FULL);
+  }
+  // fillOrder, java (Q11, KProcessor.java:276-287): the first fill creates
+  // the real (aid, sid) entry; later fills read it but write, or at zero
+  // delete, the (amount, available) key. -> err flag
+  __device__ bool jfill_one(int4 real, int32_t sgn_fill) {
+    bool err;
+    const int e = jfind(real, err);
+    if (e < 0) {
+      if (!err) jclaim(real, (int64_t)sgn_fill, (int64_t)sgn_fill);
+      return err;
+    }
+    int64_t amt, avail;
+    jvals(e, amt, avail);
+    const int64_t na = add64(amt, sgn_fill), nv = add64(avail, sgn_fill);
+    const int4 target = make_int4(lo32(amt), hi32(amt), lo32(avail),
+                                  hi32(avail));
+    if (na == 0) {
+      bool terr;
+      const int te = jfind(target, terr);
+      if (te >= 0) sput(a.hstate, te, 2);  // tombstone
+    } else {
+      jclaim(target, na, nv);
+    }
+    return false;
+  }
+  // postRemoveAdjustments, java: the 2-argument setPosition writes the
+  // adjustment to the (amount, available) key (Q11); the real entry stays
+  __device__ int64_t jrelease_margin(int4 real, bool isbuy, int32_t price,
+                                     int32_t size) {
+    bool err;
+    int64_t amt, avail, adj, rel;
+    jvals(jfind(real, err), amt, avail);
+    margin(isbuy, price, size, amt, avail, adj, rel);
+    if (adj != 0)
+      jclaim(make_int4(lo32(amt), hi32(amt), lo32(avail), hi32(avail)), amt,
+             add64(avail, adj));
+    return rel;
+  }
 };
 
+template <bool JAVA>
 __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
   extern __shared__ __align__(16) int32_t smem[];
   Eng g;
@@ -291,10 +475,37 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
       const bool is_cancel = act == L_CANCEL;
       const bool is_barrier = act == L_PAYOUT_YES || act == L_PAYOUT_NO ||
                               act == L_REMOVE_SYMBOL;
-      const int side = is_buy ? 0 : 1, opp = 1 - side;
+      // Q1 (java): symbol 0's buys and sells share one book, side 0
+      const bool merged = JAVA && (a.flags[mo + m] & 1) != 0;
+      const int side = merged ? 0 : is_buy ? 0 : 1;
+      const int opp = merged ? 0 : 1 - side;
       const int32_t sgn = is_buy ? 1 : -1;
       const int base_own = (lane * 2 * NR + side * NR) * LN;
       const int base_opp = (lane * 2 * NR + opp * NR) * LN;
+      // java: the actor's real position key (raw aid, raw sid)
+      const int4 real =
+          JAVA ? make_int4(a.aidrlo[mo + m], a.aidrhi[mo + m],
+                           a.sidrlo[mo + m], a.sidrhi[mo + m])
+               : make_int4(0, 0, 0, 0);
+      if (JAVA) {
+        // raw-id tables, before the message's own logic
+        if (is_trade || is_cancel || act == L_CREATE || act == L_TRANSFER) {
+          __syncwarp();
+          if (tid == 0) {
+            a.araw_lo[acc] = real.x;
+            a.araw_hi[acc] = real.y;
+          }
+          __syncwarp();
+        }
+        if (act == L_ADD_SYMBOL) {
+          __syncwarp();
+          if (tid == 0) {
+            a.sraw_lo[lane] = real.z;
+            a.sraw_hi[lane] = real.w;
+          }
+          __syncwarp();
+        }
+      }
 
       const bool bex_v = a.bex[lane] != 0;
       const int64_t bal = g.bal(acc);
@@ -318,14 +529,23 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
         const bool valid = limit >= 0 && limit < 126 && size > 0;
         const int32_t sgnd = is_buy ? size : wneg(size);
         int64_t pamt, pav;
-        g.pos_get(lane, acc, pamt, pav);
+        int e_actor = -1;
+        if (JAVA) {
+          // no valid gate: out-of-domain fields are fatal
+          if (!valid) g.set_err(LERR_JAVA_DOMAIN);
+          bool ferr;
+          e_actor = g.jfind(real, ferr);
+          g.jvals(e_actor, pamt, pav);
+        } else {
+          g.pos_get(lane, acc, pamt, pav);
+        }
         const int64_t nsg = -(int64_t)sgnd;
         const int64_t adj = is_buy ? max64(min64(pav, 0), nsg)
                                    : min64(max64(pav, 0), nsg);
         const int32_t unit = is_buy ? limit : wsub(limit, 100);
         const int64_t risk =
             muls64(wadd(sgnd, (int32_t)(uint32_t)(uint64_t)adj), unit);
-        t_ok = valid && bex_v && bal_ok && !(bal < risk);
+        t_ok = (JAVA || valid) && bex_v && bal_ok && !(bal < risk);
 
         // phase 1: non-mutating sweep over a scratch copy of the opposite
         // side's sizes, reset on EVERY trade message (rejected ones too)
@@ -335,8 +555,8 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
         __syncwarp();
         int32_t remaining = t_ok ? size : 0;
         int nfill = 0, nempt = 0;
-        bool ovf = false;
-        while (remaining != 0) {
+        bool ovf = false, emptied = false;
+        while (remaining > 0) {
           // best price*sgn, then lowest seq, then lowest flat slot
           int loc = BIG;
           for (int r = 0; r < NR; ++r) {
@@ -389,16 +609,68 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
           sput(fslot, nfill, flat);
           sput(fsize, nfill, fill);
           remaining -= fill;
-          nempt += have == fill;
+          emptied = have == fill;
+          nempt += emptied;
           ++nfill;
         }
         const int32_t residual = remaining;
 
-        // capacity envelope + Q9 bucket-tail echo (own side)
+        if (JAVA && t_ok && residual == 0 && emptied) {
+          // Q2 (KProcessor.java:237): with the taker exhausted and its last
+          // maker emptied, the next best maker whose price >= limit (either
+          // direction) gives one zero-size fill
+          int loc = BIG;
+          for (int r = 0; r < NR; ++r) {
+            int4 p4 = ld4(a.bp + base_opp + r * LN + 4 * tid);
+            int4 w4 = ld4(wsz + r * LN + 4 * tid);
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              if (el(w4, j) > 0) loc = min(loc, wmul(el(p4, j), sgn));
+          }
+          const int gbest = wmin(loc);
+          if (gbest < BIG) {
+            loc = BIG;
+            for (int r = 0; r < NR; ++r) {
+              int4 p4 = ld4(a.bp + base_opp + r * LN + 4 * tid);
+              int4 q4 = ld4(a.bq + base_opp + r * LN + 4 * tid);
+              int4 w4 = ld4(wsz + r * LN + 4 * tid);
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                if (el(w4, j) > 0 && wmul(el(p4, j), sgn) == gbest)
+                  loc = min(loc, el(q4, j));
+            }
+            const int gss = wmin(loc);
+            loc = BIG;
+            for (int r = 0; r < NR; ++r) {
+              int4 p4 = ld4(a.bp + base_opp + r * LN + 4 * tid);
+              int4 q4 = ld4(a.bq + base_opp + r * LN + 4 * tid);
+              int4 w4 = ld4(wsz + r * LN + 4 * tid);
+#pragma unroll
+              for (int j = 0; j < 4; ++j)
+                if (el(w4, j) > 0 && wmul(el(p4, j), sgn) == gbest &&
+                    el(q4, j) == gss)
+                  loc = min(loc, r * LN + 4 * tid + j);
+            }
+            const int gfc = wmin(loc);
+            if (a.bp[base_opp + gfc] >= limit) {
+              if (nfill >= a.E) {
+                g.set_err(LERR_JAVA_CAP);
+              } else {
+                sput(fslot, nfill, gfc);
+                sput(fsize, nfill, 0);
+                ++nfill;
+              }
+            }
+          }
+        }
+
+        // capacity envelope + Q9 bucket-tail echo (own side); a merged (Q1)
+        // book sees the sweep's sizes on its own side too
+        const int32_t* wown = merged ? wsz : a.bs + base_own;
         int ffree = BIG, smax = -1;
         bool same_any = false;
         for (int r = 0; r < NR; ++r) {
-          int4 w4 = ld4(a.bs + base_own + r * LN + 4 * tid);
+          int4 w4 = ld4(wown + r * LN + 4 * tid);
           int4 p4 = ld4(a.bp + base_own + r * LN + 4 * tid);
           int4 q4 = ld4(a.bq + base_own + r * LN + 4 * tid);
 #pragma unroll
@@ -417,7 +689,7 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
         if (nonempty) {
           int tl = BIG;
           for (int r = 0; r < NR; ++r) {
-            int4 w4 = ld4(a.bs + base_own + r * LN + 4 * tid);
+            int4 w4 = ld4(wown + r * LN + 4 * tid);
             int4 p4 = ld4(a.bp + base_own + r * LN + 4 * tid);
             int4 q4 = ld4(a.bq + base_own + r * LN + 4 * tid);
 #pragma unroll
@@ -430,7 +702,12 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
         tail_lo = a.bo_lo[base_own + tfc];
         tail_hi = a.bo_hi[base_own + tfc];
         const bool rest_want = t_ok && residual > 0;
-        capr = t_ok && (ovf || (rest_want && free_flat >= BIG));
+        const bool over = t_ok && (ovf || (rest_want && free_flat >= BIG));
+        if (JAVA) {
+          if (over) g.set_err(LERR_JAVA_CAP);  // fatal, never a reject
+        } else {
+          capr = over;
+        }
         t_acc = t_ok && !capr;
         do_rest = rest_want && t_acc && free_flat < BIG;
         append = nonempty && do_rest;
@@ -438,8 +715,12 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
         // phase 2: apply
         if (t_acc) {
           g.bal_add(acc, sub64(0, risk));
-          if (adj != 0 && g.pos_set(lane, acc, pamt, sub64(pav, adj)))
+          if (JAVA) {
+            // 3-argument setPosition: the real key keeps its amount
+            if (adj != 0) g.jwrite(e_actor, real, pamt, sub64(pav, adj));
+          } else if (adj != 0 && g.pos_set(lane, acc, pamt, sub64(pav, adj))) {
             g.set_err(LERR_HASH_FULL);
+          }
           __syncwarp();
           for (int r = 0; r < NR; ++r)
             st4(a.bs + base_opp + r * LN + 4 * tid,
@@ -448,7 +729,8 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
           for (int e2 = 0; e2 < nfill; ++e2) {
             const int flat = fslot[e2];
             const int32_t fill = fsize[e2];
-            const int maid = a.ba[base_opp + flat];
+            const int maid = JAVA ? a.ba[base_opp + flat] & AMASK
+                                  : a.ba[base_opp + flat];
             const int32_t mprice = a.bp[base_opp + flat];
             const int pf = fill_total + e2;
             if (pf < a.FB && tid == 0) {
@@ -461,8 +743,16 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
               fr[4 * LN] = fill;
             }
             const int32_t msz = is_buy ? wneg(fill) : fill;
-            const bool me = g.fill_one(lane, maid, msz);
-            const bool te = g.fill_one(lane, acc, wneg(msz));
+            bool me, te;
+            if (JAVA) {
+              me = g.jfill_one(make_int4(a.araw_lo[maid], a.araw_hi[maid],
+                                         real.z, real.w),
+                               msz);
+              te = g.jfill_one(real, wneg(msz));
+            } else {
+              me = g.fill_one(lane, maid, msz);
+              te = g.fill_one(lane, acc, wneg(msz));
+            }
             g.bal_add(acc, (int64_t)wmul(wneg(msz), wsub(limit, mprice)));
             if (me || te) g.set_err(LERR_HASH_FULL);
           }
@@ -472,7 +762,7 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
             const int s = base_own + free_flat;
             sput(a.bo_lo, s, t_oidlo);
             sput(a.bo_hi, s, t_oidhi);
-            sput(a.ba, s, acc);
+            sput(a.ba, s, JAVA ? acc | ((int32_t)is_buy << 30) : acc);
             sput(a.bp, s, limit);
             sput(a.bs, s, residual);
             sput(a.bq, s, seqv);
@@ -504,18 +794,24 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
         const int c_side = f[0] < BIG ? 0 : 1;
         const int c_flat = f[c_side];
         const int cb = (lane * 2 * NR + c_side * NR) * LN;
-        if (c_flat < BIG && a.ba[cb + c_flat] == acc) {
+        const int32_t c_ba = c_flat < BIG ? a.ba[cb + c_flat] : -1;
+        if (c_flat < BIG && (JAVA ? c_ba & AMASK : c_ba) == acc) {
           c_ok = true;
+          // merged (Q1) books hold both directions in side 0, so java reads
+          // the direction from the ba tag bit
+          const bool c_isbuy = JAVA ? ((c_ba >> 30) & 1) != 0 : c_side == 0;
           const int32_t c_price = a.bp[cb + c_flat];
           const int32_t c_size = a.bs[cb + c_flat];
           sput(a.bs, cb + c_flat, 0);
-          g.bal_add(acc, g.release_margin(lane, acc, c_side == 0, c_price,
-                                          c_size));
+          g.bal_add(acc, JAVA ? g.jrelease_margin(real, c_isbuy, c_price,
+                                                  c_size)
+                              : g.release_margin(lane, acc, c_isbuy, c_price,
+                                                 c_size));
         }
       }
 
-      // ---- BARRIERS (payout / remove)
-      const bool barrier_do = is_barrier && bex_v;
+      // ---- BARRIERS (payout / remove; never routed in java mode)
+      const bool barrier_do = !JAVA && is_barrier && bex_v;
       if (barrier_do) {
         // wipe both sides with margin release: buy side first, (price,
         // seq) order within a side
@@ -608,9 +904,9 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
         }
       }
 
-      // ---- dep plane + histograms + outputs + metrics
+      // ---- dep plane (fixed mode) + histograms + outputs + metrics
       if (t_acc) hist_obs(HIST_LANE0, nf);
-      if (t_acc || c_ok || barrier_do) {
+      if (!JAVA && (t_acc || c_ok || barrier_do)) {
         const int32_t newd =
             barrier_do ? 0
                        : wsub(wsub(wadd(a.dep[lane], (int32_t)do_rest), nempt_v),
@@ -672,15 +968,42 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
   }
 }
 
+template <bool JAVA>
+int launch(const Args& a, void* stream) {
+  const size_t smem = (size_t)(a.NR * LN + 2 * LN) * sizeof(int32_t);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        seq_scan_kernel<JAVA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  seq_scan_kernel<JAVA>
+      <<<1, 32, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// dims = K, S, NR, A, E, B, CAPR, FB, PROBE
+void set_dims(Args& a, const int* dims) {
+  a.K = dims[0];
+  a.S = dims[1];
+  a.NR = dims[2];
+  a.A = dims[3];
+  a.E = dims[4];
+  a.B = dims[5];
+  a.CAPR = dims[6];
+  a.FB = dims[7];
+  a.PROBE = dims[8];
+}
+
 }  // namespace
 
-// Plain C entry: ptrs = 7 message columns (K, B), 18 state planes, the
-// (K, rows, 128) output; dims = K, S, NR, A, E, B, CAPR, FB, PROBE.
-// Returns the launch's cudaGetLastError() (0 = launched).
+// Plain C entries. They return the launch's cudaGetLastError() (0 =
+// launched). Fixed mode: ptrs = 7 message columns (K, B), 18 state
+// planes, the (K, rows, 128) output.
 extern "C" int kme_seq_scan(void** ptrs, int nptrs, const int* dims,
                             int ndims, void* stream) {
   if (nptrs != 26 || ndims != 9) return (int)cudaErrorInvalidValue;
-  Args a;
+  Args a = {};
   int i = 0;
   const int32_t** msg[7] = {&a.act, &a.oidlo, &a.oidhi, &a.aid,
                             &a.price, &a.size, &a.lane};
@@ -691,22 +1014,30 @@ extern "C" int kme_seq_scan(void** ptrs, int nptrs, const int* dims,
                       &a.hv_hi, &a.dep,   &a.err};
   for (auto p : st) *p = static_cast<int32_t*>(ptrs[i++]);
   a.out = static_cast<int32_t*>(ptrs[i++]);
-  a.K = dims[0];
-  a.S = dims[1];
-  a.NR = dims[2];
-  a.A = dims[3];
-  a.E = dims[4];
-  a.B = dims[5];
-  a.CAPR = dims[6];
-  a.FB = dims[7];
-  a.PROBE = dims[8];
-  const size_t smem = (size_t)(a.NR * LN + 2 * LN) * sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        seq_scan_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  seq_scan_kernel<<<1, 32, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return (int)cudaGetLastError();
+  set_dims(a, dims);
+  return launch<false>(a, stream);
+}
+
+// Java mode: ptrs = 12 message columns (the 7 of fixed mode, aidr lo/hi,
+// sidr lo/hi, flags), 25 state planes, the output.
+extern "C" int kme_seq_scan_java(void** ptrs, int nptrs, const int* dims,
+                                 int ndims, void* stream) {
+  if (nptrs != 38 || ndims != 9) return (int)cudaErrorInvalidValue;
+  Args a = {};
+  int i = 0;
+  const int32_t** msg[12] = {&a.act,    &a.oidlo,  &a.oidhi, &a.aid,
+                             &a.price,  &a.size,   &a.lane,  &a.aidrlo,
+                             &a.aidrhi, &a.sidrlo, &a.sidrhi, &a.flags};
+  for (auto p : msg) *p = static_cast<const int32_t*>(ptrs[i++]);
+  int32_t** st[25] = {&a.bo_lo,   &a.bo_hi,   &a.ba,      &a.bp,
+                      &a.bs,      &a.bq,      &a.seqc,    &a.bex,
+                      &a.bal_lo,  &a.bal_hi,  &a.bal_u,   &a.hka_lo,
+                      &a.hka_hi,  &a.hkb_lo,  &a.hkb_hi,  &a.hstate,
+                      &a.ha_lo,   &a.ha_hi,   &a.hv_lo,   &a.hv_hi,
+                      &a.araw_lo, &a.araw_hi, &a.sraw_lo, &a.sraw_hi,
+                      &a.err};
+  for (auto p : st) *p = static_cast<int32_t*>(ptrs[i++]);
+  a.out = static_cast<int32_t*>(ptrs[i++]);
+  set_dims(a, dims);
+  return launch<true>(a, stream);
 }

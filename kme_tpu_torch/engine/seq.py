@@ -1,29 +1,51 @@
-"""Sequential matching kernel engine, fixed mode, books on the card.
+"""Sequential matching kernel engine: fixed and java modes, books on the
+card at any depth.
 
-The port of `kme_tpu/engine/seq.py` (`build_seq_step` / `build_seq_scan`,
-`compat='fixed'`, `hbm_books=False`). One kernel call processes a
-micro-batch of B messages STRICTLY SEQUENTIALLY — the reference's own
-execution model (KProcessor.java:95-126, single StreamThread) — against
-the entire engine state, so no scheduling constraints exist at all.
+The port of `kme_tpu/engine/seq.py` (`build_seq_step` /
+`build_seq_scan`, every configuration: `compat='fixed'` or `'java'`,
+`hbm_books` False or True). One kernel call processes a micro-batch of
+B messages STRICTLY SEQUENTIALLY — the reference's own execution model
+(KProcessor.java:95-126, single StreamThread) — against the entire
+engine state, so no scheduling constraints exist at all.
 
-Semantics: compat='fixed' exactly as the JAX kernel, including the
-capacity envelope (slots / max_fills per-message rejects), the Q9 prev
-echo, Java int32/int64 wrap arithmetic, and barrier settles (payout /
-remove wipe order: buy side first, (price, seq) within a side).
+Semantics, exactly as the JAX kernel:
+
+- compat='fixed': the capacity envelope (slots / max_fills per-message
+  rejects), the Q9 prev echo, Java int32/int64 wrap arithmetic, and
+  barrier settles (payout / remove wipe order: buy side first, (price,
+  seq) within a side).
+- compat='java': the reference quirk for quirk on the stock wire
+  surface (COMPAT.md): Q1 (symbol 0's buys and sells share one book,
+  side 0), Q2 (one zero-size ghost fill), Q9, Q11 (positions keyed by
+  their own values, in a 128-bit-key tombstoned hash). No barriers. A
+  price or size outside the device domain sets the sticky
+  LERR_JAVA_DOMAIN; running out of book slots or fills sets the sticky
+  LERR_JAVA_CAP (the reference's stores are unbounded, so it is fatal,
+  never a per-message reject).
+- hbm_books: on the TPU, books too deep for VMEM live in HBM behind a
+  one-lane VMEM cache. The card's kernel reads every book row in place
+  from device memory at any depth, so the port accepts the flag only so
+  that configurations carry across from the JAX package; nothing reads
+  it.
 
 Data layout — identical to the JAX package, so state and output planes
 carry across as a dtype/device copy (`state_from_numpy`):
 
 - book planes (2*S*NR, 128), row = lane*2*NR + side*NR + r, side 0 =
   buy, N = NR*128 slots/side: oid lo/hi, aid, price, size, seq. A slot
-  is occupied iff size > 0.
-- positions: an open-addressing hash of (CAP,) entries in (CAP/128, 128)
-  planes [key, amt lo/hi, avail lo/hi]; key = lane*A + acc + 1 (0 =
-  empty). Entries are never deleted (a live position has amt != 0), and
-  probing is tile-granular linear from a Fibonacci home tile.
+  is occupied iff size > 0. In java mode `ba` packs aid | is_buy << 30.
+- fixed positions: an open-addressing hash of (CAP,) entries in
+  (CAP/128, 128) planes [key, amt lo/hi, avail lo/hi]; key = lane*A +
+  acc + 1 (0 = empty). Entries are never deleted (a live position has
+  amt != 0), and probing is tile-granular linear from a Fibonacci home
+  tile.
+- java positions: the same hash over 128-bit keys (hka lo/hi, hkb
+  lo/hi: the real (aid, sid) key or a Q11 (amount, available) key) with
+  a state plane (0 empty / 1 live / 2 tombstone), plus the raw-id
+  tables araw (account index -> Java-long aid) and sraw (lane -> sid).
 - balances (A/128, 128) lo/hi/used planes; per-lane seq counters,
-  book-exists flags and occupied-slot counts (`dep`) as (ceil(S/128),
-  128) planes; the sticky error in `err` (1, 128).
+  book-exists flags and (fixed mode) occupied-slot counts (`dep`) as
+  (ceil(S/128), 128) planes; the sticky error in `err` (1, 128).
 
 Unlike the JAX kernel, which copies the whole state on every call
 (`input_output_aliases` without donation), the port's kernel updates the
@@ -58,15 +80,31 @@ L_PAYOUT_NO = 8
 L_REMOVE_SYMBOL = 9
 
 LERR_HASH_FULL = 4     # position hash exhausted (pos_cap knob)
+LERR_JAVA_DOMAIN = 5   # java mode: price/size outside the device domain
+LERR_JAVA_CAP = 6      # java mode: slots/max_fills device bound exceeded
 
 LN = 128
 BIG = 1 << 30
+AMASK = (1 << 30) - 1  # java: the ba plane packs aid index | is_buy << 30
 
 _STATE_KEYS = ("bo_lo", "bo_hi", "ba", "bp", "bs", "bq",
                "seqc", "bex", "bal_lo", "bal_hi", "bal_u",
                "hk", "ha_lo", "ha_hi", "hv_lo", "hv_hi", "dep", "err")
 
+# java mode: four key planes and a state plane replace `hk`; no `dep`
+_STATE_KEYS_JAVA = (
+    "bo_lo", "bo_hi", "ba", "bp", "bs", "bq",
+    "seqc", "bex", "bal_lo", "bal_hi", "bal_u",
+    "hka_lo", "hka_hi", "hkb_lo", "hkb_hi", "hstate",
+    "ha_lo", "ha_hi", "hv_lo", "hv_hi",
+    "araw_lo", "araw_hi", "sraw_lo", "sraw_hi", "err")
+
+_JKEY_PLANES = ("hka_lo", "hka_hi", "hkb_lo", "hkb_hi")
+
 MSG_FIELDS = ("act", "oid_lo", "oid_hi", "aid", "price", "size", "lane")
+# java mode adds the raw Java-long aid and sid and the Q1 merged flag
+MSG_FIELDS_JAVA = MSG_FIELDS + ("aidr_lo", "aidr_hi", "sidr_lo", "sidr_hi",
+                                "flags")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,19 +120,11 @@ class SeqConfig:
     fill_cap: int = 1 << 15    # fill entries per call (mult of 128)
     probe_max: int = 64        # max hash tiles probed before HASH_FULL
     compat: str = "fixed"
-    hbm_books: bool = False
+    hbm_books: bool = False    # accepted for the JAX package's configs; unused
 
     def __post_init__(self):
-        if self.compat == "java":
-            raise NotImplementedError(
-                "compat='java' (kernel B2) is not ported yet: it comes "
-                "with the java-compat slice of the port")
-        if self.compat != "fixed":
+        if self.compat not in ("fixed", "java"):
             raise ValueError(f"unknown compat {self.compat!r}")
-        if self.hbm_books:
-            raise NotImplementedError(
-                "hbm_books=True (kernel B3) is not ported yet: it comes "
-                "with the deep-books slice of the port")
         bad = []
         if self.slots % LN or self.slots < LN:
             bad.append("slots must be a positive multiple of 128")
@@ -110,6 +140,9 @@ class SeqConfig:
             bad.append("max_fills must be <= 128")
         if self.lanes * self.accounts + self.accounts >= (1 << 31):
             bad.append("hash keys must fit int32")
+        if 2 * self.lanes * self.slots >= (1 << 31):
+            bad.append("book plane offsets must fit int32 "
+                       "(2 * lanes * slots < 2**31)")
         if bad:
             raise ValueError("; ".join(bad))
 
@@ -142,19 +175,29 @@ def resolve_device(device) -> torch.device:
 
 
 def state_keys(cfg: SeqConfig):
-    return _STATE_KEYS
+    return _STATE_KEYS_JAVA if cfg.compat == "java" else _STATE_KEYS
+
+
+def msg_fields(cfg: SeqConfig):
+    return MSG_FIELDS_JAVA if cfg.compat == "java" else MSG_FIELDS
 
 
 def _plane_rows(cfg: SeqConfig):
     br = 2 * cfg.lanes * cfg.nr
-    return {"bo_lo": br, "bo_hi": br, "ba": br, "bp": br, "bs": br,
+    rows = {"bo_lo": br, "bo_hi": br, "ba": br, "bp": br, "bs": br,
             "bq": br, "seqc": cfg.srows, "bex": cfg.srows,
             "bal_lo": cfg.arows, "bal_hi": cfg.arows, "bal_u": cfg.arows,
-            "hk": cfg.caprows, "ha_lo": cfg.caprows, "ha_hi": cfg.caprows,
-            "hv_lo": cfg.caprows, "hv_hi": cfg.caprows,
-            # per-lane occupied-slot count (both sides), maintained
-            # incrementally for the book-depth histogram
-            "dep": cfg.srows, "err": 1}
+            "ha_lo": cfg.caprows, "ha_hi": cfg.caprows,
+            "hv_lo": cfg.caprows, "hv_hi": cfg.caprows, "err": 1}
+    if cfg.compat == "java":
+        rows.update({k: cfg.caprows for k in _JKEY_PLANES + ("hstate",)})
+        rows.update({"araw_lo": cfg.arows, "araw_hi": cfg.arows,
+                     "sraw_lo": cfg.srows, "sraw_hi": cfg.srows})
+    else:
+        # per-lane occupied-slot count (both sides), maintained
+        # incrementally for the book-depth histogram
+        rows.update({"hk": cfg.caprows, "dep": cfg.srows})
+    return {k: rows[k] for k in state_keys(cfg)}
 
 
 def make_seq_state(cfg: SeqConfig, device="cuda") -> dict:
@@ -227,6 +270,14 @@ def pack_msgs(cfg: SeqConfig, cols: dict, n: int) -> dict:
     v = np.zeros(B, np.int64)
     v[:n] = cols["oid"][:n]
     out["oid_lo"], out["oid_hi"] = _split64(v)
+    if cfg.compat == "java":
+        for name, src in (("aidr", "aid_raw"), ("sidr", "sid_raw")):
+            v = np.zeros(B, np.int64)
+            v[:n] = cols[src][:n]
+            out[f"{name}_lo"], out[f"{name}_hi"] = _split64(v)
+        fl = np.zeros(B, np.int32)
+        fl[:n] = cols["flags"][:n]
+        out["flags"] = fl
     return out
 
 
@@ -287,10 +338,19 @@ def _j64(lo, hi):
     return (lo.astype(np.int64) & 0xFFFFFFFF) | (hi.astype(np.int64) << 32)
 
 
+def _no_java_canonical(cfg: SeqConfig):
+    if cfg.compat != "fixed":
+        raise ValueError(
+            "java-mode state has no fixed-layout canonical form (128-bit "
+            "position keys, direction-tagged merged books) — use "
+            "export_java")
+
+
 def export_canonical(cfg: SeqConfig, state) -> dict:
     """Device planes -> the canonical snapshot layout of the JAX package
     (slot_* (S,2,N), flat positions s64, bal s64), so snapshots restore
-    across engines and packages."""
+    across engines and packages. Fixed mode only."""
+    _no_java_canonical(cfg)
     S, N, A, NR = cfg.lanes, cfg.slots, cfg.accounts, cfg.nr
     h = state_to_numpy({k: state[k] for k in _STATE_KEYS})
 
@@ -325,6 +385,42 @@ def export_canonical(cfg: SeqConfig, state) -> dict:
     }
 
 
+def export_java(cfg: SeqConfig, state) -> dict:
+    """Host view of a java-mode state: positions keyed by the 128-bit
+    (ka, kb) pairs exactly as the java oracle's dict (real keys (aid,
+    sid) AND Q11 keys (amount, available)); orders carry the direction
+    tag in `slot_ba`; book planes as in fixed mode."""
+    if cfg.compat != "java":
+        raise ValueError("export_java reads java-mode state only")
+    S, N, A, NR = cfg.lanes, cfg.slots, cfg.accounts, cfg.nr
+    h = state_to_numpy({k: state[k] for k in _STATE_KEYS_JAVA})
+
+    def planes2slot(v):
+        return v.reshape(S, 2, NR * LN)[:, :, :N]
+
+    def flat64(lo, hi):
+        return _j64(h[lo].reshape(-1), h[hi].reshape(-1))
+
+    live = h["hstate"].reshape(-1) == 1
+    ka = flat64("hka_lo", "hka_hi")[live]
+    kb = flat64("hkb_lo", "hkb_hi")[live]
+    amt = flat64("ha_lo", "ha_hi")[live]
+    av = flat64("hv_lo", "hv_hi")[live]
+    positions = {(int(a), int(b)): (int(x), int(y))
+                 for a, b, x, y in zip(ka, kb, amt, av)}
+    return {
+        "positions": positions,
+        "bal": _j64(h["bal_lo"].reshape(-1)[:A], h["bal_hi"].reshape(-1)[:A]),
+        "bal_used": h["bal_u"].reshape(-1)[:A] != 0,
+        "slot_oid": _j64(planes2slot(h["bo_lo"]), planes2slot(h["bo_hi"])),
+        "slot_ba": planes2slot(h["ba"]).astype(np.int64),
+        "slot_price": planes2slot(h["bp"]).astype(np.int32),
+        "slot_size": planes2slot(h["bs"]).astype(np.int32),
+        "book_exists": h["bex"].reshape(-1)[:S] != 0,
+        "err": np.int32(h["err"].reshape(-1)[0]),
+    }
+
+
 def _wrap32(v: int) -> int:
     v &= 0xFFFFFFFF
     return v - (1 << 32) if v & 0x80000000 else v
@@ -334,7 +430,9 @@ def import_canonical(cfg: SeqConfig, canon: dict, device="cuda") -> dict:
     """Inverse of export_canonical (numpy -> state dict on `device`).
     The snapshot's slot depth and account capacity may be SMALLER than
     the config's (position hash keys are recomputed with the new
-    stride); shrinking either is a state migration and raises."""
+    stride); shrinking either is a state migration and raises. Fixed
+    mode only."""
+    _no_java_canonical(cfg)
     S, N, A, NR = cfg.lanes, cfg.slots, cfg.accounts, cfg.nr
     S0 = np.asarray(canon["slot_oid"]).shape[0]
     if S0 != S:
@@ -456,13 +554,31 @@ def _hbucket(v: int) -> int:
     return sum(1 for k in range(N_HIST_BUCKETS - 1) if v >= (1 << k))
 
 
+def _jkey(amt: int, avail: int) -> tuple:
+    """A Q11 key: the 64-bit (amount, available) pair as 4 int32 words."""
+    return (_i32(amt), _i32(amt >> 32), _i32(avail), _i32(avail >> 32))
+
+
+def _margin(isbuy: bool, price: int, size: int, amt: int, avail: int):
+    """postRemoveAdjustments' arithmetic (KProcessor.java:325-333) ->
+    (avail adjustment, balance credit)."""
+    signed = size if isbuy else _i32(-size)
+    blocked = _i64(amt - avail)
+    nsg = -signed
+    adj = (max(min(blocked, 0), nsg) if isbuy
+           else min(max(blocked, 0), nsg))
+    unit = price if isbuy else _i32(price - 100)
+    return adj, _muls64(_i32(signed + adj), unit)
+
+
 class _Reference:
     """One kernel call's worth of state access over flat views of the
     planes (writes land in the caller's tensors)."""
 
     def __init__(self, cfg: SeqConfig, state: dict):
         self.cfg = cfg
-        self.f = {k: state[k].view(-1) for k in _STATE_KEYS}
+        self.java = cfg.compat == "java"
+        self.f = {k: state[k].view(-1) for k in state_keys(cfg)}
         self.NR = cfg.nr
         self.W = cfg.nr * LN                  # slots per side block
         self.tmask = cfg.caprows - 1
@@ -500,7 +616,7 @@ class _Reference:
     def minwhere(self, mask, vals):
         return int(torch.where(mask, vals, BIG).min())
 
-    # -- position hash ---------------------------------------------------
+    # -- position hash (fixed) -------------------------------------------
     def home(self, key):
         return (_i32(key * -1640531527) >> 7) & self.tmask
 
@@ -582,26 +698,129 @@ class _Reference:
     def release_margin(self, lane, acc, o_isbuy, o_price, o_size):
         """postRemoveAdjustments (KProcessor.java:325-333): returns the
         balance credit and applies the avail adjustment."""
-        signed = o_size if o_isbuy else _i32(-o_size)
         amt, avail = self.pos_get(lane, acc)
-        blocked = _i64(amt - avail)
-        nsg = -signed
-        adj = (max(min(blocked, 0), nsg) if o_isbuy
-               else min(max(blocked, 0), nsg))
-        unit = o_price if o_isbuy else _i32(o_price - 100)
-        rel = _muls64(_i32(signed + adj), unit)
+        adj, rel = _margin(o_isbuy, o_price, o_size, amt, avail)
         if adj != 0:
             if self.pos_set(lane, acc, amt, _i64(avail + adj)):
                 self.set_err(LERR_HASH_FULL)
         return rel
 
+    # -- position hash (java): 128-bit keys as 4 int32 words, tombstones
+    def jhome(self, key):
+        kal, kah, kbl, kbh = key
+        h = (_i32(kal * -1640531527) ^ _i32(kah * -2048144789)
+             ^ _i32(kbl * -1028477387) ^ _i32(kbh * 69069))
+        return (h >> 7) & self.tmask
+
+    def jtile(self, t, key):
+        """-> lane minima of tile t: live match, empty, reusable (empty
+        or tombstone)."""
+        sl = slice(t * LN, (t + 1) * LN)
+        hs = self.f["hstate"][sl]
+        eq = hs == 1
+        for plane, w in zip(_JKEY_PLANES, key):
+            eq = eq & (self.f[plane][sl] == w)
+        return (self.minwhere(eq, self.ci), self.minwhere(hs == 0, self.ci),
+                self.minwhere(hs != 1, self.ci))
+
+    def jfind(self, key):
+        """-> (flat entry or -1, err). Tombstones are passed over, an
+        empty slot ends the probe; err when nothing was found and the
+        probe bound was reached."""
+        t0 = self.jhome(key)
+        hx, em, _ = self.jtile(t0, key)
+        if hx < BIG:
+            return t0 * LN + hx, False
+        if em < BIG or 1 >= self.probe:
+            return -1, 1 >= self.probe
+        t, probes, res = (t0 + 1) & self.tmask, 1, -1
+        while True:
+            hx, em, _ = self.jtile(t, key)
+            stop = hx < BIG or em < BIG or probes + 1 >= self.probe
+            if hx < BIG:
+                res = t * LN + hx
+            t, probes = (t + 1) & self.tmask, probes + 1
+            if stop:
+                break
+        return res, res < 0 and probes >= self.probe
+
+    def jslot(self, key):
+        """-> the live match if there is one, else the first reusable
+        slot on the probe path, else -1."""
+        t0 = self.jhome(key)
+        hx, em, fr = self.jtile(t0, key)
+        res = t0 * LN + hx if hx < BIG else -1
+        reuse = t0 * LN + fr if fr < BIG else -1
+        if not (hx < BIG or em < BIG or 1 >= self.probe):
+            t, probes = (t0 + 1) & self.tmask, 1
+            while True:
+                hx, em, fr = self.jtile(t, key)
+                if reuse < 0 and fr < BIG:
+                    reuse = t * LN + fr
+                if hx < BIG:
+                    res = t * LN + hx
+                stop = hx < BIG or em < BIG or probes + 1 >= self.probe
+                t, probes = (t + 1) & self.tmask, probes + 1
+                if stop:
+                    break
+        return res if res >= 0 else reuse
+
+    def jvals(self, e):
+        if e < 0:
+            return 0, 0
+        return (self.g64("ha_lo", "ha_hi", e), self.g64("hv_lo", "hv_hi", e))
+
+    def jwrite(self, e, key, amt, avail):
+        if e >= 0:
+            self.p("hstate", e, 1)
+            for plane, w in zip(_JKEY_PLANES, key):
+                self.p(plane, e, w)
+            self.p64("ha_lo", "ha_hi", e, amt)
+            self.p64("hv_lo", "hv_hi", e, avail)
+
+    def jclaim(self, key, amt, avail):
+        """insert-or-update `key`; a full probe path is HASH_FULL."""
+        e = self.jslot(key)
+        self.jwrite(e, key, amt, avail)
+        if e < 0:
+            self.set_err(LERR_HASH_FULL)
+
+    def jfill_one(self, real, sgn_fill):
+        """fillOrder, java (Q11, KProcessor.java:276-287): the first fill
+        creates the real (aid, sid) entry; later fills read it but write,
+        or at zero delete, the (amount, available) key. -> err flag."""
+        e, err = self.jfind(real)
+        if e < 0:
+            if not err:
+                self.jclaim(real, sgn_fill, sgn_fill)
+            return err
+        amt, avail = self.jvals(e)
+        na, nv = _i64(amt + sgn_fill), _i64(avail + sgn_fill)
+        if na == 0:
+            te, _ = self.jfind(_jkey(amt, avail))
+            if te >= 0:
+                self.p("hstate", te, 2)     # tombstone
+        else:
+            self.jclaim(_jkey(amt, avail), na, nv)
+        return err
+
+    def jrelease_margin(self, real, o_isbuy, o_price, o_size):
+        """postRemoveAdjustments, java: the 2-argument setPosition writes
+        the adjustment to the (amount, available) key (Q11), the real
+        entry stays as it was."""
+        amt, avail = self.jvals(self.jfind(real)[0])
+        adj, rel = _margin(o_isbuy, o_price, o_size, amt, avail)
+        if adj != 0:
+            self.jclaim(_jkey(amt, avail), amt, _i64(avail + adj))
+        return rel
+
     # -- one call --------------------------------------------------------
     def run(self, msgs: dict, out: torch.Tensor):
-        cfg = self.cfg
+        cfg, java = self.cfg, self.java
         B, E, FB, A = cfg.batch, cfg.max_fills, cfg.fill_cap, cfg.accounts
         BR = B // LN
         o = out.view(-1)
-        cols = {k: msgs[k].tolist() for k in MSG_FIELDS}
+        cols = {k: msgs[k].tolist() for k in msg_fields(cfg)}
         hist = [0] * LN
         met = [0] * N_METRICS
         fill_total = 0
@@ -620,6 +839,21 @@ class _Reference:
             side = 0 if is_buy else 1
             opp = 1 - side
             sgn = 1 if is_buy else -1
+            merged = False
+            if java:
+                # Q1: symbol 0's buys and sells share side 0
+                merged = cols["flags"][m] & 1 != 0
+                if merged:
+                    side = opp = 0
+                real = tuple(cols[k][m] for k in ("aidr_lo", "aidr_hi",
+                                                   "sidr_lo", "sidr_hi"))
+                # raw-id tables, before the message's own logic
+                if is_trade or is_cancel or act in (L_CREATE, L_TRANSFER):
+                    self.p("araw_lo", acc, real[0])
+                    self.p("araw_hi", acc, real[1])
+                if act == L_ADD_SYMBOL:
+                    self.p("sraw_lo", lane, real[2])
+                    self.p("sraw_hi", lane, real[3])
 
             bex_v = self.g("bex", lane) != 0
             bal = self.g64("bal_lo", "bal_hi", acc)
@@ -644,13 +878,21 @@ class _Reference:
             if is_trade:
                 valid = 0 <= limit < 126 and size > 0
                 signed = size if is_buy else _i32(-size)
-                pamt, pav = self.pos_get(lane, acc)
+                if java:
+                    # no valid gate: out-of-domain fields are fatal
+                    if not valid:
+                        self.set_err(LERR_JAVA_DOMAIN)
+                    e_actor = self.jfind(real)[0]
+                    pamt, pav = self.jvals(e_actor)
+                else:
+                    pamt, pav = self.pos_get(lane, acc)
                 nsg = -signed
                 adj = (max(min(pav, 0), nsg) if is_buy
                        else min(max(pav, 0), nsg))
                 unit = limit if is_buy else _i32(limit - 100)
                 risk = _muls64(_i32(signed + adj), unit)
-                t_ok = valid and bex_v and bal_ok and not bal < risk
+                t_ok = ((java or valid) and bex_v and bal_ok
+                        and not bal < risk)
 
                 # phase 1: non-mutating sweep over a scratch copy of the
                 # opposite side's sizes (reset on EVERY trade message)
@@ -659,38 +901,63 @@ class _Reference:
                 wsize = self.blk("bs", lane, opp).clone()
                 fslot, fsize = [], []
                 remaining = size if t_ok else 0
-                ovf = False
+                ovf = emptied = False
                 nempt = 0
                 psg = op_p * sgn
                 cross0 = (op_p - limit) * sgn <= 0
-                while remaining != 0:
+                while remaining > 0:
                     cross = (wsize > 0) & cross0
                     pstar = self.minwhere(cross, psg)
-                    anyc = pstar < BIG and remaining > 0
+                    if pstar >= BIG:
+                        break
+                    if len(fslot) >= E:      # the max_fills envelope
+                        ovf = True
+                        break
                     at = cross & (psg == pstar)
                     sstar = self.minwhere(at, op_q)
                     flat = self.minwhere(at & (op_q == sstar), self.fi)
-                    have = int(wsize[flat]) if flat < BIG else 0
+                    have = int(wsize[flat])
                     fill = min(remaining, have)
-                    exceed = anyc and len(fslot) >= E
-                    if anyc and not exceed:
-                        wsize[flat] = have - fill
-                        fslot.append(flat)
-                        fsize.append(fill)
-                        remaining -= fill
-                        nempt += have == fill
-                    ovf = ovf or exceed
-                    if not anyc or exceed:
-                        break
+                    wsize[flat] = have - fill
+                    fslot.append(flat)
+                    fsize.append(fill)
+                    remaining -= fill
+                    emptied = have == fill
+                    nempt += emptied
                 residual, nfill = remaining, len(fslot)
 
-                # capacity envelope + Q9 bucket-tail echo
-                w = self.blk("bs", lane, side)
+                if java and t_ok and residual == 0 and emptied:
+                    # Q2 (KProcessor.java:237): with the taker exhausted
+                    # and its last maker emptied, the next best maker
+                    # whose price >= limit (either direction) gives one
+                    # zero-size fill
+                    live = wsize > 0
+                    gbest = self.minwhere(live, psg)
+                    if gbest < BIG:
+                        g_at = live & (psg == gbest)
+                        g_ss = self.minwhere(g_at, op_q)
+                        gfc = self.minwhere(g_at & (op_q == g_ss), self.fi)
+                        if int(op_p[gfc]) >= limit:
+                            if nfill >= E:
+                                self.set_err(LERR_JAVA_CAP)
+                            else:
+                                fslot.append(gfc)
+                                fsize.append(0)
+                                nfill += 1
+
+                # capacity envelope + Q9 bucket-tail echo; a merged (Q1)
+                # book sees the sweep's sizes on its own side too
+                w = wsize if merged else self.blk("bs", lane, side)
                 wp = self.blk("bp", lane, side)
                 wq = self.blk("bq", lane, side)
                 free_flat = self.minwhere(w == 0, self.fi)
                 rest_want = t_ok and residual > 0
-                capr = t_ok and (ovf or (rest_want and free_flat >= BIG))
+                over = t_ok and (ovf or (rest_want and free_flat >= BIG))
+                if java:
+                    if over:     # fatal, never a per-message reject
+                        self.set_err(LERR_JAVA_CAP)
+                else:
+                    capr = over
                 t_acc = t_ok and not capr
                 do_rest = rest_want and t_acc and free_flat < BIG
                 same = (w > 0) & (wp == limit)
@@ -706,7 +973,11 @@ class _Reference:
                 if t_acc:
                     self.bal_add(acc, -risk)
                     if adj != 0:
-                        if self.pos_set(lane, acc, pamt, _i64(pav - adj)):
+                        if java:
+                            # 3-argument setPosition: the real key keeps
+                            # its amount, only `available` moves
+                            self.jwrite(e_actor, real, pamt, _i64(pav - adj))
+                        elif self.pos_set(lane, acc, pamt, _i64(pav - adj)):
                             self.set_err(LERR_HASH_FULL)
                     self.blk("bs", lane, opp).copy_(wsize)
                     oa = self.blk("ba", lane, opp)
@@ -714,7 +985,8 @@ class _Reference:
                     ohi = self.blk("bo_hi", lane, opp)
                     for e2 in range(nfill):
                         flat, fill = fslot[e2], fsize[e2]
-                        maid, mprice = int(oa[flat]), int(op_p[flat])
+                        maid = int(oa[flat]) & AMASK if java else int(oa[flat])
+                        mprice = int(op_p[flat])
                         pf = fill_total + e2
                         if pf < FB:
                             r0 = (1 + 5 * BR + (pf >> 7) * 5) * LN + (pf & 127)
@@ -723,8 +995,14 @@ class _Reference:
                                                      mprice, fill)):
                                 o[r0 + fld * LN] = v
                         msz = -fill if is_buy else fill
-                        me = self.fill_one(lane, maid, msz)
-                        te = self.fill_one(lane, acc, -msz)
+                        if java:
+                            mreal = (self.g("araw_lo", maid),
+                                     self.g("araw_hi", maid)) + real[2:]
+                            me = self.jfill_one(mreal, msz)
+                            te = self.jfill_one(real, -msz)
+                        else:
+                            me = self.fill_one(lane, maid, msz)
+                            te = self.fill_one(lane, acc, -msz)
                         self.bal_add(acc, _i32(-msz * (limit - mprice)))
                         if me or te:
                             self.set_err(LERR_HASH_FULL)
@@ -732,8 +1010,9 @@ class _Reference:
                         self.set_err(LERR_FILLBUF_FULL)
                     if do_rest:
                         seqv = self.g("seqc", lane)
+                        ba = acc | (int(is_buy) << 30) if java else acc
                         for key, v in (("bo_lo", t_oidlo), ("bo_hi", t_oidhi),
-                                       ("ba", acc), ("bp", limit),
+                                       ("ba", ba), ("bp", limit),
                                        ("bs", residual), ("bq", seqv)):
                             self.blk(key, lane, side)[free_flat] = v
                         self.p("seqc", lane, _i32(seqv + 1))
@@ -749,16 +1028,26 @@ class _Reference:
                     hits.append(self.minwhere(hit, self.fi))
                 c_side = 0 if hits[0] < BIG else 1
                 c_flat = hits[c_side]
-                if c_flat < BIG and int(self.blk("ba", lane, c_side)[c_flat]) == acc:
+                c_ba = (int(self.blk("ba", lane, c_side)[c_flat])
+                        if c_flat < BIG else -1)
+                if c_flat < BIG and (c_ba & AMASK if java else c_ba) == acc:
                     c_ok = True
+                    # merged (Q1) books hold both directions in side 0, so
+                    # java reads the direction from the ba tag bit
+                    c_isbuy = (c_ba >> 30) & 1 == 1 if java else c_side == 0
                     c_price = int(self.blk("bp", lane, c_side)[c_flat])
                     c_size = int(self.blk("bs", lane, c_side)[c_flat])
                     self.blk("bs", lane, c_side)[c_flat] = 0
-                    self.bal_add(acc, self.release_margin(
-                        lane, acc, c_side == 0, c_price, c_size))
+                    if java:
+                        rel = self.jrelease_margin(real, c_isbuy, c_price,
+                                                   c_size)
+                    else:
+                        rel = self.release_margin(lane, acc, c_isbuy,
+                                                  c_price, c_size)
+                    self.bal_add(acc, rel)
 
-            # ---- BARRIERS (payout / remove)
-            barrier_do = is_barrier and bex_v
+            # ---- BARRIERS (payout / remove; never routed in java mode)
+            barrier_do = is_barrier and bex_v and not java
             if barrier_do:
                 # wipe both sides with margin release, buy side first,
                 # (price, seq) order within a side
@@ -797,10 +1086,10 @@ class _Reference:
                     for key in ("ha_lo", "ha_hi", "hv_lo", "hv_hi"):
                         self.f[key].masked_fill_(mine, 0)
 
-            # ---- dep plane + histograms + outputs + metrics
+            # ---- dep plane (fixed mode) + histograms + outputs + metrics
             if t_acc:
                 hist_obs(HIST_LANE0, nf)
-            if t_acc or c_ok or barrier_do:
+            if not java and (t_acc or c_ok or barrier_do):
                 newd = 0 if barrier_do else _i32(
                     self.g("dep", lane) + do_rest - nempt_v - c_ok)
                 self.p("dep", lane, newd)
@@ -857,22 +1146,23 @@ def seq_scan_reference(cfg: SeqConfig, state: dict, stacked: dict
                       device=stacked["act"].device)
     ref = _Reference(cfg, state)
     for k in range(K):
-        ref.run({f: stacked[f][k] for f in MSG_FIELDS}, out[k])
+        ref.run({f: stacked[f][k] for f in msg_fields(cfg)}, out[k])
     return out
 
 
 # ---------------------------------------------------------------------------
 # the kernel's wrapper
 
-# launches of the seq_step kernel by its wrapper (comparison launches
-# included: a caller that wants the main path's count resets it first)
-LAUNCHES = {"seq_step": 0}
+# launches of the seq_step kernel by its wrapper, per instantiation
+# (compat; comparison launches included: a caller that wants the main
+# path's count resets it first)
+LAUNCHES = {"fixed": 0, "java": 0}
 
 
 def _check(cfg: SeqConfig, state: dict, stacked: dict):
     dev = stacked["act"].device
     K = stacked["act"].shape[0]
-    for f in MSG_FIELDS:
+    for f in msg_fields(cfg):
         t = stacked[f]
         if (t.device != dev or t.dtype != torch.int32
                 or tuple(t.shape) != (K, cfg.batch) or not t.is_contiguous()):
@@ -903,21 +1193,23 @@ def seq_scan(cfg: SeqConfig, state: dict, stacked: dict) -> torch.Tensor:
 
     out = torch.zeros((K, out_rows(cfg), LN), dtype=torch.int32, device=dev)
     native.launch_seq_scan(
-        [stacked[f] for f in MSG_FIELDS] + [state[k] for k in _STATE_KEYS]
-        + [out],
+        [stacked[f] for f in msg_fields(cfg)]
+        + [state[k] for k in state_keys(cfg)] + [out],
         (K, cfg.lanes, cfg.nr, cfg.accounts, cfg.max_fills, cfg.batch,
-         cfg.caprows, cfg.fill_cap, min(cfg.probe_max, cfg.caprows)))
-    LAUNCHES["seq_step"] += 1
+         cfg.caprows, cfg.fill_cap, min(cfg.probe_max, cfg.caprows)),
+        java=cfg.compat == "java")
+    LAUNCHES[cfg.compat] += 1
     return out
 
 
 def seq_step(cfg: SeqConfig, state: dict, msgs: dict) -> torch.Tensor:
     """One micro-batch of (B,) message columns -> (out_rows, 128)."""
-    stacked = {f: msgs[f].reshape(1, -1) for f in MSG_FIELDS}
+    stacked = {f: msgs[f].reshape(1, -1) for f in msg_fields(cfg)}
     return seq_scan(cfg, state, stacked)[0]
 
 
 def msgs_to_device(cols: dict, device) -> dict:
-    """numpy message columns -> int32 tensors on `device`."""
+    """numpy message columns (either mode's) -> int32 tensors on
+    `device`."""
     return {f: torch.from_numpy(np.ascontiguousarray(cols[f], np.int32))
-            .to(device) for f in MSG_FIELDS}
+            .to(device) for f in MSG_FIELDS_JAVA if f in cols}

@@ -71,9 +71,9 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def _seq_lib():
+def _seq_fn(java: bool):
     lib = load("seq_step")
-    fn = lib.kme_seq_scan
+    fn = lib.kme_seq_scan_java if java else lib.kme_seq_scan
     fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.c_int,
                    ctypes.POINTER(ctypes.c_int), ctypes.c_int,
                    ctypes.c_void_p]
@@ -81,14 +81,14 @@ def _seq_lib():
     return fn
 
 
-def launch_seq_scan(tensors, dims) -> None:
+def launch_seq_scan(tensors, dims, java: bool = False) -> None:
     """Launch the seq_step kernel on the current stream. `tensors`: the
-    7 message columns, the 18 state planes and the output plane (all
-    CUDA, checked by the caller); `dims`: (K, S, NR, A, E, B, CAPR, FB,
-    PROBE)."""
+    message columns, the state planes and the output plane (all CUDA,
+    checked by the caller): 7 + 18 + 1 in fixed mode, 12 + 25 + 1 in
+    java mode; `dims`: (K, S, NR, A, E, B, CAPR, FB, PROBE)."""
     import torch
 
-    fn = _seq_lib()
+    fn = _seq_fn(java)
     ptrs = (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
     d = (ctypes.c_int * len(dims))(*dims)
     stream = torch.cuda.current_stream(tensors[0].device).cuda_stream

@@ -1,12 +1,15 @@
 """SeqSession: host half of the sequential matching kernel engine.
 
-The port of `kme_tpu/runtime/seqsession.py`, fixed mode. There is NO
+The port of `kme_tpu/runtime/seqsession.py`, fixed and java modes
+(`SeqConfig.compat`), at any book depth. There is NO
 conflict-free scheduler: the kernel processes messages strictly
 sequentially (engine/seq.py), so planning reduces to ID ROUTING — dense
 aid/sid maps, oid -> lane routing for cancels, and host-resolved rejects
 for messages the device cannot act on (unknown-oid cancels,
 negative-sid ADD_SYMBOL, unmapped payout/remove). Barriers (PAYOUT /
-REMOVE_SYMBOL) are ordinary device messages (act codes 7/8/9).
+REMOVE_SYMBOL) are ordinary device messages (act codes 7/8/9). Java mode
+adds the raw Java-long aid/sid columns and the Q1 merged-book flag, and
+refuses what lies outside its device surface (`UnsupportedJavaOp`).
 
 One dispatch per `process`/`process_wire` call: all K chunks go to the
 card in one kernel launch (`seq_scan`), and the outputs come back in ONE
@@ -32,13 +35,25 @@ from kme_tpu_torch.wire import (OrderMsg, OutRecord, order_json,
 _TRADE_ACTS = {op.BUY: SQ.L_BUY, op.SELL: SQ.L_SELL}
 
 
-class SeqRouter:
-    """Arrival-order ID routing (no conflict analysis), fixed mode.
-    Mirrors the sequencer's id spaces and host-reject edge semantics."""
+class UnsupportedJavaOp(RuntimeError):
+    """The java-compat DEVICE surface excludes barriers and negative-sid
+    symbols (dead or broken reference paths — Q3-Q6 and the ±sid book
+    cross-coupling); streams containing them belong on the native/oracle
+    engines (COMPAT.md)."""
 
-    def __init__(self, num_lanes: int, num_accounts: int) -> None:
+
+class SeqRouter:
+    """Arrival-order ID routing (no conflict analysis). Mirrors the
+    sequencer's id spaces and host-reject edge semantics. compat='java'
+    additionally emits the raw Java-long aid/sid columns and the Q1
+    merged-book flag the kernel needs, and REFUSES the opcodes outside
+    the java device surface."""
+
+    def __init__(self, num_lanes: int, num_accounts: int,
+                 compat: str = "fixed") -> None:
         self.S = num_lanes
         self.A = num_accounts
+        self.compat = compat
         self.aid_idx: Dict[int, int] = {}
         self.sid_lane: Dict[int, int] = {}
         self.oid_sid: Dict[int, int] = {}
@@ -74,11 +89,13 @@ class SeqRouter:
 
     def route(self, msgs):
         """-> (cols dict incl. msg_index, host_reject msg indices)."""
+        java = self.compat == "java"
         cols = {k: [] for k in ("msg_index", "act", "aid", "price",
-                                "size", "lane", "oid")}
+                                "size", "lane", "oid", "aid_raw",
+                                "sid_raw", "flags")}
         host_rejects = set()
 
-        def emit(i, act, aidx, lane, m, oid):
+        def emit(i, act, aidx, lane, m, oid, aid=0, sid=0):
             cols["msg_index"].append(i)
             cols["act"].append(act)
             cols["aid"].append(aidx)
@@ -86,6 +103,10 @@ class SeqRouter:
             cols["size"].append(m.size)
             cols["lane"].append(lane)
             cols["oid"].append(oid)
+            if java:
+                cols["aid_raw"].append(aid)
+                cols["sid_raw"].append(sid)
+                cols["flags"].append(1 if sid == 0 else 0)
 
         # envelope-check the WHOLE batch up front so an EnvelopeError
         # leaves the id maps untouched
@@ -98,28 +119,45 @@ class SeqRouter:
             a = m.action
             aid, sid, oid = jlong(m.aid), jlong(m.sid), jlong(m.oid)
             if a in _TRADE_ACTS:
+                if java and sid < 0:
+                    raise UnsupportedJavaOp(
+                        f"message {i}: negative-sid trade (sid={sid}) — "
+                        f"java ±sid book coupling is outside the device "
+                        f"surface; use the native engine")
                 # mutation order (lane, oid_sid, acct) is the authority
                 # contract of the JAX package's routers
                 lane = self._lane(sid)
                 self.oid_sid[oid] = sid
-                emit(i, _TRADE_ACTS[a], self._acct(aid), lane, m, oid)
+                emit(i, _TRADE_ACTS[a], self._acct(aid), lane, m, oid,
+                     aid, sid)
             elif a == op.CANCEL:
                 rsid = self.oid_sid.get(oid)
                 if rsid is None:
                     host_rejects.add(i)
                     continue
                 emit(i, SQ.L_CANCEL, self._acct(aid), self._lane(rsid),
-                     m, oid)
+                     m, oid, aid, rsid)
             elif a == op.CREATE_BALANCE:
-                emit(i, SQ.L_CREATE, self._acct(aid), 0, m, oid)
+                emit(i, SQ.L_CREATE, self._acct(aid), 0, m, oid, aid, 0)
             elif a == op.TRANSFER:
-                emit(i, SQ.L_TRANSFER, self._acct(aid), 0, m, oid)
+                emit(i, SQ.L_TRANSFER, self._acct(aid), 0, m, oid, aid, 0)
             elif a == op.ADD_SYMBOL:
+                if java and sid < 0:
+                    raise UnsupportedJavaOp(
+                        f"message {i}: negative-sid ADD_SYMBOL "
+                        f"(sid={sid}) — outside the java device surface")
                 if sid < 0:
                     host_rejects.add(i)
                     continue
-                emit(i, SQ.L_ADD_SYMBOL, 0, self._lane(sid), m, oid)
+                emit(i, SQ.L_ADD_SYMBOL, 0, self._lane(sid), m, oid,
+                     aid, sid)
             elif a in (op.REMOVE_SYMBOL, op.PAYOUT):
+                if java:
+                    raise UnsupportedJavaOp(
+                        f"message {i}: "
+                        f"{'REMOVE_SYMBOL' if a == op.REMOVE_SYMBOL else 'PAYOUT'}"
+                        f" in java mode — Q3-Q6 barrier paths are outside "
+                        f"the device surface; use the native engine")
                 s = abs(sid)
                 if s not in self.sid_lane:
                     host_rejects.add(i)
@@ -144,17 +182,23 @@ class SeqRouter:
             "lane": np.array(cols["lane"], np.int32),
             "oid": np.array(cols["oid"], np.int64),
         }
+        if java:
+            out["aid_raw"] = np.array(cols["aid_raw"], np.int64)
+            out["sid_raw"] = np.array(cols["sid_raw"], np.int64)
+            out["flags"] = np.array(cols["flags"], np.int32)
         return out, host_rejects
 
 
-def make_seq_router(num_lanes: int, num_accounts: int):
+def make_seq_router(num_lanes: int, num_accounts: int,
+                    compat: str = "fixed"):
     """The Python router (the native router comes with the serving
     slice of the port)."""
-    return SeqRouter(num_lanes, num_accounts)
+    return SeqRouter(num_lanes, num_accounts, compat)
 
 
 class SeqSession:
-    """Fixed-mode engine over the sequential matching kernel.
+    """Engine over the sequential matching kernel, in the config's compat
+    mode.
 
     Same public surface as the JAX package's SeqSession (process /
     process_wire / metrics / histograms / export_state). The state lives
@@ -165,7 +209,7 @@ class SeqSession:
         self.cfg = cfg
         self.device = SQ.resolve_device(device)
         self.state = SQ.make_seq_state(cfg, self.device)
-        self.router = make_seq_router(cfg.lanes, cfg.accounts)
+        self.router = make_seq_router(cfg.lanes, cfg.accounts, cfg.compat)
         self._metrics = np.zeros(SQ.N_METRICS, np.int64)
         self._hist = np.zeros((SQ.N_HIST, SQ.N_HIST_BUCKETS), np.int64)
         # CUMULATIVE wall seconds per phase across every batch
@@ -180,7 +224,8 @@ class SeqSession:
     def load_numpy(self, arrays: dict, aid_idx: Dict[int, int],
                    sid_lane: Dict[int, int], oid_sid: Dict[int, int]) -> None:
         """Carry an engine across: host state planes (e.g. `np.asarray`
-        of a JAX-package session's `state[k]`) and its router maps."""
+        of a JAX-package session's `state[k]`, either mode's planes) and
+        its router maps."""
         self.state = SQ.state_from_numpy(self.cfg, arrays, self.device)
         self.router.aid_idx = dict(aid_idx)
         self.router.sid_lane = dict(sid_lane)
@@ -210,6 +255,14 @@ class SeqSession:
         v[:n] = cols["oid"][:n]
         lo, hi = SQ._split64(v)
         stacked["oid_lo"], stacked["oid_hi"] = lo.reshape(K, B), hi.reshape(K, B)
+        if self.cfg.compat == "java":
+            for name, src in (("aidr", "aid_raw"), ("sidr", "sid_raw")):
+                v = np.zeros(total, np.int64)
+                v[:n] = cols[src][:n]
+                lo, hi = SQ._split64(v)
+                stacked[f"{name}_lo"] = lo.reshape(K, B)
+                stacked[f"{name}_hi"] = hi.reshape(K, B)
+            stacked["flags"] = pad32(cols["flags"])
         cnts = [max(min(B, n - ci * B), 0) for ci in range(K)]
         return cols, host_rejects, stacked, cnts, K
 
@@ -221,7 +274,7 @@ class SeqSession:
         t1 = time.perf_counter()
         dev = {f: torch.from_numpy(stacked[f]).to(self.device,
                                                   non_blocking=True)
-               for f in SQ.MSG_FIELDS}
+               for f in SQ.msg_fields(self.cfg)}
         outp = SQ.seq_scan(self.cfg, self.state, dev)
         self.dispatches += 1
         t2 = time.perf_counter()
@@ -382,26 +435,39 @@ class SeqSession:
 
     def metrics(self) -> Dict[str, int]:
         counters = dict(zip(SQ.METRIC_NAMES, self._metrics.tolist()))
-        canon = SQ.export_canonical(self.cfg, self.state)
-        used = canon["slot_used"]
+        if self.cfg.compat == "java":
+            j = SQ.export_java(self.cfg, self.state)
+            used = j["slot_size"] > 0
+            books, accounts = j["book_exists"], j["bal_used"]
+            positions = len(j["positions"])
+        else:
+            canon = SQ.export_canonical(self.cfg, self.state)
+            used = canon["slot_used"]
+            books, accounts = canon["book_exists"], canon["bal_used"]
+            positions = int((canon["pos_amt"] != 0).sum())
         depth = used.sum(axis=2)
         counters.update({
             "open_orders": int(used.sum()),
-            "books": int(canon["book_exists"].sum()),
-            "accounts": int(canon["bal_used"].sum()),
-            "positions": int((canon["pos_amt"] != 0).sum()),
+            "books": int(books.sum()),
+            "accounts": int(accounts.sum()),
+            "positions": positions,
             "max_book_depth": int(depth.max()) if depth.size else 0,
         })
         return counters
 
     def histograms(self) -> Dict[str, list]:
         """Device-accumulated distribution histograms (HIST_NAMES -> 16
-        power-of-two bucket counts)."""
+        power-of-two bucket counts). book_depth stays empty in java mode
+        (Q1 merged books have no per-lane occupancy plane)."""
         return {name: self._hist[i].tolist()
                 for i, name in enumerate(SQ.HIST_NAMES)}
 
     def export_state(self) -> Dict[str, dict]:
-        """Oracle-comparable host dict view."""
+        """Oracle-comparable host dict view. In fixed mode its Python loop
+        is O(lanes * (accounts + slots)): at full width use `metrics` or
+        `export_canonical`."""
+        if self.cfg.compat == "java":
+            return self._export_state_java()
         return self._canon_to_export(SQ.export_canonical(self.cfg,
                                                          self.state))
 
@@ -438,4 +504,31 @@ class SeqSession:
         books = {sid: True for sid, lane in self.router.sid_lane.items()
                  if canon["book_exists"][lane]}
         return {"balances": balances, "positions": positions,
+                "orders": orders, "books": books}
+
+    def _export_state_java(self) -> Dict[str, dict]:
+        """Java-mode stores, oracle-comparable: positions keyed by the
+        raw 128-bit pairs (real AND Q11 keys), orders with the original
+        direction from the ba tag bit."""
+        j = SQ.export_java(self.cfg, self.state)
+        idx_to_aid = self.router.acct_of_idx()
+        lane_to_sid = self.router.sid_of_lane()
+        balances = {idx_to_aid[i]: int(j["bal"][i])
+                    for i in range(len(idx_to_aid)) if j["bal_used"][i]}
+        orders = {}
+        for lane, side, nn in zip(*np.nonzero(j["slot_size"] > 0)):
+            sid = lane_to_sid.get(int(lane))
+            if sid is None:
+                continue
+            ba = int(j["slot_ba"][lane, side, nn])
+            orders[int(j["slot_oid"][lane, side, nn])] = {
+                "aid": idx_to_aid[ba & SQ.AMASK],
+                "sid": sid,
+                "price": int(j["slot_price"][lane, side, nn]),
+                "size": int(j["slot_size"][lane, side, nn]),
+                "is_buy": (ba >> 30) & 1 == 1,
+            }
+        books = {sid: True for sid, lane in self.router.sid_lane.items()
+                 if j["book_exists"][lane]}
+        return {"balances": balances, "positions": j["positions"],
                 "orders": orders, "books": books}

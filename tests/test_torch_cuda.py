@@ -1,6 +1,6 @@
 """Card-only tests of the port: the seq_step CUDA kernel against its plain
-PyTorch version, bit for bit, and the session on the card against the
-session on the CPU.
+PyTorch version, bit for bit, in fixed and java mode and at deep books,
+and the session on the card against the session on the CPU.
 
 Every test here carries the `cuda` marker and skips where
 `torch.cuda.is_available()` is false (a CUDA kernel has no CPU mode).
@@ -23,6 +23,24 @@ torch.set_num_threads(1)
 
 KW = dict(lanes=8, slots=256, accounts=128, max_fills=32, batch=256,
           pos_cap=1 << 11, fill_cap=1 << 12, probe_max=16)
+JAVA_KW = dict(KW, max_fills=64, pos_cap=1 << 13, fill_cap=1 << 14,
+               compat="java", hbm_books=True)
+# 16384 slots: the sweep scratch needs 66,560 bytes of shared memory, so
+# the launcher's opt-in above 48 KB runs
+DEEP_KW = dict(KW, lanes=4, slots=16384, hbm_books=True)
+
+STREAMS = {
+    "zipf": (KW, lambda: zipf_symbol_stream(
+        1500, num_symbols=7, num_accounts=60, seed=2, payout_per_mille=8)),
+    "harness": (KW, lambda: harness_stream(1500, seed=3,
+                                           payout_opcode_bug=False)),
+    "java_harness": (JAVA_KW, lambda: harness_stream(1500, seed=3)),
+    "deep_zipf": (DEEP_KW, lambda: zipf_symbol_stream(
+        1500, num_symbols=3, num_accounts=60, seed=2, payout_per_mille=8)),
+    "java_deep_zipf": (dict(DEEP_KW, compat="java", max_fills=64),
+                       lambda: zipf_symbol_stream(
+                           1500, num_symbols=3, num_accounts=60, seed=2)),
+}
 
 
 @pytest.fixture
@@ -36,7 +54,7 @@ def cuda_device():
 def _chunks(cfg, msgs):
     from kme_tpu_torch.runtime.seqsession import SeqRouter
 
-    router = SeqRouter(cfg.lanes, cfg.accounts)
+    router = SeqRouter(cfg.lanes, cfg.accounts, cfg.compat)
     out = []
     for lo in range(0, len(msgs), cfg.batch):
         cols, _ = router.route(msgs[lo:lo + cfg.batch])
@@ -45,17 +63,17 @@ def _chunks(cfg, msgs):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("stream", ["zipf", "harness"])
+@pytest.mark.parametrize("stream", sorted(STREAMS))
 def test_seq_step_on_card_matches_plain_version(cuda_device, stream):
-    """Two-row books (slots=256), payouts, invalid harness prices: each
-    batch leaves bit-identical planes and output; one launch per call."""
-    cfg = SQ.SeqConfig(**KW)
-    msgs = (zipf_symbol_stream(1500, num_symbols=7, num_accounts=60, seed=2,
-                               payout_per_mille=8) if stream == "zipf"
-            else harness_stream(1500, seed=3, payout_opcode_bug=False))
+    """Two-row books (slots=256), payouts, invalid harness prices, java
+    quirks, 128-row books: each batch leaves bit-identical planes and
+    output; one launch per call, counted under its instantiation."""
+    kw, make = STREAMS[stream]
+    cfg = SQ.SeqConfig(**kw)
+    msgs = make()
     gpu = SQ.make_seq_state(cfg, cuda_device)
     cpu = SQ.make_seq_state(cfg, "cpu")
-    before = SQ.LAUNCHES["seq_step"]
+    before = SQ.LAUNCHES[cfg.compat]
     chunks = _chunks(cfg, msgs)
     for c in chunks:
         og = SQ.seq_step(cfg, gpu, SQ.msgs_to_device(c, cuda_device)).cpu()
@@ -63,7 +81,8 @@ def test_seq_step_on_card_matches_plain_version(cuda_device, stream):
         assert torch.equal(og, oc)   # both zero-filled beyond the prefix
         for k in SQ.state_keys(cfg):
             assert torch.equal(gpu[k].cpu(), cpu[k]), k
-    assert SQ.LAUNCHES["seq_step"] - before == len(chunks)
+    assert SQ.LAUNCHES[cfg.compat] - before == len(chunks)
+    assert int(cpu["err"][0, 0]) == 0
 
 
 @pytest.mark.cuda
@@ -74,10 +93,10 @@ def test_seq_scan_on_card_is_one_launch(cuda_device):
     stacked = {f: np.stack([c[f] for c in chunks]) for f in SQ.MSG_FIELDS}
     gpu = SQ.make_seq_state(cfg, cuda_device)
     cpu = SQ.make_seq_state(cfg, "cpu")
-    before = SQ.LAUNCHES["seq_step"]
+    before = SQ.LAUNCHES["fixed"]
     og = SQ.seq_scan(cfg, gpu, {f: torch.from_numpy(v).to(cuda_device)
                                 for f, v in stacked.items()})
-    assert SQ.LAUNCHES["seq_step"] - before == 1
+    assert SQ.LAUNCHES["fixed"] - before == 1
     oc = SQ.seq_scan(cfg, cpu, {f: torch.from_numpy(v)
                                 for f, v in stacked.items()})
     assert torch.equal(og.cpu(), oc)
@@ -86,10 +105,11 @@ def test_seq_scan_on_card_is_one_launch(cuda_device):
 
 
 @pytest.mark.cuda
-def test_session_on_card_matches_cpu(cuda_device):
-    cfg = SQ.SeqConfig(**KW)
+@pytest.mark.parametrize("compat", ["fixed", "java"])
+def test_session_on_card_matches_cpu(cuda_device, compat):
+    cfg = SQ.SeqConfig(**(KW if compat == "fixed" else JAVA_KW))
     msgs = zipf_symbol_stream(2000, num_symbols=7, num_accounts=60, seed=4,
-                              payout_per_mille=6)
+                              payout_per_mille=6 if compat == "fixed" else 0)
     gpu, cpu = SeqSession(cfg), SeqSession(cfg, device="cpu")
     assert gpu.device.type == "cuda"
     for lo in range(0, len(msgs), 700):

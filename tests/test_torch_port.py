@@ -4,7 +4,7 @@ modules it copied from the JAX package.
 - `import kme_tpu_torch` and every submodule succeed with `jax` and
   `kme_tpu` blocked, and no source of the port imports either;
 - nothing falls back to the CPU quietly: without a card the default
-  device raises, and unported modes raise NotImplementedError;
+  device raises; configurations no mode takes raise;
 - the copied workload streams, wire codec, packing and canonical export
   equal the JAX package's.
 """
@@ -109,12 +109,23 @@ def test_no_silent_cpu_fallback():
 
 
 def test_unported_modes_raise():
-    with pytest.raises(NotImplementedError, match="java"):
-        SQ.SeqConfig(**CFG, compat="java")
-    with pytest.raises(NotImplementedError, match="deep-books"):
-        SQ.SeqConfig(**CFG, hbm_books=True)
+    """Every mode of the seq kernel is ported now: java and deep-book
+    configurations construct (with java's planes and columns), and what
+    no mode takes still raises."""
+    for compat in ("fixed", "java"):
+        for hbm in (False, True):
+            cfg = SQ.SeqConfig(**CFG, compat=compat, hbm_books=hbm)
+            state = SQ.make_seq_state(cfg, "cpu")
+            assert tuple(state) == SQ.state_keys(cfg)
+            assert len(state) == (25 if compat == "java" else 18)
+            assert len(SQ.msg_fields(cfg)) == (12 if compat == "java" else 7)
+    with pytest.raises(ValueError, match="compat"):
+        SQ.SeqConfig(**CFG, compat="python")
     with pytest.raises(ValueError):
         SQ.SeqConfig(**dict(CFG, slots=100))
+    with pytest.raises(ValueError, match="offsets"):
+        SQ.SeqConfig(**dict(CFG, lanes=1 << 17, accounts=128,
+                            slots=1 << 14))
 
 
 def test_chip_smoke_refuses_without_a_card(tmp_path):

@@ -33,6 +33,9 @@ CFG = dict(lanes=8, slots=128, accounts=128, max_fills=32, batch=128,
            pos_cap=1 << 11, fill_cap=1 << 12, probe_max=16)
 WIDE = dict(lanes=8, slots=128, accounts=128, max_fills=64, batch=256,
             pos_cap=1 << 11, fill_cap=1 << 13, probe_max=16)
+# deep books (tests/test_seq_engine.py's hbm_books case): two rows per
+# side, so multi-row blocks are swept, searched and filled
+DEEP = dict(WIDE, slots=256, hbm_books=True)
 
 
 def _port(msgs):
@@ -109,12 +112,12 @@ def _max_fills_envelope():
     return msgs
 
 
-def _slots_envelope():
+def _slots_envelope(n=129):
     O = JaxOrder
     msgs = [O(action=jop.CREATE_BALANCE, aid=1),
             O(action=jop.TRANSFER, aid=1, size=10**8),
             O(action=jop.ADD_SYMBOL, sid=1)]
-    for k in range(129):   # the last one overflows the side
+    for k in range(n):   # the last one overflows the side
         msgs.append(O(action=jop.BUY, oid=100 + k, aid=1, sid=1,
                       price=1 + (k % 30), size=1))
     return msgs
@@ -130,6 +133,11 @@ SCENARIOS = {
     "zipf": (lambda: zipf_symbol_stream(500, num_symbols=6, num_accounts=24,
                                         seed=3, payout_per_mille=8),
              WIDE, {}),
+    # both deep cases stay within two batches: one JAX compile between them
+    "deep_zipf": (lambda: zipf_symbol_stream(
+        440, num_symbols=6, num_accounts=24, seed=3), DEEP, {}),
+    "deep_slots_envelope": (lambda: _slots_envelope(257), DEEP,
+                            {"rej_capacity": 1}),
 }
 
 
