@@ -2,17 +2,21 @@
 
     python3 chip_smoke.py            # the whole run (one card)
 
-Drives the port's main paths — wire JSON -> SeqSession.process_wire ->
-the seq_step CUDA kernel -> MatchOut lines — at full width, and holds the
-kernel bit for bit against its plain PyTorch version. Three paths, one
-per kernel configuration: the `kme-serve` defaults (B1: fixed mode, 1024
-symbols, 4096 accounts, 128 slots, 16 max fills, 1024-message batches),
-the same at `--slots 8192` (B3: deep books, which the service turns on
-above 512 slots) and `kme-serve --compat java --slots 8192` (B2 with B3).
-Phases, in order; any failure exits non-zero:
+Drives the port's main paths — wire JSON -> a session's process_wire ->
+the CUDA kernels -> MatchOut lines — at full width, and holds each
+kernel bit for bit against its plain PyTorch version. Four paths: three
+through SeqSession and the seq_step kernel, one per configuration: the
+`kme-serve` defaults (B1: fixed mode, 1024 symbols, 4096 accounts, 128
+slots, 16 max fills, 1024-message batches), the same at `--slots 8192`
+(B3: deep books, which the service turns on above 512 slots) and
+`kme-serve --compat java --slots 8192` (B2 with B3); and `kme-serve
+--engine lanes` at its defaults (width 8): LaneSession and the sweep
+step, whose position rows move through the row-copy kernels (B4 gather,
+B5 scatter). Phases, in order; any failure exits non-zero:
 
 1. card and build: the card's name and power limit, a fresh build of
-   the kernel, its source's sha256 and its ptxas report;
+   both kernel sources (one nvcc each, started together), each source's
+   sha256 and ptxas report;
 2. small: a small stream through a session on the card and one on the
    CPU (plain version) must give the same MatchOut lines and planes;
 2b. small java: the same for the java harness stream, java mode at 256
@@ -32,19 +36,44 @@ Phases, in order; any failure exits non-zero:
    checked batches (the first with trades holds a Q2 ghost fill), then
    the main path, whose MatchOut must be the java oracle's (line count
    and sha256 below), and the end state's open orders and positions;
-5. summary: one `kernels` JSON line, the card line, then the device line
+6. B4/B5 vs plain at full width: seeded (1025, 64, 128) int32 planes and
+   8 lanes with repeated scrap lanes; gather output and scattered plane
+   bit-identical to the plain versions;
+6b. lanes vs plain at full width: the zipf stream through a card
+   LaneSession until two windows are checked — the first with trades
+   and the first after a PAYOUT — each also run from the same pre-state
+   in a CPU session: packed outputs, used fill prefix and canonical
+   state identical;
+7. lanes main path: the whole zipf stream through LaneSession
+   .process_wire with both launch counts set to 0 just before; its
+   MatchOut must equal B1's (line count and sha256 from phase 4), its
+   open orders, positions and capacity rejects B1's; no sticky error, no
+   negative balance; launches of each kernel = 2 x the padded scan
+   steps; then the last window, replayed from the state before the last
+   batch, checked as in 6b;
+8. B4/B5 timed: CUDA-event device time per launch at 8 rows of 32 KiB
+   (kernel, plain version on the card, library call), with the byte
+   bound;
+9. summary: one `kernels` JSON line, the card line, then the device line
    last.
+
+`plain_ms` in the kernels line is the plain version's time per call:
+host-clock time on the CPU for the seq kernel's entries (its plain
+version is a Python interpreter of the kernel), CUDA-event time on the
+card for the row copies (whose plain versions are torch ops).
 
 Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
 import subprocess
 import sys
 import time
+import warnings
 
 FULL = dict(lanes=1024, slots=128, accounts=4096, max_fills=16, batch=1024,
             pos_cap=1 << 17, fill_cap=1 << 15, probe_max=64)
@@ -67,6 +96,8 @@ JAVA_SHA256 = \
     "183a22c60e0130a4a8e34eaa8549bd09cae3f607f590edaff4a7cf628058b10b"
 JAVA_OPEN_ORDERS = 16_759
 JAVA_POSITIONS = 48_317
+LANES = dict(lanes=1024, slots=128, accounts=4096, max_fills=16)
+LANES_WIDTH = 8             # kme-serve --width default
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 ROW_BYTES = 128 * 4
 JAVA_HASH = ("hka_lo", "hka_hi", "hkb_lo", "hkb_hi", "hstate",
@@ -367,12 +398,359 @@ def timed_replay(SQ, cfg, chunks, nmsgs, wall, card, label):
 
 
 def kernel_entry(name, replaces, launches, max_err, kern_ms, plain_ms,
-                 bound_ms):
-    return {"name": name, "route": "cuda",
-            "source": "kme_tpu_torch/csrc/seq_step.cu", "replaces": replaces,
-            "launches": launches, "max_abs_err": max_err, "ms": kern_ms,
-            "plain_ms": sum(plain_ms) / len(plain_ms), "bound_ms": bound_ms,
-            "bound_by": "bytes", "library_ms": None}
+                 bound_ms, source="kme_tpu_torch/csrc/seq_step.cu",
+                 library_ms=None):
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches, "max_abs_err": max_err,
+            "ms": kern_ms, "plain_ms": sum(plain_ms) / len(plain_ms),
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms}
+
+
+def check_rowdma(rowdma):
+    """Phase 6: B4 and B5 on seeded full-width planes against their plain
+    versions (on CPU copies of the same inputs). -> max abs err."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(7)
+    S, SUB = LANES["lanes"] + 1, 2 * LANES["accounts"] // 128
+    flat = rng.integers(-2**31, 2**31, (S, SUB, 128), dtype=np.int64
+                        ).astype(np.int32)
+    rows = rng.integers(-2**31, 2**31, (LANES_WIDTH, SUB, 128),
+                        dtype=np.int64).astype(np.int32)
+    lanes = np.full(LANES_WIDTH, S - 1, np.int32)       # 3 scrap lanes
+    lanes[[0, 2, 3, 5, 7]] = rng.choice(S - 1, 5, replace=False)
+    g_flat = torch.from_numpy(flat).cuda()
+    g_lanes = torch.from_numpy(lanes).cuda()
+    got = rowdma.gather_lane_rows(g_flat, g_lanes).cpu()
+    want = rowdma.gather_lane_rows(torch.from_numpy(flat),
+                                   torch.from_numpy(lanes))
+    c_flat = torch.from_numpy(flat.copy())
+    rowdma.scatter_lane_rows(g_flat, g_lanes, torch.from_numpy(rows).cuda(),
+                             S - 1)
+    rowdma.scatter_lane_rows(c_flat, torch.from_numpy(lanes),
+                             torch.from_numpy(rows), S - 1)
+    torch.cuda.synchronize()
+    err = max(int((got.to(torch.int64) - want).abs().max()),
+              int((g_flat.cpu().to(torch.int64) - c_flat).abs().max()))
+    if err or not torch.equal(got, want) or not torch.equal(g_flat.cpu(),
+                                                           c_flat):
+        fail(f"B4/B5 != plain versions at ({S}, {SUB}, 128), lanes "
+             f"{lanes.tolist()} (max abs err {err})")
+    log(f"B4/B5 at ({S}, {SUB}, 128) int32, lanes {lanes.tolist()}: gather "
+        f"output and scattered plane == plain versions bit for bit")
+    return err
+
+
+@contextlib.contextmanager
+def syncs_seen():
+    """Collect the warnings of operations that wait for the card
+    (torch.cuda's sync debug mode) raised inside the block."""
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        seen = []
+        try:
+            yield seen
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            # every sync warning but the mode's own "prototype" notice
+            seen.extend(str(w.message).splitlines()[0] for w in caught
+                        if "synchroniz" in str(w.message).lower()
+                        and "prototype" not in str(w.message))
+
+
+def checked_lanes(L, LS):
+    """A card LaneSession that also runs chosen windows from the same
+    pre-state in a CPU session (the plain row copies) and holds packed
+    outputs, used fill prefix and canonical state equal."""
+    import numpy as np
+    import torch
+
+    class CheckedLanes(LS.LaneSession):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.checked = {}
+            self.after_payout = False
+            self.last_only = False
+            self._win = 0
+            self._last_win = -1
+            settle = self._settle
+
+            def watched(state, lane, credit_size, mode):
+                ok = settle(state, lane, credit_size, mode)
+                self.after_payout |= ok and mode > 0
+                return ok
+
+            self._settle = watched
+
+        def _dispatch(self, sched):
+            Wn = self.cfg.window
+            self._last_win = self._win - 1 + sum(
+                -(-sched.segment_steps[i] // Wn)
+                for kind, i in sched.program if kind == "scan")
+            return super()._dispatch(sched)
+
+        def _run_window(self, T, M, cb):
+            acts = cb[LS.CB_FIELDS.index("act")]
+            label = None
+            if self.last_only:
+                if self._win == self._last_win:
+                    label = "last"
+            elif "first with trades" not in self.checked and (
+                    (acts == L.L_BUY) | (acts == L.L_SELL)).any():
+                label = "first with trades"
+            elif self.after_payout and "first after a PAYOUT" not in \
+                    self.checked:
+                label = "first after a PAYOUT"
+            self._win += 1
+            if label is None:
+                return super()._run_window(T, M, cb)
+            pre = L.state_to_numpy(self.state)
+            with syncs_seen() as seen:
+                outs = super()._run_window(T, M, cb)
+            if seen:
+                fail(f"lanes window {self._win - 1} ({label}) waited for "
+                     f"the card: {seen[0]}")
+            torch.cuda.synchronize()
+            cpu = L.state_from_numpy(self.dev_cfg, pre, "cpu")
+            t = time.perf_counter()
+            cpu, couts = L.build_lane_chunk(self.dev_cfg, T, M)(
+                cpu, {f: torch.from_numpy(cb[r].copy())
+                      for r, f in enumerate(LS.CB_FIELDS)})
+            plain_s = time.perf_counter() - t
+            base, end = int(pre["filloff"][0]), int(cpu["filloff"][0])
+            bad = []
+            if not torch.equal(outs["packed"].cpu(), couts["packed"]):
+                bad.append("packed")
+            if not torch.equal(self.state["fillbuf"][:, base:end].cpu(),
+                               cpu["fillbuf"][:, base:end]):
+                bad.append("fill prefix")
+            a = L.export_canonical(self.dev_cfg, self.state, self.cfg.lanes)
+            b = L.export_canonical(self.dev_cfg, cpu, self.cfg.lanes)
+            bad += [k for k in a if not np.array_equal(a[k], b[k])]
+            if bad:
+                fail(f"lanes window {self._win - 1} ({label}): card != CPU "
+                     f"in {bad}")
+            self.checked[label] = plain_s
+            log(f"lanes window {self._win - 1} ({label}): T={T} steps, "
+                f"{int((acts != 0).sum())} messages, {end - base} fills; "
+                f"card == CPU (packed outputs, used fill prefix, all "
+                f"{len(a)} canonical arrays); no host sync in the card "
+                f"window; CPU session {plain_s:.2f} s")
+            return outs
+
+    return CheckedLanes
+
+
+def lanes_path(L, LS, rowdma, msgs, b1):
+    """Phases 6b and 7 on the zipf stream; `b1` = (MatchOut lines,
+    sha256, metrics) of phase 4's B1 main path."""
+    import numpy as np
+    import torch
+
+    b1_lines, b1_sha, b1_met = b1
+    cfg = L.LaneConfig(**LANES)
+    B = 1024
+    CheckedLanes = checked_lanes(L, LS)
+
+    # ---- 6b. two windows against the CPU
+    chk = CheckedLanes(cfg, width=LANES_WIDTH)
+    for lo in range(0, len(msgs), B):
+        chk.process_wire(msgs[lo:lo + B])
+        if len(chk.checked) == 2:
+            break
+    else:
+        fail(f"lanes: only {sorted(chk.checked)} windows were checked")
+    log(f"lanes windows checked through batch {lo // B}")
+    del chk
+
+    # ---- 7. the main path
+    ses = LS.LaneSession(cfg, width=LANES_WIDTH)
+    if not ses.dev_cfg.pos_dma:
+        fail("lanes: LaneSession did not turn pos_dma on at the defaults")
+    last = (len(msgs) - 1) // B * B
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for key in rowdma.LAUNCHES:
+        rowdma.LAUNCHES[key] = 0
+    hasher = hashlib.sha256()
+    nlines = 0
+    t = time.perf_counter()
+    for lo in range(0, len(msgs), B):
+        if lo == last:
+            pre = ({k: v.clone() for k, v in ses.state.items()},
+                   tuple(dict(m) for m in (ses.scheduler.aid_idx,
+                                           ses.scheduler.sid_lane,
+                                           ses.scheduler.oid_sid)),
+                   ses.scheduler._rr_lane)
+        out = ses.process_wire(msgs[lo:lo + B])
+        for lines in out:
+            for ln in lines:
+                hasher.update(ln.encode())
+                hasher.update(b"\n")
+            nlines += len(lines)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(rowdma.LAUNCHES)
+    sha = hasher.hexdigest()
+    log(f"lanes end to end: {len(msgs)} messages in {wall:.3f} s = "
+        f"{len(msgs) / wall:.0f} msg/s (host clock, synchronized); "
+        f"{ses.steps} padded scan steps, {ses.steps / wall:.0f} steps/s, "
+        f"launches {launches}")
+    log("lanes phases (s, host clock; dispatch_s runs the scan steps, "
+        "fetch_s waits for them, recon_s builds the MatchOut lines): "
+        + json.dumps({k: round(v, 4) for k, v in ses.phases.items()}))
+    log(f"lanes max_memory_allocated {torch.cuda.max_memory_allocated()} "
+        f"bytes")
+    log(f"lanes MatchOut: {nlines} lines, sha256 {sha}")
+    if (nlines, sha) != (b1_lines, b1_sha):
+        fail(f"lanes MatchOut {nlines} lines sha256 {sha} != B1's "
+             f"{b1_lines} lines sha256 {b1_sha}")
+    for key in ("gather", "scatter"):
+        if launches[key] != 2 * ses.steps or ses.steps == 0:
+            fail(f"lanes: {launches[key]} {key} launches for {ses.steps} "
+                 f"padded steps (want 2 per step)")
+    met = ses.metrics()
+    for key in ("open_orders", "positions", "rej_capacity"):
+        if met[key] != b1_met[key]:
+            fail(f"lanes {key} {met[key]} != B1's {b1_met[key]}")
+    canon = ses.export_canonical()
+    if int(canon["err"]) != 0:
+        fail(f"lanes: sticky error {int(canon['err'])}")
+    neg = int((canon["bal"][canon["bal_used"]] < 0).sum())
+    if neg:
+        fail(f"lanes: {neg} negative balances")
+    log(f"lanes MatchOut == B1's; fills {met['fills']}, accepted trades "
+        f"{met['trades_ok']}, capacity rejects {met['rej_capacity']}, "
+        f"barriers {met['barriers']}, open orders {met['open_orders']}, "
+        f"positions {met['positions']} (B1's); sticky error 0, no negative "
+        f"balance; B4 and B5 launches each = 2 x {ses.steps} padded steps")
+
+    # ---- 7, last window: the final batch replayed from its pre-state
+    rep = CheckedLanes(cfg, width=LANES_WIDTH)
+    rep.state = pre[0]
+    rep._load_maps(*pre[1], pre[2])
+    rep.last_only = True
+    if rep.process_wire(msgs[last:]) != out:
+        fail("lanes: the replayed last batch's MatchOut differs")
+    if "last" not in rep.checked:
+        fail("lanes: the last window was not checked")
+    again = rep.export_canonical()
+    if any(not np.array_equal(again[k], canon[k]) for k in canon):
+        fail("lanes: the replayed last batch left another state")
+    log("lanes last batch replayed from its pre-state: same MatchOut and "
+        "canonical state as the main path")
+
+    # ---- 7, device busy share: the last batch once more, profiled
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    prof_ses = LS.LaneSession(cfg, width=LANES_WIDTH)
+    prof_ses.state = {k: v.clone() for k, v in pre[0].items()}
+    prof_ses._load_maps(*pre[1], pre[2])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        prof_ses.process_wire(msgs[last:])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.time_range.elapsed_us() for e in kern) / 1e6
+    log(f"lanes last batch under torch.profiler: {prof_ses.steps} padded "
+        f"steps, wall {wall:.3f} s, {len(kern)} device events, device busy "
+        f"{busy:.4f} s = {busy / wall:.1%} of the wall "
+        f"({len(kern) / max(prof_ses.steps, 1):.0f} device events and "
+        f"{wall / max(prof_ses.steps, 1) * 1e3:.2f} ms of wall per step)")
+    return launches
+
+
+def time_rowdma(rowdma, max_err, launches, card):
+    """Phase 8: device time per call (CUDA events around a run of calls
+    queued behind a sleep kernel, so no host gap enters) of B4
+    and B5 at 8 distinct rows of 32 KiB, their plain versions on the card
+    and the library calls. -> the two kernel entries."""
+    import numpy as np
+    import torch
+
+    # 100 calls of at most 4 kernels each stay inside the card's launch
+    # queue (~1024 entries): a fuller queue blocks the host behind the
+    # sleep and lets host gaps into the timed run
+    S, SUB, n = LANES["lanes"] + 1, 2 * LANES["accounts"] // 128, 100
+    rng = np.random.default_rng(8)
+    flat = torch.from_numpy(rng.integers(-2**31, 2**31, (S, SUB, 128),
+                                         dtype=np.int64).astype(np.int32)
+                            ).cuda()
+    rows = torch.from_numpy(rng.integers(-2**31, 2**31,
+                                         (LANES_WIDTH, SUB, 128),
+                                         dtype=np.int64).astype(np.int32)
+                            ).cuda()
+    lanes = torch.from_numpy(np.stack([
+        rng.choice(S - 1, LANES_WIDTH, replace=False) for _ in range(n)])
+        .astype(np.int32)).cuda()
+    lanes64 = lanes.to(torch.int64)
+    nbytes = 2 * LANES_WIDTH * SUB * 128 * 4 + LANES_WIDTH * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+
+    def timed(fn):
+        """-> (device ms per call, host enqueue s, sleep ms, host syncs
+        per call). A trial run sizes the sleep kernel to 4x its enqueue
+        time, so the timed calls run back to back on the card."""
+        for i in range(20):
+            fn(i)
+        torch.cuda.synchronize()
+        with syncs_seen() as seen:
+            t = time.perf_counter()
+            for i in range(n):
+                fn(i)
+            trial = time.perf_counter() - t
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        torch.cuda._sleep(int(8e9 * max(trial, 0.01)))
+        ev[1].record()
+        t = time.perf_counter()
+        for i in range(n):
+            fn(i)
+        enq = time.perf_counter() - t
+        ev[2].record()
+        torch.cuda.synchronize()
+        return (ev[1].elapsed_time(ev[2]) / n, enq,
+                ev[0].elapsed_time(ev[1]), len(seen) / n)
+
+    rd = {
+        "B4 kernel": lambda i: rowdma.gather_lane_rows(flat, lanes[i]),
+        "B4 plain": lambda i: rowdma.gather_lane_rows_reference(flat,
+                                                                lanes[i]),
+        "index_select": lambda i: flat.index_select(0, lanes64[i]),
+        "B5 kernel": lambda i: rowdma.scatter_lane_rows(flat, lanes[i], rows,
+                                                        S - 1),
+        "B5 plain": lambda i: rowdma.scatter_lane_rows_reference(
+            flat, lanes[i], rows, S - 1),
+        "index_copy_": lambda i: flat.index_copy_(0, lanes64[i], rows),
+    }
+    ms = {}
+    for name, fn in rd.items():
+        ms[name], enq, sleep_ms, syncs = timed(fn)
+        gaps = ("" if enq * 1e3 < sleep_ms else
+                "; the enqueue outlasted the sleep: host gaps are included")
+        log(f"{name}: {ms[name] * 1e3:.3f} us per call (device, mean of {n};"
+            f" host enqueue {enq * 1e3:.1f} ms under a {sleep_ms:.1f} ms "
+            f"sleep; {syncs:g} host syncs per call{gaps})")
+    log(f"B4/B5 byte bound {bound_ms * 1e3:.4f} us per call ({nbytes} B at "
+        f"3.35 TB/s); card {card}")
+    return [
+        kernel_entry("rowdma_gather", "kme_tpu/ops/rowdma.py:148",
+                     launches["gather"], max_err, ms["B4 kernel"], [ms["B4 plain"]], bound_ms,
+                     "kme_tpu_torch/csrc/rowdma.cu", ms["index_select"]),
+        kernel_entry("rowdma_scatter", "kme_tpu/ops/rowdma.py:165",
+                     launches["scatter"], max_err, ms["B5 kernel"], [ms["B5 plain"]], bound_ms,
+                     "kme_tpu_torch/csrc/rowdma.cu", ms["index_copy_"]),
+    ]
 
 
 def main() -> int:
@@ -384,8 +762,11 @@ def main() -> int:
         fail("no CUDA device: this smoke run needs one card")
     try:
         from kme_tpu_torch import native
+        from kme_tpu_torch.engine import lanes as L
         from kme_tpu_torch.engine import seq as SQ
         from kme_tpu_torch.engine.lanes import MET_REJ_RISK
+        from kme_tpu_torch.ops import rowdma
+        from kme_tpu_torch.runtime import session as LS
         from kme_tpu_torch.runtime.seqsession import SeqRouter, SeqSession
         from kme_tpu_torch.wire import dumps_order, parse_order
         from kme_tpu_torch.workload import harness_stream, zipf_symbol_stream
@@ -403,10 +784,11 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t = time.perf_counter()
-    native.build("seq_step", fresh=True)
-    log(f"built seq_step in {time.perf_counter() - t:.1f} s from "
-        f"csrc/seq_step.cu sha256 {native.source_sha256('seq_step')}; ptxas:")
-    log(native.build_logs.get("seq_step", ""))
+    native.build_many(["seq_step", "rowdma"], fresh=True)
+    log(f"built seq_step and rowdma in {time.perf_counter() - t:.1f} s")
+    for name in ("seq_step", "rowdma"):
+        log(f"csrc/{name}.cu sha256 {native.source_sha256(name)}; ptxas:")
+        log(native.build_logs.get(name, ""))
 
     # ---- 2. small: card session vs CPU session; 2b. the same in java mode
     for label, kw, msgs in (
@@ -490,8 +872,8 @@ def main() -> int:
 
     # ---- 4. B1 main path: the stream end to end through the session
     ses = SeqSession(cfg)
-    _, _, wall, launches = main_path(SQ, ses, msgs, "B1")
-    met = ses.metrics()
+    b1_lines, b1_sha, wall, launches = main_path(SQ, ses, msgs, "B1")
+    met = b1_met = ses.metrics()
     canon = SQ.export_canonical(cfg, ses.state)
     if int(canon["err"]) != 0:
         fail(f"sticky error {int(canon['err'])} after the stream")
@@ -511,6 +893,7 @@ def main() -> int:
     kernels.append(kernel_entry("seq_step", "kme_tpu/engine/seq.py:1549",
                                 launches, max_err, kern_ms, plain_ms,
                                 bound_ms))
+    zipf = msgs
 
     # ---- 3b. B3: deep books (8192 slots) on the same stream
     cfg = SQ.SeqConfig(**DEEP)
@@ -583,7 +966,13 @@ def main() -> int:
                                 launches, max_err, kern_ms, plain_ms,
                                 bound_ms))
 
-    # ---- 5. summary
+    # ---- 6. B4/B5 vs plain; 6b. lanes windows vs plain; 7. lanes main
+    # path; 8. B4/B5 timed
+    rd_err = check_rowdma(rowdma)
+    launches = lanes_path(L, LS, rowdma, zipf, (b1_lines, b1_sha, b1_met))
+    kernels.extend(time_rowdma(rowdma, rd_err, launches, card))
+
+    # ---- 9. summary
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

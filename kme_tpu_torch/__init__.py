@@ -6,8 +6,10 @@ is easy to find; every Pallas kernel on a ported path becomes a kernel
 written by hand for an NVIDIA Hopper card (`csrc/`), with a plain
 PyTorch version beside it that runs on CPU tensors.
 
-Ported so far: the fixed-mode sequential matching engine, from wire JSON
-to MatchOut lines (`runtime/seqsession.py` over `engine/seq.py` and
-`csrc/seq_step.cu`). Entry points run on the card unless the caller
-passes `device="cpu"`.
+Ported so far, each from wire JSON to MatchOut lines: the sequential
+matching engine in fixed and java mode (`runtime/seqsession.py` over
+`engine/seq.py` and `csrc/seq_step.cu`), and the sweep (lanes) engine on
+one device (`runtime/session.py` over `runtime/sequencer.py`,
+`engine/lanes.py`, `ops/rowdma.py` and `csrc/rowdma.cu`). Entry points
+run on the card unless the caller passes `device="cpu"`.
 """

@@ -67,7 +67,7 @@ import torch
 from kme_tpu_torch.engine.lanes import (  # noqa: F401 (re-exported)
     L_NOP, L_BUY, L_SELL, L_CANCEL, L_CREATE, L_TRANSFER, L_ADD_SYMBOL,
     LERR_OK, LERR_FILLBUF_FULL, METRIC_NAMES, N_METRICS,
-    HIST_NAMES, N_HIST, N_HIST_BUCKETS,
+    HIST_NAMES, N_HIST, N_HIST_BUCKETS, resolve_device, state_to_numpy,
 )
 
 # output row 0: lane 0 err, lane 1 fill_total, lanes 2..13 the metric
@@ -163,17 +163,6 @@ class SeqConfig:
         return self.pos_cap // LN
 
 
-def resolve_device(device) -> torch.device:
-    """The port runs on the card unless the caller asks for the CPU:
-    asking for CUDA where there is none raises instead of falling back."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; the port runs on the card by "
-            "default — pass device='cpu' to run the plain PyTorch path")
-    return dev
-
-
 def state_keys(cfg: SeqConfig):
     return _STATE_KEYS_JAVA if cfg.compat == "java" else _STATE_KEYS
 
@@ -218,12 +207,6 @@ def state_from_numpy(cfg: SeqConfig, arrays: dict, device="cuda") -> dict:
                              f"got {a.shape} {a.dtype}")
         out[k] = torch.from_numpy(np.ascontiguousarray(a).copy()).to(dev)
     return out
-
-
-def state_to_numpy(state: dict) -> dict:
-    """A host COPY of the planes (never a view of a CPU state)."""
-    return {k: v.detach().to("cpu", copy=True).numpy()
-            for k, v in state.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -42,24 +42,44 @@ def source_sha256(name: str) -> str:
         return hashlib.sha256(f.read()).hexdigest()
 
 
+def _lib_path(name: str) -> str:
+    return os.path.join(BUILD, f"lib{name}_{source_sha256(name)[:16]}.so")
+
+
+def build_many(names, fresh: bool = False) -> dict:
+    """Compile each csrc/<name>.cu whose content-named library is missing
+    (or every one with `fresh`), one nvcc per source, all started
+    together; -> {name: library path}."""
+    os.makedirs(BUILD, exist_ok=True)
+    libs = {n: _lib_path(n) for n in names}
+    procs = {}
+    for n, lib in libs.items():
+        if os.path.exists(lib) and not fresh:
+            build_logs.setdefault(n, "(cached build)")
+            continue
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        procs[n] = (tmp, subprocess.Popen(
+            [nvcc_path(), *NVCC_FLAGS, "-o", tmp,
+             os.path.join(CSRC, f"{n}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for n, (tmp, p) in procs.items():
+        out, err = p.communicate()
+        if p.returncode != 0:
+            failed.append(f"nvcc failed for {n}.cu (rc={p.returncode}):\n"
+                          f"{out}\n{err}")
+            continue
+        os.replace(tmp, libs[n])
+        build_logs[n] = (out + err).strip()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return libs
+
+
 def build(name: str, fresh: bool = False) -> str:
     """Compile csrc/<name>.cu (if its content-named library is missing,
     or always with `fresh`) and return the library path."""
-    src = os.path.join(CSRC, f"{name}.cu")
-    os.makedirs(BUILD, exist_ok=True)
-    lib = os.path.join(BUILD, f"lib{name}_{source_sha256(name)[:16]}.so")
-    if os.path.exists(lib) and not fresh:
-        build_logs.setdefault(name, "(cached build)")
-        return lib
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    r = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-o", tmp, src],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu (rc={r.returncode}):\n"
-                           f"{r.stdout}\n{r.stderr}")
-    os.replace(tmp, lib)
-    build_logs[name] = (r.stdout + r.stderr).strip()
-    return lib
+    return build_many([name], fresh)[name]
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -95,3 +115,55 @@ def launch_seq_scan(tensors, dims, java: bool = False) -> None:
     rc = fn(ptrs, len(tensors), d, len(dims), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"seq_step launch failed: CUDA error {rc}")
+
+
+_rowdma_fns: dict = {}
+
+
+def _rowdma_fn(entry: str):
+    fn = _rowdma_fns.get(entry)
+    if fn is None:
+        fn = getattr(load("rowdma"), entry)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = ([p, p, p, i, i, i, p] if entry == "kme_gather_lane_rows"
+                       else [p, p, p, i, i, i, i, p])
+        fn.restype = ctypes.c_int
+        _rowdma_fns[entry] = fn
+    return fn
+
+
+def _aligned(*tensors) -> None:
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("row copies need 16-byte aligned tensors")
+
+
+def launch_rowdma_gather(flat, lanes, out) -> None:
+    """B4 on the current stream: out[w] = flat[lanes[w]] (all CUDA int32,
+    contiguous, shapes checked by the caller)."""
+    import torch
+
+    _aligned(flat, out)
+    S, W = flat.shape[0], lanes.shape[0]
+    stream = torch.cuda.current_stream(flat.device).cuda_stream
+    rc = _rowdma_fn("kme_gather_lane_rows")(
+        flat.data_ptr(), lanes.data_ptr(), out.data_ptr(), S, W,
+        flat[0].numel(), stream)
+    if rc != 0:
+        raise RuntimeError(f"rowdma gather launch failed: CUDA error {rc}")
+
+
+def launch_rowdma_scatter(flat, lanes, rows, skip_lane: int) -> None:
+    """B5 on the current stream: flat[lanes[w]] = rows[w] in place,
+    skipping `skip_lane` (all CUDA int32, contiguous, checked by the
+    caller)."""
+    import torch
+
+    _aligned(flat, rows)
+    S, W = flat.shape[0], lanes.shape[0]
+    stream = torch.cuda.current_stream(flat.device).cuda_stream
+    rc = _rowdma_fn("kme_scatter_lane_rows")(
+        flat.data_ptr(), lanes.data_ptr(), rows.data_ptr(), S, W,
+        flat[0].numel(), int(skip_lane), stream)
+    if rc != 0:
+        raise RuntimeError(f"rowdma scatter launch failed: CUDA error {rc}")

@@ -1,6 +1,7 @@
 """Card-only tests of the port: the seq_step CUDA kernel against its plain
-PyTorch version, bit for bit, in fixed and java mode and at deep books,
-and the session on the card against the session on the CPU.
+PyTorch version, bit for bit, in fixed and java mode and at deep books;
+the row-copy kernels (B4 gather, B5 scatter) against theirs; and the seq
+and lanes sessions on the card against the same sessions on the CPU.
 
 Every test here carries the `cuda` marker and skips where
 `torch.cuda.is_available()` is false (a CUDA kernel has no CPU mode).
@@ -15,8 +16,11 @@ import pytest
 import torch
 
 from kme_tpu_torch import native
+from kme_tpu_torch.engine import lanes as L
 from kme_tpu_torch.engine import seq as SQ
+from kme_tpu_torch.ops import rowdma
 from kme_tpu_torch.runtime.seqsession import SeqSession
+from kme_tpu_torch.runtime.session import LaneSession
 from kme_tpu_torch.workload import harness_stream, zipf_symbol_stream
 
 torch.set_num_threads(1)
@@ -129,3 +133,80 @@ def test_wrapper_refuses_mixed_devices(cuda_device):
     with pytest.raises(ValueError):
         SQ.seq_step(cfg, SQ.make_seq_state(cfg, "cpu"), msgs)
     assert native.build("seq_step").endswith(".so")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 8, 33])
+def test_rowdma_kernels_on_card_match_plain_version(cuda_device, W):
+    """Rows of 2 and 64 tiles (the second the kme-serve defaults' 32 KiB
+    position rows); lanes with repeated scrap lanes; one launch each."""
+    rng = np.random.default_rng(W)
+    for S, SUB in ((9, 2), (1025, 64)):
+        flat = rng.integers(-2**31, 2**31, (S, SUB, 128), dtype=np.int64
+                            ).astype(np.int32)
+        k = min(max(W - 1, 1), S - 1)  # distinct real lanes, the rest scrap
+        lanes = np.full(W, S - 1, np.int32)
+        lanes[rng.choice(W, k, replace=False)] = rng.choice(S - 1, k,
+                                                            replace=False)
+        rows = rng.integers(-2**31, 2**31, (W, SUB, 128), dtype=np.int64
+                            ).astype(np.int32)
+        g_flat = torch.from_numpy(flat).to(cuda_device)
+        g_lanes = torch.from_numpy(lanes).to(cuda_device)
+        before = dict(rowdma.LAUNCHES)
+        got = rowdma.gather_lane_rows(g_flat, g_lanes)
+        want = rowdma.gather_lane_rows(torch.from_numpy(flat),
+                                       torch.from_numpy(lanes))
+        assert torch.equal(got.cpu(), want)
+        c_flat = torch.from_numpy(flat.copy())
+        rowdma.scatter_lane_rows(g_flat, g_lanes,
+                                 torch.from_numpy(rows).to(cuda_device), S - 1)
+        rowdma.scatter_lane_rows(c_flat, torch.from_numpy(lanes),
+                                 torch.from_numpy(rows), S - 1)
+        torch.cuda.synchronize()
+        assert torch.equal(g_flat.cpu(), c_flat)
+        assert rowdma.LAUNCHES["gather"] - before["gather"] == 1
+        assert rowdma.LAUNCHES["scatter"] - before["scatter"] == 1
+
+
+@pytest.mark.cuda
+def test_rowdma_wrappers_refuse_bad_tensors(cuda_device):
+    flat = torch.zeros((4, 2, 128), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError):
+        rowdma.gather_lane_rows(flat, torch.zeros(2, dtype=torch.int64,
+                                                  device=cuda_device))
+    with pytest.raises(ValueError):
+        rowdma.gather_lane_rows(flat, torch.zeros(2, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        rowdma.scatter_lane_rows(flat, torch.zeros(2, dtype=torch.int32,
+                                                   device=cuda_device),
+                                 torch.zeros((2, 1, 128), dtype=torch.int32,
+                                             device=cuda_device), 3)
+    assert native.build("rowdma").endswith(".so")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [0, 8])
+def test_lane_session_on_card_matches_cpu(cuda_device, width):
+    """width 8 at 64 accounts runs pos_dma: two B4 and two B5 launches
+    per padded scan step."""
+    cfg = L.LaneConfig(lanes=8, slots=128, accounts=64, max_fills=16,
+                       steps=32)
+    msgs = zipf_symbol_stream(1500, num_symbols=7, num_accounts=60, seed=4,
+                              payout_per_mille=6)
+    gpu = LaneSession(cfg, width=width)
+    cpu = LaneSession(cfg, width=width, device="cpu")
+    assert gpu.device.type == "cuda"
+    assert gpu.dev_cfg.pos_dma == (width > 0)
+    before = dict(rowdma.LAUNCHES)
+    for lo in range(0, len(msgs), 700):
+        assert gpu.process_wire(msgs[lo:lo + 700]) == \
+            cpu.process_wire(msgs[lo:lo + 700])
+    for k in ("gather", "scatter"):
+        assert rowdma.LAUNCHES[k] - before[k] == (2 * gpu.steps if width
+                                                  else 0)
+    assert gpu.export_state() == cpu.export_state()
+    assert gpu.metrics() == cpu.metrics()
+    assert gpu.histograms() == cpu.histograms()
+    gc, cc = gpu.export_canonical(), cpu.export_canonical()
+    for k in cc:
+        assert np.array_equal(gc[k], cc[k]), k

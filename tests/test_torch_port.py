@@ -26,8 +26,10 @@ import kme_tpu.wire as JW
 import kme_tpu.workload as JWL
 import kme_tpu_torch.wire as W
 import kme_tpu_torch.workload as WL
+from kme_tpu_torch.engine import lanes as L
 from kme_tpu_torch.engine import seq as SQ
 from kme_tpu_torch.runtime.seqsession import SeqSession
+from kme_tpu_torch.runtime.session import LaneSession
 
 torch.set_num_threads(1)
 
@@ -74,7 +76,10 @@ def test_port_imports_without_jax_or_kme_tpu():
     mods = set(r.stdout.split())
     for m in ("kme_tpu_torch.engine.seq", "kme_tpu_torch.runtime.seqsession",
               "kme_tpu_torch.wire", "kme_tpu_torch.workload",
-              "kme_tpu_torch.native", "kme_tpu_torch.opcodes"):
+              "kme_tpu_torch.native", "kme_tpu_torch.opcodes",
+              "kme_tpu_torch.engine.lanes", "kme_tpu_torch.ops.rowdma",
+              "kme_tpu_torch.runtime.session",
+              "kme_tpu_torch.runtime.sequencer"):
         assert m in mods
 
 
@@ -106,6 +111,18 @@ def test_no_silent_cpu_fallback():
     with pytest.raises(RuntimeError, match="CUDA"):
         SQ.import_canonical(cfg, SQ.export_canonical(
             cfg, SQ.make_seq_state(cfg, "cpu")))
+    # the lanes engine: session, state and snapshot import
+    lcfg = L.LaneConfig(lanes=8, slots=128, accounts=64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LaneSession(lcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        L.make_lane_state(lcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        L.import_canonical(lcfg, L.export_canonical(
+            lcfg, L.make_lane_state(lcfg, "cpu"), 8), 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        L.state_from_numpy(lcfg, L.state_to_numpy(
+            L.make_lane_state(lcfg, "cpu")))
 
 
 def test_unported_modes_raise():
