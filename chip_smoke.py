@@ -16,7 +16,8 @@ B5 scatter). Phases, in order; any failure exits non-zero:
 
 1. card and build: the card's name and power limit, a fresh build of
    both kernel sources (one nvcc each, started together), each source's
-   sha256 and ptxas report;
+   sha256 and ptxas report (registers, shared memory and spills of every
+   kernel);
 2. small: a small stream through a session on the card and one on the
    CPU (plain version) must give the same MatchOut lines and planes;
 2b. small java: the same for the java harness stream, java mode at 256
@@ -27,15 +28,28 @@ B5 scatter). Phases, in order; any failure exits non-zero:
    must one full-width batch of a low-deposit stream, where the margin
    check rejects orders;
 4. B1 main path: the stream end to end through process_wire, with the
-   kernel's launch count held to the dispatch count, then a timed replay
-   of the same dispatches (CUDA events) with each dispatch's byte bound;
-3b. B3 at 8192 slots: phase 3's three checks on the same stream, then
-   its main path as in phase 4, with the capacity rejects beside phase
-   4's;
+   kernel's launch count held to the dispatch count (and the rows-in-use
+   kernel's: one per dispatch at more than one row per side, none at
+   one), then a timed replay of the same dispatches (CUDA events around
+   the whole call, the rows-in-use launch included) with each dispatch's
+   byte bound and the rows in use of the book sides it touched;
+3b. B3 at 8192 slots: phase 3's three checks on the same stream (and the
+   rows-in-use kernel against its plain version on each checked state),
+   then its main path as in phase 4, with the capacity rejects beside
+   phase 4's;
 3c. B2 with B3, java mode at 8192 slots, on the java zipf stream: three
-   checked batches (the first with trades holds a Q2 ghost fill), then
-   the main path, whose MatchOut must be the java oracle's (line count
-   and sha256 below), and the end state's open orders and positions;
+   checked batches as in 3b (the first with trades holds a Q2 ghost
+   fill), then the main path, whose MatchOut must be the java oracle's
+   (line count and sha256 below), and the end state's open orders and
+   positions;
+3d. a deep book, which the zipf streams never build: one symbol rested
+   3000 orders deep on one side (24 rows, past the 16 a trade stages),
+   cancelled from the top rows, swept across rows, wiped by a PAYOUT and
+   rested again (java mode: without the barrier), at full width and 8192
+   slots: every dispatch bit for bit against the plain version, and the
+   rows-in-use kernel against its plain version on every state; then the
+   rows-in-use kernel timed alone beside its plain version and its byte
+   bound;
 6. B4/B5 vs plain at full width: seeded (1025, 64, 128) int32 planes and
    8 lanes with repeated scrap lanes; gather output and scattered plane
    bit-identical to the plain versions;
@@ -60,7 +74,11 @@ B5 scatter). Phases, in order; any failure exits non-zero:
 `plain_ms` in the kernels line is the plain version's time per call:
 host-clock time on the CPU for the seq kernel's entries (its plain
 version is a Python interpreter of the kernel), CUDA-event time on the
-card for the row copies (whose plain versions are torch ops).
+card for the row copies and the rows-in-use kernel (whose plain versions
+are torch ops). `seq_rows_in_use` is the prologue of the deep-book
+configurations of the seq kernel; its `launches` are those of the B3 main
+path, its `max_abs_err` is over every state of phases 3b-3d that it was
+held against its plain version on, its times are phase 3d's.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -277,12 +295,12 @@ def trade_chunk(SQ, chunks):
                 if ((c["act"] == SQ.L_BUY) | (c["act"] == SQ.L_SELL)).any())
 
 
-def check_batches(SQ, cfg, chunks, checks, label):
+def check_batches(SQ, cfg, chunks, checks, label, after=None):
     """Every chunk through the kernel from an empty state; each chunk in
     `checks` also through the plain version from the same pre-state:
-    planes, header rows and used fill prefix must be equal. -> (state,
-    max abs err, plain ms per checked batch, outputs of the checked
-    batches)."""
+    planes, header rows and used fill prefix must be equal; `after(state)`
+    runs behind each checked chunk. -> (state, max abs err, plain ms per
+    checked batch, outputs of the checked batches)."""
     import torch
 
     state = SQ.make_seq_state(cfg)
@@ -306,6 +324,8 @@ def check_batches(SQ, cfg, chunks, checks, label):
                 fail(f"{label} batch {i}: kernel != plain version in {bad} "
                      f"(max abs err {err})")
             outs[i] = out.cpu()
+            if after is not None:
+                after(state)
             log(f"{label} batch {i}: {int((c['act'] != 0).sum())} messages, "
                 f"fill_total {int(out[0, 1])}, kernel == plain version bit "
                 f"for bit ({len(state)} planes, {SQ.hdr_rows(cfg)} header "
@@ -344,11 +364,15 @@ def main_path(SQ, ses, msgs, label):
     if launches[key] != ses.dispatches or launches[key] == 0:
         fail(f"{label}: launches {launches[key]} != dispatches "
              f"{ses.dispatches}")
-    if sum(launches.values()) != launches[key]:
+    if launches[key] != launches["fixed"] + launches["java"]:
         fail(f"{label}: launches of another configuration {launches}")
+    if launches["rows_in_use"] != (ses.dispatches if ses.cfg.nr > 1 else 0):
+        fail(f"{label}: {launches['rows_in_use']} rows-in-use launches for "
+             f"{ses.dispatches} dispatches at {ses.cfg.nr} rows per side")
     log(f"{label} end to end: {len(msgs)} messages in {wall:.3f} s = "
         f"{len(msgs) / wall:.0f} msg/s (host clock, synchronized); "
-        f"{ses.dispatches} dispatches, {launches[key]} kernel launches")
+        f"{ses.dispatches} dispatches, {launches[key]} kernel launches, "
+        f"{launches['rows_in_use']} rows-in-use launches")
     phases = dict(ses.phases, lines_s=wall - sum(ses.phases.values()))
     log(f"{label} phases (s, host clock; fetch_s includes waiting for the "
         "kernel, lines_s is building the MatchOut lines): "
@@ -356,7 +380,7 @@ def main_path(SQ, ses, msgs, label):
     log(f"{label} max_memory_allocated {torch.cuda.max_memory_allocated()} "
         f"bytes")
     log(f"{label} MatchOut: {nlines} lines, sha256 {hasher.hexdigest()}")
-    return nlines, hasher.hexdigest(), wall, launches[key]
+    return nlines, hasher.hexdigest(), wall, launches
 
 
 def timed_replay(SQ, cfg, chunks, nmsgs, wall, card, label):
@@ -375,6 +399,7 @@ def timed_replay(SQ, cfg, chunks, nmsgs, wall, card, label):
     ev = [(torch.cuda.Event(enable_timing=True),
            torch.cuda.Event(enable_timing=True)) for _ in dev_chunks]
     bytes_per = []
+    rows_hist = torch.zeros(cfg.nr + 1, dtype=torch.int64, device="cuda")
     for (e0, e1), c, hc in zip(ev, dev_chunks, chunks):
         pre = {k: v.clone() for k, v in state.items()}
         e0.record()
@@ -383,7 +408,16 @@ def timed_replay(SQ, cfg, chunks, nmsgs, wall, card, label):
         bytes_per.append(batch_bytes(SQ, cfg, hc, out, pre, state,
                                      int(out[0, 2 + MET_BARRIERS])))
         del pre
+        # rows in use, after the dispatch, of the book sides it touched
+        book = c["lane"][(c["act"] >= SQ.L_BUY) & (c["act"] <= SQ.L_CANCEL)]
+        used = SQ.rows_in_use_reference(cfg, state["bs"])[book.long()]
+        rows_hist += torch.bincount(used.view(-1).long(),
+                                    minlength=cfg.nr + 1)
     torch.cuda.synchronize()
+    hist = {r: n for r, n in enumerate(rows_hist.tolist()) if n}
+    log(f"{label} rows in use per touched (lane, side), counted after each "
+        f"dispatch for every trade and cancel in it, of {cfg.nr} rows: "
+        f"{json.dumps(hist)}")
     ms = [e0.elapsed_time(e1) for e0, e1 in ev]
     kern_ms = sum(ms) / len(ms)
     bound_ms = sum(bytes_per) / len(bytes_per) / HBM_BYTES_PER_S * 1e3
@@ -395,6 +429,78 @@ def timed_replay(SQ, cfg, chunks, nmsgs, wall, card, label):
     log(f"{label} kernel time of the stream {sum(ms) / 1e3:.4f} s = "
         f"{sum(ms) / 1e3 / wall:.1%} of the end-to-end wall")
     return kern_ms, bound_ms
+
+
+def rows_checker(SQ, cfg, label, errs, seen):
+    """-> after(state) for `check_batches`: the rows-in-use kernel against
+    its plain version on the state's size plane; the max abs err goes to
+    `errs`, the deepest side's rows to `seen`."""
+    import torch
+
+    def after(state):
+        got = SQ.rows_in_use(cfg, state["bs"])
+        want = SQ.rows_in_use_reference(cfg, state["bs"])
+        errs.append(int((got.long() - want.long()).abs().max()))
+        if errs[-1] or not torch.equal(got, want):
+            fail(f"{label}: rows-in-use kernel != plain version (max abs "
+                 f"err {errs[-1]})")
+        seen.append(int(got.max()))
+
+    return after
+
+
+def deep_book_phase(SQ, SeqRouter, deep_book_stream, card, errs):
+    """Phase 3d: the deep-book stream at full width and 8192 slots, fixed
+    and java mode, every dispatch against the plain version; the
+    rows-in-use kernel against its plain version on every state and timed
+    alone. `errs`: that kernel's abs errs from earlier phases, extended
+    here. -> the rows-in-use kernel's entry (launches filled in by the
+    caller)."""
+    import torch
+
+    for kw, label in ((DEEP, "deep book"), (JAVA, "deep book java")):
+        cfg = SQ.SeqConfig(**kw)
+        msgs = deep_book_stream(3000, barrier=cfg.compat == "fixed")
+        chunks = route_chunks(SQ, SeqRouter, cfg, msgs)
+        seen = []
+        state, _, _, _ = check_batches(
+            SQ, cfg, chunks, range(len(chunks)), label,
+            rows_checker(SQ, cfg, label, errs, seen))
+        if max(seen) <= SQ.STAGE_ROWS:
+            fail(f"{label}: the book stayed within the {SQ.STAGE_ROWS} "
+                 f"staged rows ({seen})")
+        log(f"{label}: {len(msgs)} messages in {len(chunks)} dispatches, "
+            f"all == plain version; rows in use of the deepest side after "
+            f"each dispatch {seen} (a trade stages {SQ.STAGE_ROWS}); "
+            f"rows-in-use kernel == plain version on every state")
+    # the rows-in-use kernel alone, on the last state (8192 slots)
+    bs = state["bs"]
+    n = 50
+    times = {}
+    for name, fn in (("kernel", lambda: SQ.rows_in_use(cfg, bs)),
+                     ("plain", lambda: SQ.rows_in_use_reference(cfg, bs))):
+        for _ in range(3):
+            fn()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in "01"]
+        ev[0].record()
+        for _ in range(n):
+            fn()
+        ev[1].record()
+        torch.cuda.synchronize()
+        times[name] = ev[0].elapsed_time(ev[1]) / n
+    nbytes = bs.numel() * 4 + cfg.lanes * 2 * 4
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"rows-in-use kernel at {cfg.slots} slots x {cfg.lanes} lanes: "
+        f"{times['kernel'] * 1e3:.2f} us per call, plain version on the card "
+        f"{times['plain'] * 1e3:.2f} us (CUDA events, mean of {n} back to "
+        f"back calls, the {nbytes / 1e6:.1f} MB plane partly in L2); byte "
+        f"bound {bound_ms * 1e3:.2f} us at 3.35 TB/s; card {card}")
+    log(f"rows-in-use kernel == plain version on {len(errs)} states (B3's "
+        f"and B2's checked batches, every deep-book dispatch), max abs err "
+        f"{max(errs)}")
+    return kernel_entry("seq_rows_in_use", "kme_tpu/engine/seq.py:1549", 0,
+                        max(errs), times["kernel"], [times["plain"]],
+                        bound_ms)
 
 
 def kernel_entry(name, replaces, launches, max_err, kern_ms, plain_ms,
@@ -769,7 +875,8 @@ def main() -> int:
         from kme_tpu_torch.runtime import session as LS
         from kme_tpu_torch.runtime.seqsession import SeqRouter, SeqSession
         from kme_tpu_torch.wire import dumps_order, parse_order
-        from kme_tpu_torch.workload import harness_stream, zipf_symbol_stream
+        from kme_tpu_torch.workload import (deep_book_stream, harness_stream,
+                                            zipf_symbol_stream)
     except ImportError as e:
         fail(f"the port's package is not importable here ({e}); run from "
              f"the root of a checkout")
@@ -784,10 +891,11 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t = time.perf_counter()
-    native.build_many(["seq_step", "rowdma"], fresh=True)
-    log(f"built seq_step and rowdma in {time.perf_counter() - t:.1f} s")
-    for name in ("seq_step", "rowdma"):
-        log(f"csrc/{name}.cu sha256 {native.source_sha256(name)}; ptxas:")
+    libs = ["seq_step", "rowdma"]
+    native.build_many(libs, fresh=True)
+    log(f"built {', '.join(libs)} in {time.perf_counter() - t:.1f} s")
+    for name in libs:
+        log(f"{name}: source sha256 {native.source_sha256(name)}; ptxas:")
         log(native.build_logs.get(name, ""))
 
     # ---- 2. small: card session vs CPU session; 2b. the same in java mode
@@ -891,14 +999,17 @@ def main() -> int:
     kern_ms, bound_ms = timed_replay(SQ, cfg, chunks, len(msgs), wall, card,
                                      "B1")
     kernels.append(kernel_entry("seq_step", "kme_tpu/engine/seq.py:1549",
-                                launches, max_err, kern_ms, plain_ms,
-                                bound_ms))
+                                launches["fixed"], max_err, kern_ms,
+                                plain_ms, bound_ms))
     zipf = msgs
 
     # ---- 3b. B3: deep books (8192 slots) on the same stream
     cfg = SQ.SeqConfig(**DEEP)
     chunks = route_chunks(SQ, SeqRouter, cfg, msgs)
-    state, max_err, plain_ms, _ = check_batches(SQ, cfg, chunks, checks, "B3")
+    rows_errs = []
+    state, max_err, plain_ms, _ = check_batches(
+        SQ, cfg, chunks, checks, "B3",
+        rows_checker(SQ, cfg, "B3", rows_errs, []))
     bal_lo = state["bal_lo"].clone()
     del state
     ses = SeqSession(cfg)
@@ -919,8 +1030,9 @@ def main() -> int:
     kern_ms, bound_ms = timed_replay(SQ, cfg, chunks, len(msgs), wall, card,
                                      "B3")
     kernels.append(kernel_entry("seq_step_deep", "kme_tpu/engine/seq.py:1549",
-                                launches, max_err, kern_ms, plain_ms,
-                                bound_ms))
+                                launches["fixed"], max_err, kern_ms,
+                                plain_ms, bound_ms))
+    rows_launches = launches["rows_in_use"]
 
     # ---- 3c. B2 with B3: java mode at 8192 slots, the java zipf stream
     cfg = SQ.SeqConfig(**JAVA)
@@ -932,8 +1044,9 @@ def main() -> int:
     chunks = route_chunks(SQ, SeqRouter, cfg, msgs)
     first_trade = trade_chunk(SQ, chunks)
     checks = sorted({first_trade, len(chunks) // 2, len(chunks) - 1})
-    state, max_err, plain_ms, outs = check_batches(SQ, cfg, chunks, checks,
-                                                   "B2")
+    state, max_err, plain_ms, outs = check_batches(
+        SQ, cfg, chunks, checks, "B2",
+        rows_checker(SQ, cfg, "B2", rows_errs, []))
     ghosts = int((SQ.unpack_out(cfg, outs[first_trade].numpy(), cfg.batch)
                   ["fills"][3] == 0).sum())
     if ghosts == 0:
@@ -963,8 +1076,13 @@ def main() -> int:
     kern_ms, bound_ms = timed_replay(SQ, cfg, chunks, len(msgs), wall, card,
                                      "B2")
     kernels.append(kernel_entry("seq_step_java", "kme_tpu/engine/seq.py:1549",
-                                launches, max_err, kern_ms, plain_ms,
+                                launches["java"], max_err, kern_ms, plain_ms,
                                 bound_ms))
+
+    # ---- 3d. a deep book, and the rows-in-use kernel alone
+    entry = deep_book_phase(SQ, SeqRouter, deep_book_stream, card,
+                            rows_errs)
+    kernels.append(dict(entry, launches=rows_launches))
 
     # ---- 6. B4/B5 vs plain; 6b. lanes windows vs plain; 7. lanes main
     # path; 8. B4/B5 timed

@@ -20,33 +20,67 @@
 // more rows per side (NR = slots/128, 64 at 8192 slots). The TPU needs a
 // separate path because VMEM cannot hold deep books, so it keeps them in
 // HBM and copies one symbol's rows into a VMEM cache at each switch. Here
-// every book row is read in place from device memory at any depth. At
-// 8192 slots x 1024 symbols the six book planes take 403 MB, more than
-// the 50 MB L2, so the L2 becomes the card's counterpart of that cache: a
-// hot symbol's 2*NR rows x 6 planes (393 KB) stay resident by locality.
-// A shared-memory cache cannot hold them (227 KB per block); staging the
-// opposite side's price/size/seq rows (96 KB) is later work. The sweep
-// scratch holds NR + 2 rows in shared memory (33.8 KB at 8192 slots);
-// above 48 KB (slots >= 12160) the launcher opts in to more.
+// every book row is read in place from device memory at any depth (at
+// 8192 slots x 1024 symbols the six book planes take 403 MB).
 //
-// What bounds it on this card: not bandwidth. Each message reads and
-// writes a few hundred bytes of state, but message m+1 may depend on
-// every byte message m wrote (same book, same account, same hash tile),
-// so the work is one sequential dependence chain of dependent loads,
-// warp reductions and stores through L1/L2 (the whole state, ~9 MB at
-// the serving defaults, stays resident in the 50 MB L2). Its time is
-// the chain's latency: per message, a few dozen dependent L2 round
-// trips and shuffle reductions.
+// What bounds it on this card: not bandwidth and not arithmetic. Each
+// message reads and writes a few hundred bytes of state, but message m+1
+// may depend on every byte message m wrote (same book, same account, same
+// hash tile), so the work is one sequential dependence chain of loads,
+// warp reductions and stores. Its time is the chain's latency: the
+// dependent operations a message executes times the latency of each,
+// with no second warp to hide any of it. The chain cannot be split, so
+// the kernel runs on ONE warp of one block: every scalar the TPU kernel
+// parks in its SMEM row is a register all 32 lanes hold (warp-uniform
+// control flow, no block barriers), each lane owns 4 of a row's 128
+// columns (one 16-byte load per lane per row), and a 128-wide masked
+// reduction is a per-lane reduction plus ONE warp-wide integer min or max
+// (`__reduce_min_sync`, a single REDUX operation, where a shuffle tree
+// takes five dependent shuffle-and-compare steps). A position is looked
+// up once per update (the entry found is written in place), a message's
+// scalar stores go out together between one pair of warp barriers, and a
+// taker's balance is carried in a register and stored once. Tensor
+// cores, TMA tiles and thread block clusters have nothing to do here:
+// the work is int32 compares on one chain, not tiles of independent
+// data. Three things keep the chain short at any book depth:
 //
-// What the one-warp design does about it: the chain cannot be split, so
-// the kernel runs on ONE warp of one block and keeps every step on the
-// shortest path — every scalar the TPU kernel parks in its SMEM row is
-// a register all 32 lanes hold (warp-uniform control flow, no block
-// barriers), each lane owns 4 of a row's 128 columns (one 16-byte load
-// per lane per row), the 128-wide masked min/max reductions become a
-// per-lane reduction plus five __shfl_xor_sync steps, and the sweep
-// scratch lives in shared memory. Staging a lane's rows, a parallel
-// barrier scan and CUDA graphs are later work.
+// 1. Walk only the rows in use. A rest always takes the lowest free
+//    slot, so live orders sit in a side's low rows. `occ[lane][side]` is
+//    one more than the highest row that can hold a nonzero size; every
+//    book pass (sweep copy and write-back, fill search, Q2 ghost, own-side
+//    search, CANCEL, barrier wipe) walks r < occ, not r < NR, and the
+//    free-slot search returns the first hole below occ, else slot occ*128
+//    while occ < NR. `occ` is no state plane: `rows_in_use_kernel` derives
+//    it from `bs` before every launch of the chain kernel (one block per
+//    (lane, side) on all SMs: the one parallel part of the work), and the
+//    chain keeps it current: a rest raises its side's occ, a barrier wipe
+//    zeroes both sides', nothing else lowers it. At NR = 1 occ is 1 and
+//    neither kernel touches the scratch.
+// 2. One pass per selection. The best maker is the lexicographic minimum
+//    of (price*sgn, seq, flat slot): `lexmin` reduces that triple in one
+//    walk (a per-lane best, then three warp mins: the least k1, the
+//    least k2 beside it, the least slot beside both) where the TPU kernel
+//    takes three masked mins, each a walk of its own. The Q2 ghost, the barrier
+//    wipe's (price, seq, slot) and the Q9 tail echo's (highest seq, then
+//    lowest slot) go the same way. The keys are the wrapped values the
+//    three masked mins compare, BIG the "none" value, so ties and
+//    out-of-domain java prices resolve as on the TPU.
+// 3. Stage a trade's book rows in shared memory, all at once. The first
+//    thing a trade does is to start cp.async copies (16 bytes a lane a
+//    row, all rows in flight) of the occ rows of the opposite side's sizes
+//    (the sweep scratch `wsz`, as on the TPU) and, when they fit the STAGE
+//    rows the launcher sized, of its prices and seqs and of the own
+//    side's three planes. They land while the taker's position lookup
+//    waits on device memory; one wait before the sweep, and the
+//    up-to-max_fills fill searches, the Q2 search and the own-side search
+//    read shared memory: one trip to device memory where each search
+//    would make its own. A deeper side reads bp/bq in place. The sweep
+//    never writes bp/bq, and a rest lands in device memory after every
+//    read of the trade, so the staged copies cannot go stale; a merged
+//    (Q1) book searches its own side on the staged, post-sweep sizes.
+//
+// Shared memory: NR + 2 + 5*STAGE rows of 512 bytes (73 KB at 8192 slots
+// and 16 staged rows); above 48 KB the launcher opts in to more.
 //
 // Java wrap arithmetic: signed overflow is undefined in C++, so every
 // 32-bit wrap is done in uint32_t and every 64-bit lo/hi value is joined
@@ -81,7 +115,8 @@ struct Args {
   int32_t *hka_lo, *hka_hi, *hkb_lo, *hkb_hi, *hstate,  // java mode only
       *araw_lo, *araw_hi, *sraw_lo, *sraw_hi;
   int32_t *out;
-  int K, S, NR, A, E, B, CAPR, FB, PROBE;
+  int32_t *occ;  // (S, 2) scratch: rows in use per (lane, side); NR > 1 only
+  int K, S, NR, A, E, B, CAPR, FB, PROBE, STAGE;
 };
 
 // ---- wrap arithmetic -----------------------------------------------------
@@ -140,15 +175,12 @@ __device__ __forceinline__ void margin(bool isbuy, int32_t price,
 }
 
 // ---- warp primitives -----------------------------------------------------
+// the warp's min / max in one REDUX operation (sm_80 and later)
 __device__ __forceinline__ int wmin(int v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v = min(v, __shfl_xor_sync(FULL, v, o));
-  return v;
+  return __reduce_min_sync(FULL, v);
 }
 __device__ __forceinline__ int wmax(int v) {
-#pragma unroll
-  for (int o = 16; o; o >>= 1) v = max(v, __shfl_xor_sync(FULL, v, o));
-  return v;
+  return __reduce_max_sync(FULL, v);
 }
 // one scalar store by lane 0, ordered against every lane's earlier reads
 // and later reads of the same word
@@ -174,6 +206,59 @@ __device__ __forceinline__ void st4(int32_t* p, int4 v) {
 }
 __device__ __forceinline__ int el(const int4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// 16 bytes, device memory -> shared memory, asynchronously (through L1,
+// like the plain loads of the same rows)
+__device__ __forceinline__ void cp16(int32_t* dst, const int32_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+}
+
+// ---- one-pass lexicographic selection -------------------------------------
+struct Key3 {
+  int k1, k2, k3;
+};
+// The lexicographic minimum of (k1, k2, flat slot) over the slots of
+// `rows` book rows that `key` accepts; {BIG, BIG, BIG} when it accepts
+// none (or only keys that the masked mins' BIG would hide). `w`, `p`, `q`
+// point at row 0 of the side's size, price and seq rows, in shared or
+// device memory; key(flat, size, price, seq, k1&, k2&) -> accepted. One
+// walk keeps each lane's least triple (branch-free compares), then three
+// warp mins pick the least k1, the least k2 beside it, the least slot
+// beside both.
+template <class F>
+__device__ __forceinline__ Key3 lexmin(int rows, int tid, const int32_t* w,
+                                       const int32_t* p, const int32_t* q,
+                                       F key) {
+  Key3 best = {BIG, BIG, BIG};
+  for (int r = 0; r < rows; ++r) {
+    const int o = r * LN + 4 * tid;
+    const int4 w4 = ld4(w + o), p4 = ld4(p + o), q4 = ld4(q + o);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      int k1, k2;
+      const bool ok = key(o + j, el(w4, j), el(p4, j), el(q4, j), k1, k2);
+      // slots come in rising order, so a tie on (k1, k2) keeps the first
+      const bool lt = ok & ((k1 < best.k1) | ((k1 == best.k1) & (k2 < best.k2)));
+      best.k1 = lt ? k1 : best.k1;
+      best.k2 = lt ? k2 : best.k2;
+      best.k3 = lt ? o + j : best.k3;
+    }
+  }
+  const int s1 = wmin(best.k1);
+  if (s1 >= BIG) return {BIG, BIG, BIG};
+  const int s2 = wmin(best.k1 == s1 ? best.k2 : INT32_MAX);
+  const int s3 = wmin(best.k1 == s1 && best.k2 == s2 ? best.k3 : INT32_MAX);
+  return {s1, s2, s3};
 }
 
 __device__ __forceinline__ int hbucket(int v) {
@@ -259,38 +344,43 @@ struct Eng {
     return res;
   }
   __device__ int pos_key(int lane, int acc) { return lane * a.A + acc + 1; }
-  __device__ void pos_get(int lane, int acc, int64_t& amt, int64_t& avail) {
-    int e = h_find(pos_key(lane, acc));
-    if (e < 0) {
-      amt = 0;
-      avail = 0;
-      return;
-    }
-    amt = j64(a.ha_lo[e], a.ha_hi[e]);
-    avail = j64(a.hv_lo[e], a.hv_hi[e]);
+  // -> the position's entry or -1 (absent: amt = avail = 0)
+  __device__ int pos_get(int lane, int acc, int64_t& amt, int64_t& avail) {
+    const int e = h_find(pos_key(lane, acc));
+    jvals(e, amt, avail);
+    return e;
   }
-  // -> err flag
-  __device__ bool pos_set(int lane, int acc, int64_t amt, int64_t avail) {
-    int e = h_claim(pos_key(lane, acc));
+  // Write the position whose lookup gave entry `e`. No store lies between
+  // a lookup and its write, so a found entry is written in place, where a
+  // second probe would end; an absent one is claimed. -> err flag
+  __device__ bool pos_set(int e, int lane, int acc, int64_t amt,
+                          int64_t avail) {
+    if (e < 0) e = h_claim(pos_key(lane, acc));
     if (e < 0) return true;
-    sput64(a.ha_lo, a.ha_hi, e, amt);
-    sput64(a.hv_lo, a.hv_hi, e, avail);
+    __syncwarp();
+    if (tid == 0) {
+      a.ha_lo[e] = lo32(amt);
+      a.ha_hi[e] = hi32(amt);
+      a.hv_lo[e] = lo32(avail);
+      a.hv_hi[e] = hi32(avail);
+    }
+    __syncwarp();
     return false;
   }
   // fillOrder's position half (KProcessor.java:276-287), fixed mode
   __device__ bool fill_one(int lane, int acc, int32_t sgn_fill) {
     int64_t amt, avail;
-    pos_get(lane, acc, amt, avail);
+    const int e = pos_get(lane, acc, amt, avail);
     int64_t na = add64(amt, sgn_fill), nv = add64(avail, sgn_fill);
-    return pos_set(lane, acc, na, na == 0 ? 0 : nv);
+    return pos_set(e, lane, acc, na, na == 0 ? 0 : nv);
   }
   // postRemoveAdjustments (KProcessor.java:325-333): the balance credit
   __device__ int64_t release_margin(int lane, int acc, bool isbuy,
                                     int32_t price, int32_t size) {
     int64_t amt, avail, adj, rel;
-    pos_get(lane, acc, amt, avail);
+    const int e = pos_get(lane, acc, amt, avail);
     margin(isbuy, price, size, amt, avail, adj, rel);
-    if (adj != 0 && pos_set(lane, acc, amt, add64(avail, adj)))
+    if (adj != 0 && pos_set(e, lane, acc, amt, add64(avail, adj)))
       set_err(LERR_HASH_FULL);
     return rel;
   }
@@ -449,6 +539,13 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
   int32_t* wsz = smem;           // sweep scratch: opposite side sizes
   int32_t* fslot = smem + W;     // swept maker slots
   int32_t* fsize = fslot + LN;   // swept fill sizes
+  const int SW = a.STAGE * LN;
+  int32_t* sp = fsize + LN;      // staged opposite side prices,
+  int32_t* sq = sp + SW;         // seqs;
+  int32_t* ow = sq + SW;         // staged own side sizes,
+  int32_t* op = ow + SW;         // prices,
+  int32_t* oq = op + SW;         // seqs
+  const bool deep = NR > 1;      // occ is kept; else every side has 1 row
 
   for (int k = 0; k < a.K; ++k) {
     const size_t mo = (size_t)k * B;
@@ -508,6 +605,12 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
       }
 
       const bool bex_v = a.bex[lane] != 0;
+      // rows in use of the lane's buy and sell side
+      int occ0 = 1, occ1 = 1;
+      if (deep && (is_trade || is_cancel || is_barrier)) {
+        occ0 = a.occ[2 * lane];
+        occ1 = a.occ[2 * lane + 1];
+      }
       const int64_t bal = g.bal(acc);
       const bool bal_ok = a.bal_u[acc] != 0;
 
@@ -526,6 +629,33 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
 
       // ---- TRADE
       if (is_trade) {
+        // Stage the rows in use of both sides first, so that the copies
+        // fly while the position lookup below waits on device memory:
+        // the opposite side's sizes into the sweep scratch (reset on
+        // EVERY trade message, rejected ones too) with its prices and
+        // seqs, and the own side's three planes (a merged book's own side
+        // is the swept one). A side deeper than STAGE rows keeps its
+        // prices and seqs in place.
+        const int occ_opp = opp ? occ1 : occ0, occ_own = side ? occ1 : occ0;
+        const bool st_opp = occ_opp <= a.STAGE;
+        const bool st_own = !merged && occ_own <= a.STAGE;
+        __syncwarp();
+        for (int r = 0; r < occ_opp; ++r) {
+          const int o = r * LN + 4 * tid;
+          cp16(wsz + o, a.bs + base_opp + o);
+          if (st_opp) {
+            cp16(sp + o, a.bp + base_opp + o);
+            cp16(sq + o, a.bq + base_opp + o);
+          }
+        }
+        for (int r = 0; st_own && r < occ_own; ++r) {
+          const int o = r * LN + 4 * tid;
+          cp16(ow + o, a.bs + base_own + o);
+          cp16(op + o, a.bp + base_own + o);
+          cp16(oq + o, a.bq + base_own + o);
+        }
+        cp_commit();
+        const int32_t seqv = a.seqc[lane];
         const bool valid = limit >= 0 && limit < 126 && size > 0;
         const int32_t sgnd = is_buy ? size : wneg(size);
         int64_t pamt, pav;
@@ -537,7 +667,7 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
           e_actor = g.jfind(real, ferr);
           g.jvals(e_actor, pamt, pav);
         } else {
-          g.pos_get(lane, acc, pamt, pav);
+          e_actor = g.pos_get(lane, acc, pamt, pav);
         }
         const int64_t nsg = -(int64_t)sgnd;
         const int64_t adj = is_buy ? max64(min64(pav, 0), nsg)
@@ -547,67 +677,39 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
             muls64(wadd(sgnd, (int32_t)(uint32_t)(uint64_t)adj), unit);
         t_ok = (JAVA || valid) && bex_v && bal_ok && !(bal < risk);
 
-        // phase 1: non-mutating sweep over a scratch copy of the opposite
-        // side's sizes, reset on EVERY trade message (rejected ones too)
+        // phase 1: non-mutating sweep over the scratch copy of the
+        // opposite side's sizes
+        cp_wait_all();
         __syncwarp();
-        for (int r = 0; r < NR; ++r)
-          st4(wsz + r * LN + 4 * tid, ld4(a.bs + base_opp + r * LN + 4 * tid));
-        __syncwarp();
+        const int32_t* pp = st_opp ? sp : a.bp + base_opp;
+        const int32_t* qq = st_opp ? sq : a.bq + base_opp;
         int32_t remaining = t_ok ? size : 0;
         int nfill = 0, nempt = 0;
         bool ovf = false, emptied = false;
         while (remaining > 0) {
           // best price*sgn, then lowest seq, then lowest flat slot
-          int loc = BIG;
-          for (int r = 0; r < NR; ++r) {
-            int4 p4 = ld4(a.bp + base_opp + r * LN + 4 * tid);
-            int4 w4 = ld4(wsz + r * LN + 4 * tid);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              int32_t p = el(p4, j);
-              if (el(w4, j) > 0 && wmul(wsub(p, limit), sgn) <= 0)
-                loc = min(loc, wmul(p, sgn));
-            }
-          }
-          const int pstar = wmin(loc);
-          if (pstar >= BIG) break;   // no crossing maker: anyc false
+          const Key3 best = lexmin(
+              occ_opp, tid, wsz, pp, qq,
+              [&](int, int w, int32_t p, int q, int& k1, int& k2) {
+                k1 = wmul(p, sgn);
+                k2 = q;
+                return w > 0 && wmul(wsub(p, limit), sgn) <= 0;
+              });
+          if (best.k1 >= BIG) break;   // no crossing maker: anyc false
           if (nfill >= a.E) {          // exceed: the max_fills envelope
             ovf = true;
             break;
           }
-          loc = BIG;
-          for (int r = 0; r < NR; ++r) {
-            int4 p4 = ld4(a.bp + base_opp + r * LN + 4 * tid);
-            int4 q4 = ld4(a.bq + base_opp + r * LN + 4 * tid);
-            int4 w4 = ld4(wsz + r * LN + 4 * tid);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              int32_t p = el(p4, j);
-              if (el(w4, j) > 0 && wmul(wsub(p, limit), sgn) <= 0 &&
-                  wmul(p, sgn) == pstar)
-                loc = min(loc, el(q4, j));
-            }
-          }
-          const int sstar = wmin(loc);
-          loc = BIG;
-          for (int r = 0; r < NR; ++r) {
-            int4 p4 = ld4(a.bp + base_opp + r * LN + 4 * tid);
-            int4 q4 = ld4(a.bq + base_opp + r * LN + 4 * tid);
-            int4 w4 = ld4(wsz + r * LN + 4 * tid);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-              int32_t p = el(p4, j);
-              if (el(w4, j) > 0 && wmul(wsub(p, limit), sgn) <= 0 &&
-                  wmul(p, sgn) == pstar && el(q4, j) == sstar)
-                loc = min(loc, r * LN + 4 * tid + j);
-            }
-          }
-          const int flat = wmin(loc);
+          const int flat = best.k3;
           const int32_t have = wsz[flat];
           const int32_t fill = min(remaining, have);
-          sput(wsz, flat, have - fill);
-          sput(fslot, nfill, flat);
-          sput(fsize, nfill, fill);
+          __syncwarp();
+          if (tid == 0) {
+            wsz[flat] = have - fill;
+            fslot[nfill] = flat;
+            fsize[nfill] = fill;
+          }
+          __syncwarp();
           remaining -= fill;
           emptied = have == fill;
           nempt += emptied;
@@ -619,86 +721,50 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
           // Q2 (KProcessor.java:237): with the taker exhausted and its last
           // maker emptied, the next best maker whose price >= limit (either
           // direction) gives one zero-size fill
-          int loc = BIG;
-          for (int r = 0; r < NR; ++r) {
-            int4 p4 = ld4(a.bp + base_opp + r * LN + 4 * tid);
-            int4 w4 = ld4(wsz + r * LN + 4 * tid);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              if (el(w4, j) > 0) loc = min(loc, wmul(el(p4, j), sgn));
-          }
-          const int gbest = wmin(loc);
-          if (gbest < BIG) {
-            loc = BIG;
-            for (int r = 0; r < NR; ++r) {
-              int4 p4 = ld4(a.bp + base_opp + r * LN + 4 * tid);
-              int4 q4 = ld4(a.bq + base_opp + r * LN + 4 * tid);
-              int4 w4 = ld4(wsz + r * LN + 4 * tid);
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                if (el(w4, j) > 0 && wmul(el(p4, j), sgn) == gbest)
-                  loc = min(loc, el(q4, j));
-            }
-            const int gss = wmin(loc);
-            loc = BIG;
-            for (int r = 0; r < NR; ++r) {
-              int4 p4 = ld4(a.bp + base_opp + r * LN + 4 * tid);
-              int4 q4 = ld4(a.bq + base_opp + r * LN + 4 * tid);
-              int4 w4 = ld4(wsz + r * LN + 4 * tid);
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                if (el(w4, j) > 0 && wmul(el(p4, j), sgn) == gbest &&
-                    el(q4, j) == gss)
-                  loc = min(loc, r * LN + 4 * tid + j);
-            }
-            const int gfc = wmin(loc);
-            if (a.bp[base_opp + gfc] >= limit) {
-              if (nfill >= a.E) {
-                g.set_err(LERR_JAVA_CAP);
-              } else {
-                sput(fslot, nfill, gfc);
-                sput(fsize, nfill, 0);
-                ++nfill;
+          const Key3 ghost = lexmin(
+              occ_opp, tid, wsz, pp, qq,
+              [&](int, int w, int32_t p, int q, int& k1, int& k2) {
+                k1 = wmul(p, sgn);
+                k2 = q;
+                return w > 0;
+              });
+          if (ghost.k1 < BIG && pp[ghost.k3] >= limit) {
+            if (nfill >= a.E) {
+              g.set_err(LERR_JAVA_CAP);
+            } else {
+              __syncwarp();
+              if (tid == 0) {
+                fslot[nfill] = ghost.k3;
+                fsize[nfill] = 0;
               }
+              __syncwarp();
+              ++nfill;
             }
           }
         }
 
-        // capacity envelope + Q9 bucket-tail echo (own side); a merged (Q1)
-        // book sees the sweep's sizes on its own side too
-        const int32_t* wown = merged ? wsz : a.bs + base_own;
-        int ffree = BIG, smax = -1;
-        bool same_any = false;
-        for (int r = 0; r < NR; ++r) {
-          int4 w4 = ld4(wown + r * LN + 4 * tid);
-          int4 p4 = ld4(a.bp + base_own + r * LN + 4 * tid);
-          int4 q4 = ld4(a.bq + base_own + r * LN + 4 * tid);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            if (el(w4, j) == 0) ffree = min(ffree, r * LN + 4 * tid + j);
-            if (el(w4, j) > 0 && el(p4, j) == limit) {
-              same_any = true;
-              smax = max(smax, el(q4, j));
-            }
-          }
-        }
-        const int free_flat = wmin(ffree);
-        const bool nonempty = __any_sync(FULL, same_any);
-        smax = wmax(smax);
-        int tfc = 0;
-        if (nonempty) {
-          int tl = BIG;
-          for (int r = 0; r < NR; ++r) {
-            int4 w4 = ld4(wown + r * LN + 4 * tid);
-            int4 p4 = ld4(a.bp + base_own + r * LN + 4 * tid);
-            int4 q4 = ld4(a.bq + base_own + r * LN + 4 * tid);
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              if (el(w4, j) > 0 && el(p4, j) == limit && el(q4, j) == smax)
-                tl = min(tl, r * LN + 4 * tid + j);
-          }
-          tfc = wmin(tl);
-        }
+        // capacity envelope + Q9 bucket-tail echo (own side): the lowest
+        // free slot, and of the live orders at `limit` the highest seq's
+        // lowest slot. A merged (Q1) book sees the sweep's sizes on its
+        // own side too.
+        int ffree = BIG;
+        const Key3 tail = lexmin(
+            occ_own, tid,
+            merged ? wsz : st_own ? ow : a.bs + base_own,
+            merged ? pp : st_own ? op : a.bp + base_own,
+            merged ? qq : st_own ? oq : a.bq + base_own,
+            [&](int flat, int w, int32_t p, int q, int& k1, int& k2) {
+              if (w == 0) ffree = min(ffree, flat);
+              k1 = ~q;   // highest seq first
+              k2 = 0;
+              return w > 0 && p == limit;
+            });
+        int free_flat = wmin(ffree);
+        // no hole below occ: the first slot above it, unless the side is
+        // full
+        if (free_flat >= BIG && occ_own < NR) free_flat = occ_own * LN;
+        const bool nonempty = tail.k3 < BIG;
+        const int tfc = nonempty ? tail.k3 : 0;
         tail_lo = a.bo_lo[base_own + tfc];
         tail_hi = a.bo_hi[base_own + tfc];
         const bool rest_want = t_ok && residual > 0;
@@ -714,15 +780,18 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
 
         // phase 2: apply
         if (t_acc) {
-          g.bal_add(acc, sub64(0, risk));
+          // the taker's balance: no one else's moves in a trade, so it
+          // is carried in a register and stored once
+          int64_t nbal = sub64(bal, risk);
           if (JAVA) {
             // 3-argument setPosition: the real key keeps its amount
             if (adj != 0) g.jwrite(e_actor, real, pamt, sub64(pav, adj));
-          } else if (adj != 0 && g.pos_set(lane, acc, pamt, sub64(pav, adj))) {
+          } else if (adj != 0 &&
+                     g.pos_set(e_actor, lane, acc, pamt, sub64(pav, adj))) {
             g.set_err(LERR_HASH_FULL);
           }
           __syncwarp();
-          for (int r = 0; r < NR; ++r)
+          for (int r = 0; r < occ_opp; ++r)
             st4(a.bs + base_opp + r * LN + 4 * tid,
                 ld4(wsz + r * LN + 4 * tid));
           __syncwarp();
@@ -753,20 +822,26 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
               me = g.fill_one(lane, maid, msz);
               te = g.fill_one(lane, acc, wneg(msz));
             }
-            g.bal_add(acc, (int64_t)wmul(wneg(msz), wsub(limit, mprice)));
+            nbal = add64(nbal, (int64_t)wmul(wneg(msz), wsub(limit, mprice)));
             if (me || te) g.set_err(LERR_HASH_FULL);
           }
+          sput64(a.bal_lo, a.bal_hi, acc, nbal);
           if (fill_total + nfill > a.FB) g.set_err(LERR_FILLBUF_FULL);
           if (do_rest) {
-            const int32_t seqv = a.seqc[lane];
             const int s = base_own + free_flat;
-            sput(a.bo_lo, s, t_oidlo);
-            sput(a.bo_hi, s, t_oidhi);
-            sput(a.ba, s, JAVA ? acc | ((int32_t)is_buy << 30) : acc);
-            sput(a.bp, s, limit);
-            sput(a.bs, s, residual);
-            sput(a.bq, s, seqv);
-            sput(a.seqc, lane, wadd(seqv, 1));
+            __syncwarp();
+            if (tid == 0) {
+              a.bo_lo[s] = t_oidlo;
+              a.bo_hi[s] = t_oidhi;
+              a.ba[s] = JAVA ? acc | ((int32_t)is_buy << 30) : acc;
+              a.bp[s] = limit;
+              a.bs[s] = residual;
+              a.bq[s] = seqv;
+              a.seqc[lane] = wadd(seqv, 1);
+              if (deep && free_flat / LN + 1 > occ_own)
+                a.occ[2 * lane + side] = free_flat / LN + 1;
+            }
+            __syncwarp();
           }
           resid_v = residual;
           nf = nfill;
@@ -780,7 +855,7 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
         for (int s = 0; s < 2; ++s) {
           const int bb = (lane * 2 * NR + s * NR) * LN;
           int loc = BIG;
-          for (int r = 0; r < NR; ++r) {
+          for (int r = 0; r < (s ? occ1 : occ0); ++r) {
             int4 w4 = ld4(a.bs + bb + r * LN + 4 * tid);
             int4 l4 = ld4(a.bo_lo + bb + r * LN + 4 * tid);
             int4 h4 = ld4(a.bo_hi + bb + r * LN + 4 * tid);
@@ -818,37 +893,15 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
         for (int ws = 0; ws < 2; ++ws) {
           const int bb = (lane * 2 * NR + ws * NR) * LN;
           while (true) {
-            int loc = BIG;
-            for (int r = 0; r < NR; ++r) {
-              int4 w4 = ld4(a.bs + bb + r * LN + 4 * tid);
-              int4 p4 = ld4(a.bp + bb + r * LN + 4 * tid);
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                if (el(w4, j) > 0) loc = min(loc, el(p4, j));
-            }
-            const int pmin = wmin(loc);
-            if (pmin >= BIG) break;
-            loc = BIG;
-            for (int r = 0; r < NR; ++r) {
-              int4 w4 = ld4(a.bs + bb + r * LN + 4 * tid);
-              int4 p4 = ld4(a.bp + bb + r * LN + 4 * tid);
-              int4 q4 = ld4(a.bq + bb + r * LN + 4 * tid);
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                if (el(w4, j) > 0 && el(p4, j) == pmin) loc = min(loc, el(q4, j));
-            }
-            const int smin = wmin(loc);
-            loc = BIG;
-            for (int r = 0; r < NR; ++r) {
-              int4 w4 = ld4(a.bs + bb + r * LN + 4 * tid);
-              int4 p4 = ld4(a.bp + bb + r * LN + 4 * tid);
-              int4 q4 = ld4(a.bq + bb + r * LN + 4 * tid);
-#pragma unroll
-              for (int j = 0; j < 4; ++j)
-                if (el(w4, j) > 0 && el(p4, j) == pmin && el(q4, j) == smin)
-                  loc = min(loc, r * LN + 4 * tid + j);
-            }
-            const int fc = wmin(loc);
+            const Key3 first = lexmin(
+                ws ? occ1 : occ0, tid, a.bs + bb, a.bp + bb, a.bq + bb,
+                [&](int, int w, int32_t p, int q, int& k1, int& k2) {
+                  k1 = p;
+                  k2 = q;
+                  return w > 0;
+                });
+            if (first.k1 >= BIG) break;
+            const int fc = first.k3;
             const int o_aid = a.ba[bb + fc];
             const int32_t o_price = a.bp[bb + fc], o_size = a.bs[bb + fc];
             sput(a.bs, bb + fc, 0);
@@ -857,6 +910,10 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
           }
         }
         sput(a.bex, lane, 0);
+        if (deep) {   // both sides are empty now
+          sput(a.occ, 2 * lane, 0);
+          sput(a.occ, 2 * lane + 1, 0);
+        }
         if (act != L_REMOVE_SYMBOL) {
           // payout: credit (YES) / just delete (NO) the lane's positions
           // — a hash scan; a zeroed amt/avail IS deletion (keys stay).
@@ -968,9 +1025,31 @@ __global__ void __launch_bounds__(32, 1) seq_scan_kernel(Args args) {
   }
 }
 
+// occ[lane][side] = one more than the highest of the side's NR rows that
+// holds a nonzero size (0: the side is empty). One block per (lane, side).
+__global__ void __launch_bounds__(256)
+    rows_in_use_kernel(const int32_t* __restrict__ bs,
+                       int32_t* __restrict__ occ, int NR) {
+  const int32_t* side = bs + (size_t)blockIdx.x * NR * LN;
+  int top = 0;
+  for (int i = threadIdx.x; i < NR * (LN / 4); i += blockDim.x) {
+    const int4 v = ld4(side + 4 * i);
+    if ((v.x | v.y | v.z | v.w) != 0) top = max(top, i / (LN / 4) + 1);
+  }
+  __shared__ int part[8];
+  top = wmax(top);
+  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = top;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    top = wmax(threadIdx.x < 8 ? part[threadIdx.x] : 0);
+    if (threadIdx.x == 0) occ[blockIdx.x] = top;
+  }
+}
+
 template <bool JAVA>
 int launch(const Args& a, void* stream) {
-  const size_t smem = (size_t)(a.NR * LN + 2 * LN) * sizeof(int32_t);
+  const size_t smem =
+      (size_t)(a.NR + 2 + 5 * a.STAGE) * LN * sizeof(int32_t);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         seq_scan_kernel<JAVA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -982,7 +1061,7 @@ int launch(const Args& a, void* stream) {
   return (int)cudaGetLastError();
 }
 
-// dims = K, S, NR, A, E, B, CAPR, FB, PROBE
+// dims = K, S, NR, A, E, B, CAPR, FB, PROBE, STAGE
 void set_dims(Args& a, const int* dims) {
   a.K = dims[0];
   a.S = dims[1];
@@ -993,16 +1072,18 @@ void set_dims(Args& a, const int* dims) {
   a.CAPR = dims[6];
   a.FB = dims[7];
   a.PROBE = dims[8];
+  a.STAGE = dims[9];
 }
 
 }  // namespace
 
 // Plain C entries. They return the launch's cudaGetLastError() (0 =
 // launched). Fixed mode: ptrs = 7 message columns (K, B), 18 state
-// planes, the (K, rows, 128) output.
+// planes, the (K, rows, 128) output, the (S, 2) rows-in-use scratch
+// (filled by kme_rows_in_use on the same stream when NR > 1).
 extern "C" int kme_seq_scan(void** ptrs, int nptrs, const int* dims,
                             int ndims, void* stream) {
-  if (nptrs != 26 || ndims != 9) return (int)cudaErrorInvalidValue;
+  if (nptrs != 27 || ndims != 10) return (int)cudaErrorInvalidValue;
   Args a = {};
   int i = 0;
   const int32_t** msg[7] = {&a.act, &a.oidlo, &a.oidhi, &a.aid,
@@ -1014,15 +1095,16 @@ extern "C" int kme_seq_scan(void** ptrs, int nptrs, const int* dims,
                       &a.hv_hi, &a.dep,   &a.err};
   for (auto p : st) *p = static_cast<int32_t*>(ptrs[i++]);
   a.out = static_cast<int32_t*>(ptrs[i++]);
+  a.occ = static_cast<int32_t*>(ptrs[i++]);
   set_dims(a, dims);
   return launch<false>(a, stream);
 }
 
 // Java mode: ptrs = 12 message columns (the 7 of fixed mode, aidr lo/hi,
-// sidr lo/hi, flags), 25 state planes, the output.
+// sidr lo/hi, flags), 25 state planes, the output, the scratch.
 extern "C" int kme_seq_scan_java(void** ptrs, int nptrs, const int* dims,
                                  int ndims, void* stream) {
-  if (nptrs != 38 || ndims != 9) return (int)cudaErrorInvalidValue;
+  if (nptrs != 39 || ndims != 10) return (int)cudaErrorInvalidValue;
   Args a = {};
   int i = 0;
   const int32_t** msg[12] = {&a.act,    &a.oidlo,  &a.oidhi, &a.aid,
@@ -1038,6 +1120,17 @@ extern "C" int kme_seq_scan_java(void** ptrs, int nptrs, const int* dims,
                       &a.err};
   for (auto p : st) *p = static_cast<int32_t*>(ptrs[i++]);
   a.out = static_cast<int32_t*>(ptrs[i++]);
+  a.occ = static_cast<int32_t*>(ptrs[i++]);
   set_dims(a, dims);
   return launch<true>(a, stream);
+}
+
+// The rows-in-use prologue: bs (sides * NR, 128) -> occ (sides,), sides =
+// 2 * lanes.
+extern "C" int kme_rows_in_use(const void* bs, void* occ, int sides, int NR,
+                               void* stream) {
+  if (sides <= 0 || NR <= 0) return (int)cudaErrorInvalidValue;
+  rows_in_use_kernel<<<sides, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(bs), static_cast<int32_t*>(occ), NR);
+  return (int)cudaGetLastError();
 }

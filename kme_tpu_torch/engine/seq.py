@@ -23,10 +23,10 @@ Semantics, exactly as the JAX kernel:
   LERR_JAVA_CAP (the reference's stores are unbounded, so it is fatal,
   never a per-message reject).
 - hbm_books: on the TPU, books too deep for VMEM live in HBM behind a
-  one-lane VMEM cache. The card's kernel reads every book row in place
-  from device memory at any depth, so the port accepts the flag only so
-  that configurations carry across from the JAX package; nothing reads
-  it.
+  one-lane VMEM cache. The card's kernel reads book rows in place from
+  device memory at any depth, and only the rows in use (`rows_in_use`),
+  so the port accepts the flag only so that configurations carry across
+  from the JAX package; nothing reads it.
 
 Data layout — identical to the JAX package, so state and output planes
 carry across as a dtype/device copy (`state_from_numpy`):
@@ -52,9 +52,11 @@ Unlike the JAX kernel, which copies the whole state on every call
 state dict's int32 tensors IN PLACE: a call returns only the output
 plane.
 
-The kernel itself is `csrc/seq_step.cu`; `seq_scan` is its wrapper and
-`seq_scan_reference` its plain PyTorch version, which the wrapper takes
-only for tensors on the CPU.
+The kernels are in `csrc/seq_step.cu`: the chain kernel, with `seq_scan`
+its wrapper and `seq_scan_reference` its plain PyTorch version, and the
+rows-in-use kernel that runs before it at more than one row per side
+(`rows_in_use`, plain version `rows_in_use_reference`). A wrapper takes
+the plain version only for tensors on the CPU.
 """
 
 from __future__ import annotations
@@ -994,10 +996,12 @@ class _Reference:
                     if do_rest:
                         seqv = self.g("seqc", lane)
                         ba = acc | (int(is_buy) << 30) if java else acc
+                        slot = ((lane * 2 * self.NR + side * self.NR) * LN
+                                + free_flat)
                         for key, v in (("bo_lo", t_oidlo), ("bo_hi", t_oidhi),
                                        ("ba", ba), ("bp", limit),
                                        ("bs", residual), ("bq", seqv)):
-                            self.blk(key, lane, side)[free_flat] = v
+                            self.p(key, slot, v)
                         self.p("seqc", lane, _i32(seqv + 1))
                     resid_v, nf, nempt_v = residual, nfill, nempt
 
@@ -1136,37 +1140,84 @@ def seq_scan_reference(cfg: SeqConfig, state: dict, stacked: dict
 # ---------------------------------------------------------------------------
 # the kernel's wrapper
 
-# launches of the seq_step kernel by its wrapper, per instantiation
-# (compat; comparison launches included: a caller that wants the main
-# path's count resets it first)
-LAUNCHES = {"fixed": 0, "java": 0}
+# launches by the wrappers: of the seq_step chain kernel per
+# instantiation (compat), and of the rows-in-use kernel (comparison
+# launches included: a caller that wants the main path's count resets it
+# first)
+LAUNCHES = {"fixed": 0, "java": 0, "rows_in_use": 0}
+
+# book rows per side that a trade stages in shared memory: the swept
+# side's prices and seqs and the own side's sizes, prices and seqs (a
+# deeper side is read in place); the launch sizes its shared memory for
+# min(STAGE_ROWS, rows per side)
+STAGE_ROWS = 16
+
+
+def _check_planes(what: str, tensors: dict, shapes: dict, dev):
+    for k, shape in shapes.items():
+        t = tensors[k]
+        if (t.device != dev or t.dtype != torch.int32
+                or tuple(t.shape) != shape or not t.is_contiguous()):
+            raise ValueError(f"{what} {k}: expected contiguous {shape} "
+                             f"int32 on {dev}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+
+
+def rows_in_use_reference(cfg: SeqConfig, bs: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the rows-in-use kernel: (lanes, 2) int32,
+    per (lane, side) one more than the highest of its `nr` rows of the
+    size plane `bs` that holds a nonzero size; 0 for an empty side."""
+    used = (bs.view(2 * cfg.lanes, cfg.nr, LN) != 0).any(dim=2)
+    top = used * torch.arange(1, cfg.nr + 1, device=bs.device)
+    return top.amax(dim=1).to(torch.int32).view(cfg.lanes, 2)
+
+
+def rows_in_use(cfg: SeqConfig, bs: torch.Tensor, out=None) -> torch.Tensor:
+    """The rows a book pass must walk, per (lane, side), derived from the
+    size plane (see `rows_in_use_reference`). CPU tensors take the plain
+    version; CUDA tensors launch the kernel (into `out` when given) or
+    raise."""
+    dev = bs.device
+    _check_planes("state plane", {"bs": bs},
+                  {"bs": (2 * cfg.lanes * cfg.nr, LN)}, dev)
+    if dev.type == "cpu":
+        return rows_in_use_reference(cfg, bs)
+    if dev.type != "cuda":
+        raise ValueError(f"rows_in_use runs on cuda or cpu, not {dev}")
+    from kme_tpu_torch import native
+
+    if out is None:
+        out = torch.empty((cfg.lanes, 2), dtype=torch.int32, device=dev)
+    _check_planes("scratch", {"occ": out}, {"occ": (cfg.lanes, 2)}, dev)
+    native.launch_rows_in_use(bs, out, cfg.nr)
+    LAUNCHES["rows_in_use"] += 1
+    return out
 
 
 def _check(cfg: SeqConfig, state: dict, stacked: dict):
     dev = stacked["act"].device
     K = stacked["act"].shape[0]
-    for f in msg_fields(cfg):
-        t = stacked[f]
-        if (t.device != dev or t.dtype != torch.int32
-                or tuple(t.shape) != (K, cfg.batch) or not t.is_contiguous()):
-            raise ValueError(f"message column {f}: expected contiguous "
-                             f"({K}, {cfg.batch}) int32 on {dev}, got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
-    for k, r in _plane_rows(cfg).items():
-        t = state[k]
-        if (t.device != dev or t.dtype != torch.int32
-                or tuple(t.shape) != (r, LN) or not t.is_contiguous()):
-            raise ValueError(f"state plane {k}: expected contiguous "
-                             f"({r}, {LN}) int32 on {dev}, got "
-                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    _check_planes("message column", stacked,
+                  {f: (K, cfg.batch) for f in msg_fields(cfg)}, dev)
+    _check_planes("state plane", state,
+                  {k: (r, LN) for k, r in _plane_rows(cfg).items()}, dev)
     return dev, K
 
 
 def seq_scan(cfg: SeqConfig, state: dict, stacked: dict) -> torch.Tensor:
-    """K chunks in ONE launch of the seq_step kernel (the chunk loop runs
-    inside it). The state dict's planes are updated in place; returns
-    the (K, out_rows, 128) int32 output planes. CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
+    """K chunks in ONE launch of the seq_step chain kernel (the chunk loop
+    runs inside it). The state dict's planes are updated in place;
+    returns the (K, out_rows, 128) int32 output planes. CPU tensors take
+    the plain version; CUDA tensors launch the kernels or raise.
+
+    On the card a call is two launches on the current stream. With more
+    than one row per side, `rows_in_use` first derives from `bs`, into a
+    scratch this call allocates, how many rows of each (lane, side) can
+    hold an order; the chain kernel walks only those, keeps the scratch
+    current while it runs, and stages up to STAGE_ROWS of them in shared
+    memory per trade. The scratch is no state: it is made anew from the
+    planes on every call, so nothing can hand the kernel a stale one. A
+    failed build or launch of either kernel raises."""
     dev, K = _check(cfg, state, stacked)
     if dev.type == "cpu":
         return seq_scan_reference(cfg, state, stacked)
@@ -1175,11 +1226,15 @@ def seq_scan(cfg: SeqConfig, state: dict, stacked: dict) -> torch.Tensor:
     from kme_tpu_torch import native
 
     out = torch.zeros((K, out_rows(cfg), LN), dtype=torch.int32, device=dev)
+    occ = torch.empty((cfg.lanes, 2), dtype=torch.int32, device=dev)
+    if cfg.nr > 1:
+        rows_in_use(cfg, state["bs"], out=occ)
     native.launch_seq_scan(
         [stacked[f] for f in msg_fields(cfg)]
-        + [state[k] for k in state_keys(cfg)] + [out],
+        + [state[k] for k in state_keys(cfg)] + [out, occ],
         (K, cfg.lanes, cfg.nr, cfg.accounts, cfg.max_fills, cfg.batch,
-         cfg.caprows, cfg.fill_cap, min(cfg.probe_max, cfg.caprows)),
+         cfg.caprows, cfg.fill_cap, min(cfg.probe_max, cfg.caprows),
+         min(STAGE_ROWS, cfg.nr)),
         java=cfg.compat == "java")
     LAUNCHES[cfg.compat] += 1
     return out

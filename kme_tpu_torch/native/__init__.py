@@ -103,9 +103,10 @@ def _seq_fn(java: bool):
 
 def launch_seq_scan(tensors, dims, java: bool = False) -> None:
     """Launch the seq_step kernel on the current stream. `tensors`: the
-    message columns, the state planes and the output plane (all CUDA,
-    checked by the caller): 7 + 18 + 1 in fixed mode, 12 + 25 + 1 in
-    java mode; `dims`: (K, S, NR, A, E, B, CAPR, FB, PROBE)."""
+    message columns, the state planes, the output plane and the
+    rows-in-use scratch (all CUDA, checked by the caller): 7 + 18 + 2 in
+    fixed mode, 12 + 25 + 2 in java mode; `dims`: (K, S, NR, A, E, B,
+    CAPR, FB, PROBE, STAGE)."""
     import torch
 
     fn = _seq_fn(java)
@@ -115,6 +116,22 @@ def launch_seq_scan(tensors, dims, java: bool = False) -> None:
     rc = fn(ptrs, len(tensors), d, len(dims), ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"seq_step launch failed: CUDA error {rc}")
+
+
+def launch_rows_in_use(bs, occ, nr: int) -> None:
+    """Launch seq_step.cu's rows-in-use kernel on the current stream:
+    `bs` (sides * nr, 128) -> `occ`, one int32 per side (both CUDA int32,
+    contiguous, checked by the caller)."""
+    import torch
+
+    fn = load("seq_step").kme_rows_in_use
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(bs.device).cuda_stream
+    rc = fn(bs.data_ptr(), occ.data_ptr(), occ.numel(), nr, stream)
+    if rc != 0:
+        raise RuntimeError(f"rows_in_use launch failed: CUDA error {rc}")
 
 
 _rowdma_fns: dict = {}

@@ -217,3 +217,58 @@ def zipf_symbol_stream(num_events: int, num_symbols: int, num_accounts: int,
         else:
             msgs.append(gen.create_cancel())
     return msgs
+
+
+def deep_book_stream(depth: int, num_accounts: int = 64, sid: int = 5,
+                     seed: int = 0, barrier: bool = True,
+                     max_take: int = 15) -> List[OrderMsg]:
+    """A hand-built stream that drives ONE symbol's book `depth` orders
+    deep on its sell side (the zipf stream never gets past a few hundred):
+    funded accounts and the symbol; `depth` resting sells at 60..100 and
+    depth/8 resting buys at 10..40, so the k-th rest of a side lands in
+    slot k; cancels of the last-rested tenth of the sells (the top rows)
+    and of every 7th of the first third (holes in the low rows); rests
+    into those holes; buys at 100 and sells at 5 that sweep the best
+    prices, which lie scattered over all rows; with `barrier`, takers
+    larger than any max_fills, a PAYOUT that wipes the book, the symbol's
+    re-ADD, and rests and sweeps on the fresh book. Every size is in
+    1..max_take, so an ordinary taker has at most max_take fills."""
+    gen = WorkloadGen(num_accounts, sid + 1, seed=seed, validate=True,
+                      payout_opcode_bug=False)
+    rng = gen.rng
+    msgs: List[OrderMsg] = []
+    for aid in range(num_accounts):
+        msgs.append(gen.create_account(aid))
+        msgs.append(gen.create_transfer(aid, 100_000_000))
+    msgs.append(gen.create_symbol(sid))
+
+    def rest(n: int, buy: bool) -> List[OrderMsg]:
+        make = gen.create_buy if buy else gen.create_sell
+        lo, hi = (10, 40) if buy else (60, 100)
+        return [make(rng.randrange(num_accounts), sid, rng.randint(lo, hi),
+                     rng.randint(1, max_take)) for _ in range(n)]
+
+    def take(n: int, size: int = 0) -> List[OrderMsg]:
+        out = []
+        for i in range(n):
+            make, price = ((gen.create_sell, 5) if i % 8 == 7
+                           else (gen.create_buy, 100))
+            out.append(make(rng.randrange(num_accounts), sid, price,
+                            size or rng.randint(1, max_take)))
+        return out
+
+    def cancel(m: OrderMsg) -> OrderMsg:
+        return OrderMsg(action=op.CANCEL, oid=m.oid, aid=m.aid)
+
+    sells = rest(depth, buy=False)
+    msgs += sells + rest(depth // 8, buy=True)
+    msgs += [cancel(m) for m in reversed(sells[depth - depth // 10:])]
+    msgs += [cancel(m) for m in sells[:depth // 3:7]]
+    msgs += rest(depth // 20, buy=False) + take(depth // 20)
+    if barrier:
+        msgs += take(8, size=40 * max_take)
+        msgs.append(gen.create_payout(sid, True))
+        msgs.append(gen.create_symbol(sid))
+        msgs += rest(depth // 10, buy=False) + rest(depth // 40, buy=True)
+        msgs += take(depth // 40)
+    return msgs

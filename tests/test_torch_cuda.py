@@ -1,6 +1,7 @@
 """Card-only tests of the port: the seq_step CUDA kernel against its plain
-PyTorch version, bit for bit, in fixed and java mode and at deep books;
-the row-copy kernels (B4 gather, B5 scatter) against theirs; and the seq
+PyTorch version, bit for bit, in fixed and java mode and at deep books
+(a book thousands of orders deep, with and without its rows staged in
+shared memory); the rows-in-use kernel against its; the row-copy kernels (B4 gather, B5 scatter) against theirs; and the seq
 and lanes sessions on the card against the same sessions on the CPU.
 
 Every test here carries the `cuda` marker and skips where
@@ -21,7 +22,8 @@ from kme_tpu_torch.engine import seq as SQ
 from kme_tpu_torch.ops import rowdma
 from kme_tpu_torch.runtime.seqsession import SeqSession
 from kme_tpu_torch.runtime.session import LaneSession
-from kme_tpu_torch.workload import harness_stream, zipf_symbol_stream
+from kme_tpu_torch.workload import (deep_book_stream, harness_stream,
+                                    zipf_symbol_stream)
 
 torch.set_num_threads(1)
 
@@ -29,8 +31,8 @@ KW = dict(lanes=8, slots=256, accounts=128, max_fills=32, batch=256,
           pos_cap=1 << 11, fill_cap=1 << 12, probe_max=16)
 JAVA_KW = dict(KW, max_fills=64, pos_cap=1 << 13, fill_cap=1 << 14,
                compat="java", hbm_books=True)
-# 16384 slots: the sweep scratch needs 66,560 bytes of shared memory, so
-# the launcher's opt-in above 48 KB runs
+# 16384 slots: the sweep scratch and the staged rows need 107,520 bytes of
+# shared memory, so the launcher's opt-in above 48 KB runs
 DEEP_KW = dict(KW, lanes=4, slots=16384, hbm_books=True)
 
 STREAMS = {
@@ -87,6 +89,74 @@ def test_seq_step_on_card_matches_plain_version(cuda_device, stream):
             assert torch.equal(gpu[k].cpu(), cpu[k]), k
     assert SQ.LAUNCHES[cfg.compat] - before == len(chunks)
     assert int(cpu["err"][0, 0]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slots", [256, 8192, 16384])
+def test_rows_in_use_on_card_matches_plain_version(cuda_device, slots):
+    """Empty, sparse, full and top-row-only sides, with negative sizes:
+    one launch, the plain version's (lanes, 2) int32."""
+    cfg = SQ.SeqConfig(**dict(KW, lanes=6, slots=slots))
+    rng = np.random.default_rng(slots)
+    bs = np.zeros((cfg.lanes, 2, cfg.nr, 128), np.int32)
+    bs[1, 0] = rng.integers(1, 50, bs[1, 0].shape)              # full
+    bs[2] = (rng.integers(-1, 2, bs[2].shape)
+             * (rng.random(bs[2].shape) < 0.001))               # sparse
+    bs[3, 1, cfg.nr - 1, 127] = 7                               # top slot
+    bs[4, 0, :cfg.nr // 2] = rng.integers(0, 2, bs[4, 0, :cfg.nr // 2].shape)
+    bs[5, 1, 0, 0] = -3
+    plane = torch.from_numpy(bs.reshape(-1, 128))
+    before = SQ.LAUNCHES["rows_in_use"]
+    got = SQ.rows_in_use(cfg, plane.to(cuda_device))
+    assert SQ.LAUNCHES["rows_in_use"] - before == 1
+    want = SQ.rows_in_use(cfg, plane)
+    assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    assert want[1, 0] == cfg.nr and want[3, 1] == cfg.nr and want[5, 1] == 1
+    assert not want[0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compat,slots,stage,sid", [
+    ("fixed", 8192, 16, 5),     # 24 rows deep: past the staged rows
+    ("fixed", 8192, 64, 5),     # every depth staged
+    ("fixed", 8192, 0, 5),      # nothing staged
+    ("fixed", 16384, 16, 5),
+    ("java", 8192, 16, 5),
+    ("java", 8192, 64, 5),
+    ("java", 8192, 16, 0),      # the merged (Q1) book
+])
+def test_deep_book_on_card_matches_plain_version(cuda_device, monkeypatch,
+                                                 compat, slots, stage, sid):
+    """One symbol rested 3000 orders deep on one side, cancelled from the
+    top rows, swept across rows, wiped by a PAYOUT (fixed mode) and rested
+    again: every dispatch leaves the plain version's planes and output,
+    and the rows-in-use kernel agrees with its plain version on each
+    state."""
+    monkeypatch.setattr(SQ, "STAGE_ROWS", stage)
+    cfg = SQ.SeqConfig(**dict(KW, lanes=8, slots=slots, max_fills=16,
+                              batch=1024, pos_cap=1 << 13, fill_cap=1 << 14,
+                              compat=compat, hbm_books=True))
+    msgs = deep_book_stream(3000, sid=sid, barrier=compat == "fixed")
+    gpu = SQ.make_seq_state(cfg, cuda_device)
+    cpu = SQ.make_seq_state(cfg, "cpu")
+    before = dict(SQ.LAUNCHES)
+    chunks = _chunks(cfg, msgs)
+    deepest = 0
+    for c in chunks:
+        og = SQ.seq_step(cfg, gpu, SQ.msgs_to_device(c, cuda_device)).cpu()
+        oc = SQ.seq_step(cfg, cpu, SQ.msgs_to_device(c, "cpu"))
+        assert torch.equal(og, oc)
+        for k in SQ.state_keys(cfg):
+            assert torch.equal(gpu[k].cpu(), cpu[k]), k
+        occ = SQ.rows_in_use(cfg, gpu["bs"]).cpu()
+        assert torch.equal(occ, SQ.rows_in_use(cfg, cpu["bs"]))
+        deepest = max(deepest, int(occ.max()))
+    assert SQ.LAUNCHES[compat] - before[compat] == len(chunks)
+    assert SQ.LAUNCHES["rows_in_use"] - before["rows_in_use"] == \
+        2 * len(chunks)
+    assert int(cpu["err"][0, 0]) == 0
+    # a merged book's live prices are strictly apart: it stays in row 0
+    assert deepest > 16 if sid else deepest == 1
 
 
 @pytest.mark.cuda
