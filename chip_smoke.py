@@ -10,9 +10,11 @@ through SeqSession and the seq_step kernel, one per configuration: the
 slots, 16 max fills, 1024-message batches), the same at `--slots 8192`
 (B3: deep books, which the service turns on above 512 slots) and
 `kme-serve --compat java --slots 8192` (B2 with B3); and `kme-serve
---engine lanes` at its defaults (width 8): LaneSession and the sweep
-step, whose position rows move through the row-copy kernels (B4 gather,
-B5 scatter). Phases, in order; any failure exits non-zero:
+--engine lanes` at its defaults (width 8): LaneSession replaying a CUDA
+graph of the sweep step, whose position rows of both planes move through
+one launch of each row-copy kernel per step (B4 gather, B5 scatter, in
+their (2, joined) instantiation). Phases, in order; any failure exits
+non-zero:
 
 1. card and build: the card's name and power limit, a fresh build of
    both kernel sources (one nvcc each, started together), each source's
@@ -50,24 +52,32 @@ B5 scatter). Phases, in order; any failure exits non-zero:
    rows-in-use kernel against its plain version on every state; then the
    rows-in-use kernel timed alone beside its plain version and its byte
    bound;
-6. B4/B5 vs plain at full width: seeded (1025, 64, 128) int32 planes and
-   8 lanes with repeated scrap lanes; gather output and scattered plane
-   bit-identical to the plain versions;
+6. B4/B5 vs plain at full width, all four instantiations: seeded
+   (1025, 64, 128) int32 planes and 8 lanes with repeated scrap lanes;
+   (1, planar): gather output and scattered plane, (2, joined): both
+   planes' int64 blocks and both scattered planes, bit-identical to the
+   plain versions;
 6b. lanes vs plain at full width: the zipf stream through a card
-   LaneSession until two windows are checked — the first with trades
-   and the first after a PAYOUT — each also run from the same pre-state
-   in a CPU session: packed outputs, used fill prefix and canonical
-   state identical;
-7. lanes main path: the whole zipf stream through LaneSession
-   .process_wire with both launch counts set to 0 just before; its
-   MatchOut must equal B1's (line count and sha256 from phase 4), its
-   open orders, positions and capacity rejects B1's; no sticky error, no
-   negative balance; launches of each kernel = 2 x the padded scan
-   steps; then the last window, replayed from the state before the last
-   batch, checked as in 6b;
-8. B4/B5 timed: CUDA-event device time per launch at 8 rows of 32 KiB
-   (kernel, plain version on the card, library call), with the byte
-   bound;
+   LaneSession (its steps replayed from the step graph) until two
+   windows are checked — the first with trades and the first after a
+   PAYOUT — each also run from the same pre-state by the eager chunk
+   function on the card and in a CPU session: packed outputs, used fill
+   prefix and canonical state identical;
+7. lanes main path: the step graph captured for a fresh session, then the
+   whole zipf stream through LaneSession.process_wire with every launch
+   count set to 0 just before; its MatchOut must equal B1's (line count
+   and sha256 from phase 4), its open orders, positions and capacity
+   rejects B1's; no sticky error, no negative balance; launches of each
+   (2, joined) kernel = the padded scan steps (graph replays counted),
+   none of the (1, planar) ones, no second capture; the capture and
+   replay costs; then the last window, replayed from the state before
+   the last batch, checked as in 6b; then that batch under
+   torch.profiler (device busy share, device ms per padded step, and
+   the step's device time by kernel name);
+8. B4/B5 timed, each instantiation: CUDA-event device time per launch
+   at 8 rows of 32 KiB per plane (kernel, plain version on the card,
+   library call) back to back, and the kernel in a CUDA graph of 100
+   launches, with the byte bounds;
 9. summary: one `kernels` JSON line, the card line, then the device line
    last.
 
@@ -78,13 +88,18 @@ card for the row copies and the rows-in-use kernel (whose plain versions
 are torch ops). `seq_rows_in_use` is the prologue of the deep-book
 configurations of the seq kernel; its `launches` are those of the B3 main
 path, its `max_abs_err` is over every state of phases 3b-3d that it was
-held against its plain version on, its times are phase 3d's.
+held against its plain version on, its times are phase 3d's. The
+`rowdma_*` entries are the (2, joined) instantiations, the ones the
+lanes path launches (back-to-back times; library call: two
+`index_select` / `index_copy_`, one per plane); the (1, planar) ones are
+checked and timed in phases 6 and 8 but not on the main path.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import hashlib
 import json
@@ -514,38 +529,59 @@ def kernel_entry(name, replaces, launches, max_err, kern_ms, plain_ms,
 
 
 def check_rowdma(rowdma):
-    """Phase 6: B4 and B5 on seeded full-width planes against their plain
-    versions (on CPU copies of the same inputs). -> max abs err."""
+    """Phase 6: both instantiations of B4 and B5 on seeded full-width
+    planes against their plain versions (on CPU copies of the same
+    inputs). -> max abs err."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(7)
     S, SUB = LANES["lanes"] + 1, 2 * LANES["accounts"] // 128
-    flat = rng.integers(-2**31, 2**31, (S, SUB, 128), dtype=np.int64
-                        ).astype(np.int32)
-    rows = rng.integers(-2**31, 2**31, (LANES_WIDTH, SUB, 128),
-                        dtype=np.int64).astype(np.int32)
-    lanes = np.full(LANES_WIDTH, S - 1, np.int32)       # 3 scrap lanes
+    A, W = LANES["accounts"], LANES_WIDTH
+
+    def words(shape):
+        return rng.integers(-2**31, 2**31, shape, dtype=np.int64
+                            ).astype(np.int32)
+
+    flat, pa, pv = (words((S, SUB, 128)) for _ in range(3))
+    rows = words((W, SUB, 128))
+    blks = [rng.integers(-2**63, 2**63 - 1, (W, A), dtype=np.int64)
+            for _ in "ab"]
+    lanes = np.full(W, S - 1, np.int32)                 # 3 scrap lanes
     lanes[[0, 2, 3, 5, 7]] = rng.choice(S - 1, 5, replace=False)
-    g_flat = torch.from_numpy(flat).cuda()
-    g_lanes = torch.from_numpy(lanes).cuda()
-    got = rowdma.gather_lane_rows(g_flat, g_lanes).cpu()
-    want = rowdma.gather_lane_rows(torch.from_numpy(flat),
-                                   torch.from_numpy(lanes))
-    c_flat = torch.from_numpy(flat.copy())
-    rowdma.scatter_lane_rows(g_flat, g_lanes, torch.from_numpy(rows).cuda(),
-                             S - 1)
-    rowdma.scatter_lane_rows(c_flat, torch.from_numpy(lanes),
-                             torch.from_numpy(rows), S - 1)
-    torch.cuda.synchronize()
-    err = max(int((got.to(torch.int64) - want).abs().max()),
-              int((g_flat.cpu().to(torch.int64) - c_flat).abs().max()))
-    if err or not torch.equal(got, want) or not torch.equal(g_flat.cpu(),
-                                                           c_flat):
-        fail(f"B4/B5 != plain versions at ({S}, {SUB}, 128), lanes "
-             f"{lanes.tolist()} (max abs err {err})")
-    log(f"B4/B5 at ({S}, {SUB}, 128) int32, lanes {lanes.tolist()}: gather "
-        f"output and scattered plane == plain versions bit for bit")
+
+    def both(fn):
+        """fn(to_tensor) on the card and on the CPU -> (card, cpu) lists
+        of CPU tensors."""
+        out = []
+        for dev in ("cuda", "cpu"):
+            res = fn(lambda x: torch.from_numpy(x.copy()).to(dev))
+            out.append([r.cpu() for r in res])
+        torch.cuda.synchronize()
+        return out
+
+    cases = {
+        "B4 (1, planar) gather output": lambda t: [
+            rowdma.gather_lane_rows(t(flat), t(lanes))],
+        "B5 (1, planar) scattered plane": lambda t: [
+            rowdma.scatter_lane_rows(t(flat), t(lanes), t(rows), S - 1)],
+        "B4 (2, joined) int64 blocks": lambda t: list(
+            rowdma.gather_pos_rows(t(pa), t(pv), t(lanes))),
+        "B5 (2, joined) scattered planes": lambda t: list(
+            rowdma.scatter_pos_rows(t(pa), t(pv), t(lanes), t(blks[0]),
+                                    t(blks[1]), S - 1)),
+    }
+    err = 0
+    for name, fn in cases.items():
+        got, want = both(fn)
+        for x, y in zip(got, want):
+            d = int((x.to(torch.int64) - y.to(torch.int64)).abs().max())
+            err = max(err, d)
+            if d or x.dtype != y.dtype or not torch.equal(x, y):
+                fail(f"{name} != plain version at ({S}, {SUB}, 128), lanes "
+                     f"{lanes.tolist()} (max abs err {d})")
+        log(f"{name} at ({S}, {SUB}, 128) int32 planes, lanes "
+            f"{lanes.tolist()}: == plain version bit for bit")
     return err
 
 
@@ -601,6 +637,7 @@ def checked_lanes(L, LS):
             return super()._dispatch(sched)
 
         def _run_window(self, T, M, cb):
+            self.capture()          # (no-op unless the state was replaced)
             acts = cb[LS.CB_FIELDS.index("act")]
             label = None
             if self.last_only:
@@ -616,37 +653,61 @@ def checked_lanes(L, LS):
             if label is None:
                 return super()._run_window(T, M, cb)
             pre = L.state_to_numpy(self.state)
+            eager = {k: v.clone() for k, v in self.state.items()}
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            replays = self.graph_stats["replays"]
             with syncs_seen() as seen:
+                ev[0].record()
                 outs = super()._run_window(T, M, cb)
+                ev[1].record()
             if seen:
                 fail(f"lanes window {self._win - 1} ({label}) waited for "
                      f"the card: {seen[0]}")
+            if self.graph_stats["replays"] - replays != T:
+                fail(f"lanes window {self._win - 1} ({label}): "
+                     f"{self.graph_stats['replays'] - replays} graph "
+                     f"replays for T={T}")
+            # the same window from the same pre-state: the eager chunk
+            # function on the card, and a CPU session
+            cbt = {f: torch.from_numpy(cb[r].copy())
+                   for r, f in enumerate(LS.CB_FIELDS)}
+            ev[2].record()
+            eager, eouts = L.build_lane_chunk(self.dev_cfg, T, M)(
+                eager, {f: v.cuda() for f, v in cbt.items()})
+            ev[3].record()
             torch.cuda.synchronize()
+            graph_ms, eager_ms = (ev[0].elapsed_time(ev[1]),
+                                  ev[2].elapsed_time(ev[3]))
             cpu = L.state_from_numpy(self.dev_cfg, pre, "cpu")
             t = time.perf_counter()
-            cpu, couts = L.build_lane_chunk(self.dev_cfg, T, M)(
-                cpu, {f: torch.from_numpy(cb[r].copy())
-                      for r, f in enumerate(LS.CB_FIELDS)})
+            cpu, couts = L.build_lane_chunk(self.dev_cfg, T, M)(cpu, cbt)
             plain_s = time.perf_counter() - t
             base, end = int(pre["filloff"][0]), int(cpu["filloff"][0])
-            bad = []
-            if not torch.equal(outs["packed"].cpu(), couts["packed"]):
-                bad.append("packed")
-            if not torch.equal(self.state["fillbuf"][:, base:end].cpu(),
-                               cpu["fillbuf"][:, base:end]):
-                bad.append("fill prefix")
             a = L.export_canonical(self.dev_cfg, self.state, self.cfg.lanes)
-            b = L.export_canonical(self.dev_cfg, cpu, self.cfg.lanes)
-            bad += [k for k in a if not np.array_equal(a[k], b[k])]
-            if bad:
-                fail(f"lanes window {self._win - 1} ({label}): card != CPU "
-                     f"in {bad}")
+            for name, st, po in (("eager chunk on the card", eager,
+                                  eouts["packed"]),
+                                 ("CPU", cpu, couts["packed"])):
+                bad = []
+                if not torch.equal(outs["packed"].cpu(), po.cpu()):
+                    bad.append("packed")
+                if not torch.equal(self.state["fillbuf"][:, base:end].cpu(),
+                                   st["fillbuf"][:, base:end].cpu()):
+                    bad.append("fill prefix")
+                b = L.export_canonical(self.dev_cfg, st, self.cfg.lanes)
+                bad += [k for k in a if not np.array_equal(a[k], b[k])]
+                if bad:
+                    fail(f"lanes window {self._win - 1} ({label}): graph != "
+                         f"{name} in {bad}")
+            del eager, cpu
             self.checked[label] = plain_s
             log(f"lanes window {self._win - 1} ({label}): T={T} steps, "
                 f"{int((acts != 0).sum())} messages, {end - base} fills; "
-                f"card == CPU (packed outputs, used fill prefix, all "
-                f"{len(a)} canonical arrays); no host sync in the card "
-                f"window; CPU session {plain_s:.2f} s")
+                f"graph replay == eager chunk on the card == CPU (packed "
+                f"outputs, used fill prefix, all {len(a)} canonical "
+                f"arrays); no host sync in the graph window; card time "
+                f"(CUDA events, enqueue included) graph window "
+                f"{graph_ms:.2f} ms, eager chunk {eager_ms:.2f} ms; CPU "
+                f"session {plain_s:.2f} s")
             return outs
 
     return CheckedLanes
@@ -674,10 +735,16 @@ def lanes_path(L, LS, rowdma, msgs, b1):
     log(f"lanes windows checked through batch {lo // B}")
     del chk
 
-    # ---- 7. the main path
+    # ---- 7. the main path, its step graph captured first (set-up, like
+    # the kernels' build: the capture's warm-up step runs eagerly)
     ses = LS.LaneSession(cfg, width=LANES_WIDTH)
     if not ses.dev_cfg.pos_dma:
         fail("lanes: LaneSession did not turn pos_dma on at the defaults")
+    ses.capture()
+    st = ses.graph_stats
+    log(f"lanes step graph: captured in {st['capture_s']:.4f} s, "
+        f"instantiated in {st['instantiate_s']:.4f} s (host clock); "
+        f"launches it holds {ses._graph_counts}")
     last = (len(msgs) - 1) // B * B
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -705,10 +772,16 @@ def lanes_path(L, LS, rowdma, msgs, b1):
     sha = hasher.hexdigest()
     log(f"lanes end to end: {len(msgs)} messages in {wall:.3f} s = "
         f"{len(msgs) / wall:.0f} msg/s (host clock, synchronized); "
-        f"{ses.steps} padded scan steps, {ses.steps / wall:.0f} steps/s, "
-        f"launches {launches}")
-    log("lanes phases (s, host clock; dispatch_s runs the scan steps, "
-        "fetch_s waits for them, recon_s builds the MatchOut lines): "
+        f"{ses.steps} padded scan steps, {ses.steps / wall:.0f} steps/s = "
+        f"{wall / ses.steps * 1e3:.4f} ms of wall per step, launches "
+        f"{launches}")
+    log(f"lanes step graph: {st['captures']} graph(s) captured, "
+        f"{st['replays']} replays, host {st['replay_s'] / st['replays'] * 1e6:.2f}"
+        f" us per replay ({st['replay_s']:.3f} s enqueuing; the host blocks "
+        f"there when the card's launch queue is full)")
+    log("lanes phases (s, host clock; dispatch_s enqueues the windows and "
+        "their graph replays, fetch_s waits for them, recon_s builds the "
+        "MatchOut lines): "
         + json.dumps({k: round(v, 4) for k, v in ses.phases.items()}))
     log(f"lanes max_memory_allocated {torch.cuda.max_memory_allocated()} "
         f"bytes")
@@ -716,10 +789,16 @@ def lanes_path(L, LS, rowdma, msgs, b1):
     if (nlines, sha) != (b1_lines, b1_sha):
         fail(f"lanes MatchOut {nlines} lines sha256 {sha} != B1's "
              f"{b1_lines} lines sha256 {b1_sha}")
-    for key in ("gather", "scatter"):
-        if launches[key] != 2 * ses.steps or ses.steps == 0:
+    for key in ("gather_pos", "scatter_pos"):
+        if launches[key] != ses.steps or ses.steps == 0:
             fail(f"lanes: {launches[key]} {key} launches for {ses.steps} "
-                 f"padded steps (want 2 per step)")
+                 f"padded steps (want 1 per step)")
+    if launches["gather"] or launches["scatter"]:
+        fail(f"lanes: (1, planar) row copies ran on the main path: "
+             f"{launches}")
+    if st["captures"] != 1 or st["replays"] != ses.steps:
+        fail(f"lanes: {st['captures']} captures and {st['replays']} replays "
+             f"for {ses.steps} padded steps")
     met = ses.metrics()
     for key in ("open_orders", "positions", "rej_capacity"):
         if met[key] != b1_met[key]:
@@ -734,7 +813,8 @@ def lanes_path(L, LS, rowdma, msgs, b1):
         f"{met['trades_ok']}, capacity rejects {met['rej_capacity']}, "
         f"barriers {met['barriers']}, open orders {met['open_orders']}, "
         f"positions {met['positions']} (B1's); sticky error 0, no negative "
-        f"balance; B4 and B5 launches each = 2 x {ses.steps} padded steps")
+        f"balance; B4 and B5 (2, joined) launches each = {ses.steps} padded "
+        f"steps = graph replays, one capture")
 
     # ---- 7, last window: the final batch replayed from its pre-state
     rep = CheckedLanes(cfg, width=LANES_WIDTH)
@@ -758,6 +838,7 @@ def lanes_path(L, LS, rowdma, msgs, b1):
     prof_ses = LS.LaneSession(cfg, width=LANES_WIDTH)
     prof_ses.state = {k: v.clone() for k, v in pre[0].items()}
     prof_ses._load_maps(*pre[1], pre[2])
+    prof_ses.capture()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -767,40 +848,61 @@ def lanes_path(L, LS, rowdma, msgs, b1):
         wall = time.perf_counter() - t
     kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     busy = sum(e.time_range.elapsed_us() for e in kern) / 1e6
+    steps = max(prof_ses.steps, 1)
     log(f"lanes last batch under torch.profiler: {prof_ses.steps} padded "
         f"steps, wall {wall:.3f} s, {len(kern)} device events, device busy "
-        f"{busy:.4f} s = {busy / wall:.1%} of the wall "
-        f"({len(kern) / max(prof_ses.steps, 1):.0f} device events and "
-        f"{wall / max(prof_ses.steps, 1) * 1e3:.2f} ms of wall per step)")
+        f"{busy:.4f} s = {busy / wall:.1%} of the wall, idle "
+        f"{1 - busy / wall:.1%}; per padded step {len(kern) / steps:.0f} "
+        f"device events, {busy / steps * 1e3:.4f} ms of device busy time, "
+        f"{wall / steps * 1e3:.4f} ms of wall")
+    # where a step's device time goes: device time and launches per
+    # padded step by kernel name, the largest first
+    us, n = collections.Counter(), collections.Counter()
+    for e in kern:
+        us[e.name] += e.time_range.elapsed_us()
+        n[e.name] += 1
+    common = us.most_common(12)
+    share = sum(t for _, t in common) / max(sum(us.values()), 1)
+    top = [{"kernel": name[:90], "us_per_step": round(t / steps, 3),
+            "per_step": round(n[name] / steps, 2)} for name, t in common]
+    log(f"lanes step device time by kernel ({len(us)} names; the 12 "
+        f"largest, {share:.0%} of it): {json.dumps(top)}")
     return launches
 
 
 def time_rowdma(rowdma, max_err, launches, card):
-    """Phase 8: device time per call (CUDA events around a run of calls
-    queued behind a sleep kernel, so no host gap enters) of B4
-    and B5 at 8 distinct rows of 32 KiB, their plain versions on the card
-    and the library calls. -> the two kernel entries."""
+    """Phase 8: device time per call of each B4/B5 instantiation at 8
+    distinct rows of 32 KiB per plane — back to back (CUDA events around
+    a run of calls queued behind a sleep kernel, so no host gap enters),
+    beside their plain versions on the card and the library calls — and
+    each kernel in a CUDA graph of 100 launches. -> the two kernel
+    entries, of the (2, joined) instantiations."""
     import numpy as np
     import torch
 
-    # 100 calls of at most 4 kernels each stay inside the card's launch
+    # 100 calls of at most 10 kernels each stay inside the card's launch
     # queue (~1024 entries): a fuller queue blocks the host behind the
     # sleep and lets host gaps into the timed run
     S, SUB, n = LANES["lanes"] + 1, 2 * LANES["accounts"] // 128, 100
+    A, W = LANES["accounts"], LANES_WIDTH
     rng = np.random.default_rng(8)
-    flat = torch.from_numpy(rng.integers(-2**31, 2**31, (S, SUB, 128),
-                                         dtype=np.int64).astype(np.int32)
-                            ).cuda()
-    rows = torch.from_numpy(rng.integers(-2**31, 2**31,
-                                         (LANES_WIDTH, SUB, 128),
-                                         dtype=np.int64).astype(np.int32)
-                            ).cuda()
+
+    def words(shape):
+        return torch.from_numpy(rng.integers(
+            -2**31, 2**31, shape, dtype=np.int64).astype(np.int32)).cuda()
+
+    flat, pa, pv = (words((S, SUB, 128)) for _ in range(3))
+    rows = words((W, SUB, 128))
+    pa_blk, pv_blk = (torch.from_numpy(rng.integers(
+        -2**63, 2**63 - 1, (W, A), dtype=np.int64)).cuda() for _ in "ab")
     lanes = torch.from_numpy(np.stack([
-        rng.choice(S - 1, LANES_WIDTH, replace=False) for _ in range(n)])
+        rng.choice(S - 1, W, replace=False) for _ in range(n)])
         .astype(np.int32)).cuda()
     lanes64 = lanes.to(torch.int64)
-    nbytes = 2 * LANES_WIDTH * SUB * 128 * 4 + LANES_WIDTH * 4
-    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    row_b = SUB * 128 * 4
+    bound_ms = {"planar": (2 * W * row_b + W * 4) / HBM_BYTES_PER_S * 1e3,
+                "joined": (2 * (W * row_b + W * A * 8) + W * 4)
+                / HBM_BYTES_PER_S * 1e3}
 
     def timed(fn):
         """-> (device ms per call, host enqueue s, sleep ms, host syncs
@@ -828,34 +930,76 @@ def time_rowdma(rowdma, max_err, launches, card):
         return (ev[1].elapsed_time(ev[2]) / n, enq,
                 ev[0].elapsed_time(ev[1]), len(seen) / n)
 
+    def graphed(fn):
+        """-> device ms per launch of `fn`'s kernel in a CUDA graph of n
+        launches (mean of 5 replays after a warm one)."""
+        g = torch.cuda.CUDAGraph()
+        before = dict(rowdma.CAPTURED)
+        with torch.cuda.graph(g):
+            for i in range(n):
+                fn(i)
+        counts = {k: v - before[k] for k, v in rowdma.CAPTURED.items()}
+        g.replay()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        for _ in range(5):
+            g.replay()
+        ev[1].record()
+        torch.cuda.synchronize()
+        rowdma.replayed(counts, 6)
+        return ev[0].elapsed_time(ev[1]) / (5 * n)
+
     rd = {
-        "B4 kernel": lambda i: rowdma.gather_lane_rows(flat, lanes[i]),
-        "B4 plain": lambda i: rowdma.gather_lane_rows_reference(flat,
-                                                                lanes[i]),
+        "B4 (1, planar) kernel": lambda i: rowdma.gather_lane_rows(
+            flat, lanes[i]),
+        "B4 (1, planar) plain": lambda i: rowdma.gather_lane_rows_reference(
+            flat, lanes[i]),
         "index_select": lambda i: flat.index_select(0, lanes64[i]),
-        "B5 kernel": lambda i: rowdma.scatter_lane_rows(flat, lanes[i], rows,
-                                                        S - 1),
-        "B5 plain": lambda i: rowdma.scatter_lane_rows_reference(
+        "B5 (1, planar) kernel": lambda i: rowdma.scatter_lane_rows(
+            flat, lanes[i], rows, S - 1),
+        "B5 (1, planar) plain": lambda i: rowdma.scatter_lane_rows_reference(
             flat, lanes[i], rows, S - 1),
         "index_copy_": lambda i: flat.index_copy_(0, lanes64[i], rows),
+        "B4 (2, joined) kernel": lambda i: rowdma.gather_pos_rows(
+            pa, pv, lanes[i]),
+        "B4 (2, joined) plain": lambda i: rowdma.gather_pos_rows_reference(
+            pa, pv, lanes[i]),
+        "2 x index_select": lambda i: (pa.index_select(0, lanes64[i]),
+                                       pv.index_select(0, lanes64[i])),
+        "B5 (2, joined) kernel": lambda i: rowdma.scatter_pos_rows(
+            pa, pv, lanes[i], pa_blk, pv_blk, S - 1),
+        "B5 (2, joined) plain": lambda i: rowdma.scatter_pos_rows_reference(
+            pa, pv, lanes[i], pa_blk, pv_blk, S - 1),
+        "2 x index_copy_": lambda i: (pa.index_copy_(0, lanes64[i], rows),
+                                      pv.index_copy_(0, lanes64[i], rows)),
     }
     ms = {}
     for name, fn in rd.items():
         ms[name], enq, sleep_ms, syncs = timed(fn)
         gaps = ("" if enq * 1e3 < sleep_ms else
                 "; the enqueue outlasted the sleep: host gaps are included")
-        log(f"{name}: {ms[name] * 1e3:.3f} us per call (device, mean of {n};"
-            f" host enqueue {enq * 1e3:.1f} ms under a {sleep_ms:.1f} ms "
-            f"sleep; {syncs:g} host syncs per call{gaps})")
-    log(f"B4/B5 byte bound {bound_ms * 1e3:.4f} us per call ({nbytes} B at "
-        f"3.35 TB/s); card {card}")
+        log(f"{name}: {ms[name] * 1e3:.3f} us per call (device, back to "
+            f"back, mean of {n}; host enqueue {enq * 1e3:.1f} ms under a "
+            f"{sleep_ms:.1f} ms sleep; {syncs:g} host syncs per call{gaps})")
+        if name.endswith("kernel"):
+            g_ms = graphed(fn)
+            log(f"{name} in a CUDA graph of {n} launches: {g_ms * 1e3:.3f} "
+                f"us per launch (device, mean of 5 replays)")
+    for form, b in bound_ms.items():
+        log(f"B4/B5 ({'1, planar' if form == 'planar' else '2, joined'}) "
+            f"byte bound {b * 1e3:.4f} us per call "
+            f"({b * 1e-3 * HBM_BYTES_PER_S:.0f} B at 3.35 TB/s); card {card}")
     return [
         kernel_entry("rowdma_gather", "kme_tpu/ops/rowdma.py:148",
-                     launches["gather"], max_err, ms["B4 kernel"], [ms["B4 plain"]], bound_ms,
-                     "kme_tpu_torch/csrc/rowdma.cu", ms["index_select"]),
+                     launches["gather_pos"], max_err,
+                     ms["B4 (2, joined) kernel"], [ms["B4 (2, joined) plain"]],
+                     bound_ms["joined"], "kme_tpu_torch/csrc/rowdma.cu",
+                     ms["2 x index_select"]),
         kernel_entry("rowdma_scatter", "kme_tpu/ops/rowdma.py:165",
-                     launches["scatter"], max_err, ms["B5 kernel"], [ms["B5 plain"]], bound_ms,
-                     "kme_tpu_torch/csrc/rowdma.cu", ms["index_copy_"]),
+                     launches["scatter_pos"], max_err,
+                     ms["B5 (2, joined) kernel"], [ms["B5 (2, joined) plain"]],
+                     bound_ms["joined"], "kme_tpu_torch/csrc/rowdma.cu",
+                     ms["2 x index_copy_"]),
     ]
 
 

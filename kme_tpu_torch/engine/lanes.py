@@ -27,16 +27,20 @@ package's, so a state carries across as a dtype/device copy
   array form either way); the fill log `fillbuf` (4, F) with its
   cursor `filloff` (1,).
 
-The port runs the step as eager torch ops on the state's device and
-updates the state dict's tensors IN PLACE where the JAX package donates
-them. Nothing inside a window's step loop waits for the card (no
-`.item()`, boolean-mask indexing or `nonzero`), so a window enqueues
-asynchronously as the JAX scan does. Integer arithmetic that the JAX
-package does in int32 is done in int64 and folded to int32 explicitly
-(`_i32`), wraparound included: the sweep's prefix sum at
-`kme_tpu/engine/lanes.py:413` stays int32 there (`jnp.cumsum` does not
-promote) and wraps, and the port reproduces that; the reductions that
-`jnp.sum` promotes to int64 are int64 here too.
+The port runs one scan step as torch ops on the state's device that
+update the state dict's tensors IN PLACE where the JAX package donates
+them, reading its messages from static window buffers at a device-side
+step index. Nothing in a step waits for the card or reads a host value
+(no `.item()`, boolean-mask indexing or `nonzero`), so on the card
+LaneSession captures the step once into a CUDA graph and replays it T
+times per window — the counterpart of the JAX package's jitted
+`lax.scan` — while the CPU runs the same step eagerly. Integer
+arithmetic that the JAX package does in int32 is done in int64 and
+folded to int32 explicitly (`_i32`), wraparound included: the sweep's
+prefix sum at `kme_tpu/engine/lanes.py:413` stays int32 there
+(`jnp.cumsum` does not promote) and wraps, and the port reproduces
+that; the reductions that `jnp.sum` promotes to int64 are int64 here
+too.
 """
 
 from __future__ import annotations
@@ -284,22 +288,67 @@ def _i32(v: torch.Tensor) -> torch.Tensor:
     return v.to(_I32)
 
 
-# batch columns the step reads: the window's int64 grid and the int32
-# copies the book rows and the row-copy kernels take
-_BATCH_I32 = ("aid", "price", "size", "lane")
+# the window's message rows the step reads, int64; the last four are
+# also kept as int32 (the book rows and the row-copy kernels take them)
+_WIN_FIELDS = ("act", "oid", "aid", "price", "size", "lane")
+_WIN_I32 = _WIN_FIELDS[2:]
+# a step's per-message outputs, stored as int64 rows
+_OUT_FIELDS = ("ok", "residual", "append", "prev_oid", "nfill", "cap_reject")
+_FILL_FIELDS = ("fill_oid", "fill_aid", "fill_price", "fill_size")
+
+
+def window_steps(cfg: LaneConfig) -> int:
+    """The most scan steps of one dispatch window (LaneSession buckets a
+    window's T to a power of two from cfg.steps up to cfg.window)."""
+    return pow2_bucket(cfg.window, lo=cfg.steps)
+
+
+def make_step_io(cfg: LaneConfig, T: int, device) -> dict:
+    """The static buffers a step reads and writes, for windows of up to T
+    steps (a captured step graph holds their addresses): the window's
+    messages "win" (T, 6, X) int64 and "win32" (T, 4, X) int32 in
+    _WIN_FIELDS order, the outputs "out" (T, 6, X) and "fills"
+    (T, 4, X, E) int64 in _OUT_FIELDS / _FILL_FIELDS order, and the
+    device-side step index "t" (1,) int64."""
+    X = cfg.width if cfg.width > 0 else cfg.lanes
+    dev = torch.device(device)
+    return {
+        "win": torch.zeros((T, len(_WIN_FIELDS), X), dtype=_I64, device=dev),
+        "win32": torch.zeros((T, len(_WIN_I32), X), dtype=_I32, device=dev),
+        "out": torch.empty((T, len(_OUT_FIELDS), X), dtype=_I64, device=dev),
+        "fills": torch.empty((T, len(_FILL_FIELDS), X, cfg.max_fills),
+                             dtype=_I64, device=dev),
+        "t": torch.zeros((1,), dtype=_I64, device=dev),
+    }
+
+
+def idle_step_io(cfg: LaneConfig, io: dict) -> None:
+    """Every slot of the window buffers a NOP (under compaction on the
+    scrap lane) and the step index 0: a step then leaves the state as it
+    was, which makes it a safe warm-up before a graph capture."""
+    io["win"].zero_()
+    io["win32"].zero_()
+    if cfg.width > 0:
+        io["win"][:, _WIN_FIELDS.index("lane")] = cfg.lanes - 1
+        io["win32"][:, _WIN_I32.index("lane")] = cfg.lanes - 1
+    io["t"].zero_()
 
 
 @functools.lru_cache(maxsize=None)
 def build_lane_step(cfg: LaneConfig, axis_name=None):
-    """The scan-step batch function: step(state, batch) -> outs.
+    """The scan step: step(state, io) runs ONE step of a window.
 
-    batch: dict of (T, X) int64 tensors (act, oid, aid, price, size)
-    where X is the step width — S at full width, cfg.width under
-    active-lane compaction, which adds a (T, X) "lane" tensor mapping
-    each step slot to its device lane (padding slots carry the scrap
-    lane S-1 with act=NOP, so their writes are identity). The state
-    dict is updated in place; outs holds (T, X) ok / residual / append
-    / prev_oid / nfill / cap_reject and (T, X, E) fill arrays."""
+    io: the window buffers of `make_step_io`. The step reads its (X,)
+    message slots (act, oid, aid, price, size, lane) at the device-side
+    index io["t"], where X is the step width — S at full width,
+    cfg.width under active-lane compaction, where "lane" maps each step
+    slot to its device lane (padding slots carry the scrap lane S-1 with
+    act=NOP, so their writes are identity). The state dict is updated in
+    place; the step writes its (X,) ok / residual / append / prev_oid /
+    nfill / cap_reject and (X, E) fill arrays at row io["t"] and
+    advances it. Nothing in it waits for the card or depends on a host
+    value, so LaneSession captures it once into a CUDA graph and replays
+    it T times per window; elsewhere it runs eagerly."""
     if axis_name is not None:
         raise NotImplementedError(
             "the sharded (shard_map) lanes step comes with the seq-fleet "
@@ -331,14 +380,13 @@ def build_lane_step(cfg: LaneConfig, axis_name=None):
             be_v = st["book_exists"]
 
         if cfg.pos_dma:
-            # copy the W active lanes' position rows into small (X, A)
-            # s64 blocks; every read/write below is block-local (each
-            # step slot owns its lane row — scheduler invariant), and
-            # the updated rows are copied back in place at the end
-            pa_f = rowdma.join_rows(rowdma.gather_lane_rows(
-                st["pos_amt"], msg["lane32"]))
-            pv_f = rowdma.join_rows(rowdma.gather_lane_rows(
-                st["pos_avail"], msg["lane32"]))
+            # copy the W active lanes' position rows of both planes into
+            # small (X, A) s64 blocks (one B4 launch); every read/write
+            # below is block-local (each step slot owns its lane row —
+            # scheduler invariant), and the updated rows are copied back
+            # in place at the end (one B5 launch)
+            pa_f, pv_f = rowdma.gather_pos_rows(st["pos_amt"],
+                                                st["pos_avail"], msg["lane32"])
 
             def pos_read(blk, accs):                # accs: (X, K) int64
                 return torch.gather(blk, 1, accs)
@@ -585,10 +633,8 @@ def build_lane_step(cfg: LaneConfig, axis_name=None):
             if cfg.pos_dma:
                 # copy the updated (X, A) blocks back in place (the
                 # kernel skips scrap-lane rows)
-                rowdma.scatter_lane_rows(st["pos_amt"], msg["lane32"],
-                                         rowdma.split_rows(pa_f), S - 1)
-                rowdma.scatter_lane_rows(st["pos_avail"], msg["lane32"],
-                                         rowdma.split_rows(pv_f), S - 1)
+                rowdma.scatter_pos_rows(st["pos_amt"], st["pos_avail"],
+                                        msg["lane32"], pa_f, pv_f, S - 1)
         else:
             for k, v in new_rows.items():
                 st[k].copy_(v)
@@ -627,19 +673,21 @@ def build_lane_step(cfg: LaneConfig, axis_name=None):
             "met_bool": torch.tensor(met_bool, dtype=_I64).to(dev),
         }
 
-    def step(state, batch):
-        dev = batch["act"].device
-        c = consts.get(dev)
+    def step(st, io):
+        t = io["t"]
+        c = consts.get(t.device)
         if c is None:
-            c = consts[dev] = _consts(dev)
-        cols = {k: v.unbind(0) for k, v in batch.items()}
-        for k in _BATCH_I32:
-            if k in batch:
-                cols[k + "32"] = batch[k].to(_I32).unbind(0)
-        T = batch["act"].shape[0]
-        per = [one_step(state, {k: v[t] for k, v in cols.items()}, c)
-               for t in range(T)]
-        return {k: torch.stack([p[k] for p in per]) for k in per[0]}
+            c = consts[t.device] = _consts(t.device)
+        msg = dict(zip(_WIN_FIELDS, io["win"].index_select(0, t)[0]
+                       .unbind(0)))
+        msg.update(zip([k + "32" for k in _WIN_I32],
+                       io["win32"].index_select(0, t)[0].unbind(0)))
+        outs = one_step(st, msg, c)
+        io["out"].index_copy_(0, t, torch.stack(
+            [outs[k].to(_I64) for k in _OUT_FIELDS])[None])
+        io["fills"].index_copy_(0, t, torch.stack(
+            [outs[k].to(_I64) for k in _FILL_FIELDS])[None])
+        t.add_(1)
 
     return step
 
@@ -649,12 +697,14 @@ def build_lane_step(cfg: LaneConfig, axis_name=None):
 
 
 def chunk_compaction(cfg: LaneConfig, T: int, M: int, step):
-    """Wrap a (state, (T, X) batch) scan `step` with device-side input
-    scatter and output compaction: inputs arrive as (M,) message vectors
-    with (t, lane|slot) coordinates, outputs leave as one packed (8, M)
-    int64 array, and fills are appended to the persistent fill log in
-    cb order (the session sorts cb by (t, lane)). Overflowing the log
-    sets the sticky LERR_FILLBUF_FULL. t >= T marks padding entries."""
+    """Wrap T runs of the one-step function `step` (build_lane_step)
+    with device-side input scatter and output compaction: inputs arrive
+    as (M,) message vectors with (t, lane|slot) coordinates and are
+    scattered into the step's (T, X) window buffers, outputs leave as one
+    packed (8, M) int64 array, and fills are appended to the persistent
+    fill log in cb order (the session sorts cb by (t, lane)).
+    Overflowing the log sets the sticky LERR_FILLBUF_FULL. t >= T marks
+    padding entries."""
     S, E = cfg.lanes, cfg.max_fills
     FB = cfg.fill_buffer
     compact = cfg.width > 0
@@ -664,39 +714,48 @@ def chunk_compaction(cfg: LaneConfig, T: int, M: int, step):
             f"chunk M={M} x max_fills={E} exceeds the fill-log slack "
             f"{_fill_slack(cfg)}")
 
-    def chunk(state, cb):
+    def chunk(state, cb, io=None, run=None):
+        """-> (state, {"packed": (8, M) int64}). `io`: the step's window
+        buffers (fresh ones by default); `run(T)`: runs the T steps over
+        them (by default the step itself, T times)."""
         dev = cb["t"].device
+        if io is None:
+            io = make_step_io(cfg, T, dev)
+        elif io["win"].shape[0] < T:
+            raise ValueError(f"window of {T} steps in buffers of "
+                             f"{io['win'].shape[0]}")
         valid = cb["t"] < T
         col = cb["slot"] if compact else cb["lane"]
         flat = torch.where(valid, cb["t"] * X + col, T * X)
+        # the (T, X) grid of each message row, padding slots NOP on the
+        # scrap lane, written into the window buffers
+        grid = torch.zeros((len(_WIN_FIELDS), T * X + 1), dtype=_I64,
+                           device=dev)
+        grid[_WIN_FIELDS.index("lane")] = S - 1
+        grid[:, flat] = torch.stack([cb[k] for k in _WIN_FIELDS])
+        win = grid[:, :T * X].reshape(-1, T, X).transpose(0, 1)
+        io["win"][:T] = win
+        io["win32"][:T] = win[:, len(_WIN_FIELDS) - len(_WIN_I32):]
+        io["t"].zero_()
+        if run is None:
+            for _ in range(T):
+                step(state, io)
+        else:
+            run(T)
 
-        def grid(v, fill=0):
-            z = torch.full((T * X + 1,), fill, dtype=_I64, device=dev)
-            z[flat] = v
-            return z[:T * X].reshape(T, X)
-
-        batch = {k: grid(cb[k]) for k in ("act", "oid", "aid", "price",
-                                          "size")}
-        if compact:
-            batch["lane"] = grid(cb["lane"], fill=S - 1)
-        outs = step(state, batch)
-
+        # per-message gathers of the (T, X) outputs
         gflat = torch.clamp(flat, max=T * X - 1)
-
-        def pick(a):  # (T, X, ...) -> (M, ...) per-message gather
-            return a.reshape((T * X,) + tuple(a.shape[2:]))[gflat]
-
-        nfill = pick(outs["nfill"]) * valid
+        ok, residual, append, prev_oid, nfill, cap = io["out"][:T].transpose(
+            0, 1).reshape(len(_OUT_FIELDS), T * X)[:, gflat]
+        nfill = nfill * valid
         total = nfill.sum()
         base = state["filloff"][0]
         excl = torch.cumsum(nfill, 0) - nfill
         eidx = torch.arange(E, dtype=_I64, device=dev)[None, :]
         mask = eidx < nfill[:, None]
         new_off = base + total
-        fills = torch.stack([pick(outs["fill_oid"]),
-                             pick(outs["fill_aid"]).to(_I64),
-                             pick(outs["fill_price"]).to(_I64),
-                             pick(outs["fill_size"]).to(_I64)])  # (4, M, E)
+        fills = io["fills"][:T].transpose(0, 1).reshape(
+            len(_FILL_FIELDS), T * X, E)[:, gflat]          # (4, M, E)
         buf = state["fillbuf"]
         if compact:
             # stream-compact the (M, E) grid (valid entries keyed by their
@@ -720,11 +779,11 @@ def chunk_compaction(cfg: LaneConfig, T: int, M: int, step):
         # ALL per-message outputs ride ONE (8, M) int64 array (rows 6/7
         # broadcast the err/total scalars): a single device-to-host copy
         packed = torch.stack([
-            (valid & pick(outs["ok"])).to(_I64),
-            pick(outs["residual"]).to(_I64),
-            (valid & pick(outs["append"])).to(_I64),
-            pick(outs["prev_oid"]),
-            (valid & pick(outs["cap_reject"])).to(_I64),
+            (valid & (ok != 0)).to(_I64),
+            residual,
+            (valid & (append != 0)).to(_I64),
+            prev_oid,
+            (valid & (cap != 0)).to(_I64),
             nfill,
             err.to(_I64).expand(M),
             total.expand(M),

@@ -10,6 +10,7 @@ missing `nvcc`, a failed build or a failed launch raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -134,6 +135,14 @@ def launch_rows_in_use(bs, occ, nr: int) -> None:
         raise RuntimeError(f"rows_in_use launch failed: CUDA error {rc}")
 
 
+# argument types of the row-copy entries (p: a pointer or the stream,
+# i: an int), after csrc/rowdma.cu
+_ROWDMA_ARGS = {
+    "kme_gather_lane_rows": "pppiiiip",
+    "kme_scatter_lane_rows": "pppiiiiip",
+    "kme_gather_pos_rows": "pppppiiiip",
+    "kme_scatter_pos_rows": "pppppiiiiip",
+}
 _rowdma_fns: dict = {}
 
 
@@ -141,46 +150,62 @@ def _rowdma_fn(entry: str):
     fn = _rowdma_fns.get(entry)
     if fn is None:
         fn = getattr(load("rowdma"), entry)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([p, p, p, i, i, i, p] if entry == "kme_gather_lane_rows"
-                       else [p, p, p, i, i, i, i, p])
+        fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
+                       for c in _ROWDMA_ARGS[entry]]
         fn.restype = ctypes.c_int
         _rowdma_fns[entry] = fn
     return fn
 
 
-def _aligned(*tensors) -> None:
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    import torch
+
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _launch_rowdma(entry: str, tensors, ints, planes) -> None:
+    """One row-copy entry on the current stream: `tensors` (all CUDA,
+    contiguous, shapes checked by the caller) as pointers, then S, W, the
+    plane's row words, `ints`, the SM count and the stream."""
+    import torch
+
+    flat, lanes = planes[0], tensors[len(planes)]
     for t in tensors:
-        if t.data_ptr() % 16:
+        if t is not lanes and t.data_ptr() % 16:
             raise ValueError("row copies need 16-byte aligned tensors")
+    dev = flat.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _rowdma_fn(entry)(
+        *[t.data_ptr() for t in tensors], flat.shape[0], lanes.shape[0],
+        flat[0].numel(), *ints, _sms(dev.index), stream)
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
 
 
 def launch_rowdma_gather(flat, lanes, out) -> None:
-    """B4 on the current stream: out[w] = flat[lanes[w]] (all CUDA int32,
-    contiguous, shapes checked by the caller)."""
-    import torch
-
-    _aligned(flat, out)
-    S, W = flat.shape[0], lanes.shape[0]
-    stream = torch.cuda.current_stream(flat.device).cuda_stream
-    rc = _rowdma_fn("kme_gather_lane_rows")(
-        flat.data_ptr(), lanes.data_ptr(), out.data_ptr(), S, W,
-        flat[0].numel(), stream)
-    if rc != 0:
-        raise RuntimeError(f"rowdma gather launch failed: CUDA error {rc}")
+    """B4, (1, planar), on the current stream: out[w] = flat[lanes[w]]
+    (all CUDA int32)."""
+    _launch_rowdma("kme_gather_lane_rows", (flat, lanes, out), (), (flat,))
 
 
 def launch_rowdma_scatter(flat, lanes, rows, skip_lane: int) -> None:
-    """B5 on the current stream: flat[lanes[w]] = rows[w] in place,
-    skipping `skip_lane` (all CUDA int32, contiguous, checked by the
-    caller)."""
-    import torch
+    """B5, (1, planar), on the current stream: flat[lanes[w]] = rows[w] in
+    place, skipping `skip_lane` (all CUDA int32)."""
+    _launch_rowdma("kme_scatter_lane_rows", (flat, lanes, rows),
+                   (int(skip_lane),), (flat,))
 
-    _aligned(flat, rows)
-    S, W = flat.shape[0], lanes.shape[0]
-    stream = torch.cuda.current_stream(flat.device).cuda_stream
-    rc = _rowdma_fn("kme_scatter_lane_rows")(
-        flat.data_ptr(), lanes.data_ptr(), rows.data_ptr(), S, W,
-        flat[0].numel(), int(skip_lane), stream)
-    if rc != 0:
-        raise RuntimeError(f"rowdma scatter launch failed: CUDA error {rc}")
+
+def launch_pos_gather(pa, pv, lanes, pa_blk, pv_blk) -> None:
+    """B4, (2, joined), on the current stream: both planes' rows `lanes`
+    joined into the (W, A) int64 blocks."""
+    _launch_rowdma("kme_gather_pos_rows", (pa, pv, lanes, pa_blk, pv_blk),
+                   (), (pa, pv))
+
+
+def launch_pos_scatter(pa, pv, lanes, pa_blk, pv_blk, skip_lane: int) -> None:
+    """B5, (2, joined), on the current stream: the (W, A) int64 blocks
+    split back into both planes' rows `lanes` in place, skipping
+    `skip_lane`."""
+    _launch_rowdma("kme_scatter_pos_rows", (pa, pv, lanes, pa_blk, pv_blk),
+                   (int(skip_lane),), (pa, pv))

@@ -3,12 +3,16 @@
 The port of `kme_tpu/ops/rowdma.py`. The sweep engine's position state
 is (lanes x accounts) — 67 MB at the `kme-serve` defaults as planar
 int32 rows — but each scan step touches only the W active lanes' rows.
-Two kernels move just those rows:
+Two kernels move just those rows, each in two instantiations:
 
   gather_lane_rows:  copy the W rows `flat[lanes[w]]` into a (W, SUB, LN)
-                     block (B4, `_gather_kernel`).
+                     block (B4, `_gather_kernel`);
   scatter_lane_rows: copy updated rows back into `flat` in place,
-                     skipping the scrap lane (B5, `_scatter_kernel`).
+                     skipping the scrap lane (B5, `_scatter_kernel`);
+  gather_pos_rows / scatter_pos_rows: the same for both position planes
+                     in one launch, with the (W, A) int64 blocks the lanes
+                     step computes on joined / split inside the kernel —
+                     what the step launches.
 
 The kernels are `csrc/rowdma.cu`; the wrappers below take the plain
 PyTorch versions (`*_reference`) only for tensors on the CPU, and launch
@@ -16,8 +20,9 @@ the kernel or raise for CUDA tensors.
 
 The planar layout is the JAX package's: 64-bit state is stored as int32
 [lo | hi] halves per row, shaped (SUB, LN) tiles, and joined to int64
-only on the small (W, A) blocks (join_rows / split_rows). pack64_np and
-unpack64_np are the one definition of that layout on the host.
+only on the small (W, A) blocks (join_rows / split_rows, which the pos
+kernels fuse). pack64_np and unpack64_np are the one definition of that
+layout on the host.
 """
 
 from __future__ import annotations
@@ -27,9 +32,26 @@ import torch
 
 LN = 128  # minor dim of every row tile
 
-# launches of each kernel by its wrapper (a caller that wants the count
-# of one run resets it first)
-LAUNCHES = {"gather": 0, "scatter": 0}
+# launches of each kernel that ran (a caller that wants the count of one
+# run resets it first): a wrapper adds one where it launches, except
+# while the current stream is being captured into a CUDA graph — then it
+# adds to CAPTURED, and the graph's owner adds that count to LAUNCHES at
+# every replay (`replayed`)
+LAUNCHES = {"gather": 0, "scatter": 0, "gather_pos": 0, "scatter_pos": 0}
+CAPTURED = dict.fromkeys(LAUNCHES, 0)
+
+
+def _launched(key: str) -> None:
+    if torch.cuda.is_current_stream_capturing():
+        CAPTURED[key] += 1
+    else:
+        LAUNCHES[key] += 1
+
+
+def replayed(counts: dict, times: int = 1) -> None:
+    """Count `times` replays of a graph that holds `counts` launches."""
+    for k, n in counts.items():
+        LAUNCHES[k] += n * times
 
 
 def row_shape(width: int) -> tuple:
@@ -103,6 +125,20 @@ def scatter_lane_rows_reference(flat: torch.Tensor, lanes: torch.Tensor,
     return flat
 
 
+def gather_pos_rows_reference(pa: torch.Tensor, pv: torch.Tensor,
+                              lanes: torch.Tensor) -> tuple:
+    return (join_rows(pa.index_select(0, lanes)),
+            join_rows(pv.index_select(0, lanes)))
+
+
+def scatter_pos_rows_reference(pa: torch.Tensor, pv: torch.Tensor,
+                               lanes: torch.Tensor, pa_blk: torch.Tensor,
+                               pv_blk: torch.Tensor, skip_lane: int) -> tuple:
+    scatter_lane_rows_reference(pa, lanes, split_rows(pa_blk), skip_lane)
+    scatter_lane_rows_reference(pv, lanes, split_rows(pv_blk), skip_lane)
+    return pa, pv
+
+
 # ---------------------------------------------------------------------------
 # the kernels' wrappers
 
@@ -140,7 +176,7 @@ def gather_lane_rows(flat: torch.Tensor, lanes: torch.Tensor) -> torch.Tensor:
     out = torch.empty((lanes.shape[0],) + tuple(flat.shape[1:]),
                       dtype=torch.int32, device=flat.device)
     native.launch_rowdma_gather(flat, lanes, out)
-    LAUNCHES["gather"] += 1
+    _launched("gather")
     return out
 
 
@@ -157,5 +193,58 @@ def scatter_lane_rows(flat: torch.Tensor, lanes: torch.Tensor,
     from kme_tpu_torch import native
 
     native.launch_rowdma_scatter(flat, lanes, rows, skip_lane)
-    LAUNCHES["scatter"] += 1
+    _launched("scatter")
     return flat
+
+
+def _check_pos(pa: torch.Tensor, pv: torch.Tensor, lanes: torch.Tensor,
+               blks=()):
+    dev = _check(pa, lanes)
+    _check(pv, lanes)
+    if pv.shape != pa.shape:
+        raise ValueError(f"pv: expected the shape of pa {tuple(pa.shape)}, "
+                         f"got {tuple(pv.shape)}")
+    want = (lanes.shape[0], pa[0].numel() // 2)
+    for name, b in zip(("pa_blk", "pv_blk"), blks):
+        if (b.dtype != torch.int64 or tuple(b.shape) != want
+                or not b.is_contiguous() or b.device != pa.device):
+            raise ValueError(f"{name}: expected contiguous {want} int64 on "
+                             f"{pa.device}, got {tuple(b.shape)} {b.dtype} "
+                             f"on {b.device}")
+    return dev
+
+
+def gather_pos_rows(pa: torch.Tensor, pv: torch.Tensor,
+                    lanes: torch.Tensor) -> tuple:
+    """pa, pv: (S, SUB, LN) i32 planar position planes; lanes: (W,) i32 ->
+    (pa_blk, pv_blk), the rows `lanes` of each joined to a (W, A) s64
+    block (A = SUB * LN / 2). CPU tensors take the plain version; CUDA
+    tensors launch the B4 kernel's (2, joined) instantiation or raise."""
+    if _check_pos(pa, pv, lanes).type == "cpu":
+        return gather_pos_rows_reference(pa, pv, lanes)
+    from kme_tpu_torch import native
+
+    shape = (lanes.shape[0], pa[0].numel() // 2)
+    pa_blk = torch.empty(shape, dtype=torch.int64, device=pa.device)
+    pv_blk = torch.empty(shape, dtype=torch.int64, device=pa.device)
+    native.launch_pos_gather(pa, pv, lanes, pa_blk, pv_blk)
+    _launched("gather_pos")
+    return pa_blk, pv_blk
+
+
+def scatter_pos_rows(pa: torch.Tensor, pv: torch.Tensor, lanes: torch.Tensor,
+                     pa_blk: torch.Tensor, pv_blk: torch.Tensor,
+                     skip_lane: int) -> tuple:
+    """Split the (W, A) s64 blocks back into rows `lanes` of both planes IN
+    PLACE, dropping rows whose lane is `skip_lane`; returns (pa, pv).
+    Lanes other than `skip_lane` must be distinct, as for
+    scatter_lane_rows. CPU tensors take the plain version; CUDA tensors
+    launch the B5 kernel's (2, joined) instantiation or raise."""
+    if _check_pos(pa, pv, lanes, (pa_blk, pv_blk)).type == "cpu":
+        return scatter_pos_rows_reference(pa, pv, lanes, pa_blk, pv_blk,
+                                          skip_lane)
+    from kme_tpu_torch import native
+
+    native.launch_pos_scatter(pa, pv, lanes, pa_blk, pv_blk, skip_lane)
+    _launched("scatter_pos")
+    return pa, pv

@@ -15,6 +15,14 @@ fill log. Nothing in a window syncs with the card; the sticky error is
 checked once per batch, in the fetch. A barrier reads its book's order
 count once (engine/lanes.py `build_barrier_ops`).
 
+On the card a window's scan steps are replays of one CUDA graph of the
+step (engine/lanes.py `build_lane_step`), captured at first use over
+the session's static window buffers and its state tensors, and captured
+again whenever a state tensor is replaced (`load_numpy`,
+`import_canonical`, or assigning `state`): the JAX package jits the
+window's `lax.scan` instead. A failed capture or replay raises. On the
+CPU the same step runs eagerly.
+
 Also the port's copy of `LaneEngineError` and its name table, with the
 seq kernel's codes.
 """
@@ -31,6 +39,7 @@ import torch
 from kme_tpu_torch import opcodes as op
 from kme_tpu_torch import wire as W
 from kme_tpu_torch.engine import lanes as L
+from kme_tpu_torch.ops import rowdma
 from kme_tpu_torch.runtime.sequencer import Schedule, make_scheduler
 from kme_tpu_torch.utils import jlong, pow2_bucket
 from kme_tpu_torch.wire import OrderMsg, OutRecord, order_json
@@ -118,6 +127,18 @@ class LaneSession:
                         if Wd else cfg)
         self.device = L.resolve_device(device)
         self.state = L.make_lane_state(self.dev_cfg, self.device)
+        # the step's window buffers, shared by every window
+        self._io = L.make_step_io(self.dev_cfg, L.window_steps(self.dev_cfg),
+                                  self.device)
+        # the step graph (card only): the graph, the state addresses it
+        # holds, the kernel launches it holds, and its memory pool
+        self._graph = self._graph_key = self._graph_counts = None
+        self._pool = None
+        # CUMULATIVE graph work: captures, host seconds capturing and
+        # instantiating, replays and host seconds enqueuing them
+        self.graph_stats = {"captures": 0, "capture_s": 0.0,
+                            "instantiate_s": 0.0, "replays": 0,
+                            "replay_s": 0.0}
         self._settle = L.build_barrier_ops(self.dev_cfg)
         self._gauges = L.build_gauges(self.dev_cfg)
         self.scheduler = make_scheduler(cfg.lanes, cfg.accounts, width=Wd)
@@ -125,7 +146,8 @@ class LaneSession:
         self.phases = {"plan_s": 0.0, "dispatch_s": 0.0, "fetch_s": 0.0,
                        "recon_s": 0.0}
         # padded scan steps run (the sum of every window's T): each runs
-        # one B4 gather and one B5 scatter per position plane under pos_dma
+        # one B4 gather and one B5 scatter of both position planes under
+        # pos_dma
         self.steps = 0
         # per-message REJ_* reason codes for the last processed batch
         self.last_reasons = None
@@ -175,16 +197,73 @@ class LaneSession:
             cb[r, :n] = cols[name][widx]
         return cb
 
+    def graph_key(self) -> tuple:
+        """The names and addresses of the state tensors, which a captured
+        step graph holds (host-only: no device access)."""
+        return tuple((k, v.data_ptr()) for k, v in self.state.items())
+
+    def capture(self) -> None:
+        """Capture the step graph for the current state tensors, unless
+        the graph held is theirs. Runs at each window on the card; call it
+        to capture ahead of the first window."""
+        if self.device.type != "cuda":
+            raise RuntimeError("the step graph is captured on the card only")
+        key = self.graph_key()
+        if key == self._graph_key:
+            return
+        self._graph = self._graph_key = None
+        step = L.build_lane_step(self.dev_cfg)
+        # warm up on a side stream (loads the kernels) with every slot a
+        # NOP, which leaves the state as it was
+        L.idle_step_io(self.dev_cfg, self._io)
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            step(self.state, self._io)
+        cur.wait_stream(side)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        before = dict(rowdma.CAPTURED)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph, pool=self._pool):
+            step(self.state, self._io)
+        t1 = time.perf_counter()
+        graph.instantiate()
+        t2 = time.perf_counter()
+        self._graph_counts = {k: n - before[k]
+                              for k, n in rowdma.CAPTURED.items()}
+        self._graph, self._graph_key = graph, key
+        st = self.graph_stats
+        st["captures"] += 1
+        st["capture_s"] += t1 - t0
+        st["instantiate_s"] += t2 - t1
+
+    def _replay(self, T: int) -> None:
+        """The window's T scan steps: T replays of the step graph."""
+        graph, counts = self._graph, self._graph_counts
+        t = time.perf_counter()
+        for _ in range(T):
+            graph.replay()
+            rowdma.replayed(counts)
+        self.graph_stats["replays"] += T
+        self.graph_stats["replay_s"] += time.perf_counter() - t
+
     def _run_window(self, T: int, M: int, cb: np.ndarray) -> dict:
         """One window on the device: its packed inputs over in one copy,
-        the chunk function enqueued (state updated in place)."""
+        the chunk function enqueued (state updated in place) — on the
+        card its steps replay the step graph."""
         src = torch.from_numpy(cb)
+        run = None
         if self.device.type == "cuda":
             src = src.pin_memory()
+            self.capture()
+            run = self._replay
         dev = src.to(self.device, non_blocking=True)
         cbt = dict(zip(CB_FIELDS, dev.unbind(0)))
         chunk = L.build_lane_chunk(self.dev_cfg, T, M)
-        self.state, outs = chunk(self.state, cbt)
+        self.state, outs = chunk(self.state, cbt, io=self._io, run=run)
         self.steps += T
         return outs
 

@@ -1,8 +1,13 @@
 """Card-only tests of the port: the seq_step CUDA kernel against its plain
 PyTorch version, bit for bit, in fixed and java mode and at deep books
 (a book thousands of orders deep, with and without its rows staged in
-shared memory); the rows-in-use kernel against its; the row-copy kernels (B4 gather, B5 scatter) against theirs; and the seq
-and lanes sessions on the card against the same sessions on the CPU.
+shared memory); the rows-in-use kernel against its; both instantiations
+of the row-copy kernels (B4 gather, B5 scatter: planar rows of one
+plane, and both position planes joined to int64) against theirs; the
+seq and lanes sessions on the card against the same sessions on the
+CPU; and the lanes session's step graph against the eager chunk
+function from the same pre-state, across state swaps, with its launches
+counted per replay.
 
 Every test here carries the `cuda` marker and skips where
 `torch.cuda.is_available()` is false (a CUDA kernel has no CPU mode).
@@ -21,7 +26,7 @@ from kme_tpu_torch.engine import lanes as L
 from kme_tpu_torch.engine import seq as SQ
 from kme_tpu_torch.ops import rowdma
 from kme_tpu_torch.runtime.seqsession import SeqSession
-from kme_tpu_torch.runtime.session import LaneSession
+from kme_tpu_torch.runtime.session import CB_FIELDS, LaneSession
 from kme_tpu_torch.workload import (deep_book_stream, harness_stream,
                                     zipf_symbol_stream)
 
@@ -239,6 +244,42 @@ def test_rowdma_kernels_on_card_match_plain_version(cuda_device, W):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("W", [1, 8, 33])
+def test_pos_rowdma_kernels_on_card_match_plain_version(cuda_device, W):
+    """The (2, joined) instantiations: both planes' rows joined to int64
+    blocks and split back, at 2 and 64 tiles per row; lanes with repeated
+    scrap lanes; one launch each."""
+    rng = np.random.default_rng(100 + W)
+    for S, SUB in ((9, 2), (1025, 64)):
+        A = SUB * 64
+        pa, pv = (rng.integers(-2**31, 2**31, (S, SUB, 128), dtype=np.int64
+                               ).astype(np.int32) for _ in "ab")
+        k = min(max(W - 1, 1), S - 1)
+        lanes = np.full(W, S - 1, np.int32)
+        lanes[rng.choice(W, k, replace=False)] = rng.choice(S - 1, k,
+                                                            replace=False)
+        blks = [rng.integers(-2**63, 2**63 - 1, (W, A), dtype=np.int64)
+                for _ in "ab"]
+        g = [torch.from_numpy(x).to(cuda_device) for x in (pa, pv)]
+        c = [torch.from_numpy(x.copy()) for x in (pa, pv)]
+        g_lanes = torch.from_numpy(lanes).to(cuda_device)
+        before = dict(rowdma.LAUNCHES)
+        got = rowdma.gather_pos_rows(*g, g_lanes)
+        want = rowdma.gather_pos_rows(*c, torch.from_numpy(lanes))
+        for x, y in zip(got, want):
+            assert x.dtype == torch.int64 and torch.equal(x.cpu(), y)
+        rowdma.scatter_pos_rows(*g, g_lanes, *[torch.from_numpy(b).to(
+            cuda_device) for b in blks], S - 1)
+        rowdma.scatter_pos_rows(*c, torch.from_numpy(lanes),
+                                *[torch.from_numpy(b) for b in blks], S - 1)
+        torch.cuda.synchronize()
+        for x, y in zip(g, c):
+            assert torch.equal(x.cpu(), y)
+        assert rowdma.LAUNCHES["gather_pos"] - before["gather_pos"] == 1
+        assert rowdma.LAUNCHES["scatter_pos"] - before["scatter_pos"] == 1
+
+
+@pytest.mark.cuda
 def test_rowdma_wrappers_refuse_bad_tensors(cuda_device):
     flat = torch.zeros((4, 2, 128), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError):
@@ -257,8 +298,8 @@ def test_rowdma_wrappers_refuse_bad_tensors(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("width", [0, 8])
 def test_lane_session_on_card_matches_cpu(cuda_device, width):
-    """width 8 at 64 accounts runs pos_dma: two B4 and two B5 launches
-    per padded scan step."""
+    """width 8 at 64 accounts runs pos_dma: one B4 and one B5 launch of
+    both position planes per padded scan step, from the step graph."""
     cfg = L.LaneConfig(lanes=8, slots=128, accounts=64, max_fills=16,
                        steps=32)
     msgs = zipf_symbol_stream(1500, num_symbols=7, num_accounts=60, seed=4,
@@ -267,16 +308,121 @@ def test_lane_session_on_card_matches_cpu(cuda_device, width):
     cpu = LaneSession(cfg, width=width, device="cpu")
     assert gpu.device.type == "cuda"
     assert gpu.dev_cfg.pos_dma == (width > 0)
+    gpu.capture()         # ahead of the count: its warm-up step runs eagerly
     before = dict(rowdma.LAUNCHES)
     for lo in range(0, len(msgs), 700):
         assert gpu.process_wire(msgs[lo:lo + 700]) == \
             cpu.process_wire(msgs[lo:lo + 700])
+    assert gpu.graph_stats["captures"] == 1
+    for k in ("gather_pos", "scatter_pos"):
+        assert rowdma.LAUNCHES[k] - before[k] == (gpu.steps if width else 0)
     for k in ("gather", "scatter"):
-        assert rowdma.LAUNCHES[k] - before[k] == (2 * gpu.steps if width
-                                                  else 0)
+        assert rowdma.LAUNCHES[k] == before[k]
     assert gpu.export_state() == cpu.export_state()
     assert gpu.metrics() == cpu.metrics()
     assert gpu.histograms() == cpu.histograms()
     gc, cc = gpu.export_canonical(), cpu.export_canonical()
     for k in cc:
         assert np.array_equal(gc[k], cc[k]), k
+
+
+LANE_CFG = L.LaneConfig(lanes=8, slots=128, accounts=64, max_fills=16,
+                        steps=32, fill_buffer=1 << 16)
+
+
+class _Checked(LaneSession):
+    """Every window also run from a copy of its pre-state by the eager
+    chunk function on the card: packed outputs, the used fill-log prefix
+    and every other state plane must equal the graph's (past the prefix
+    the log is scratch: at full width every unused fill lands on one
+    overflow column, in no set order)."""
+
+    checked = 0
+
+    def _run_window(self, T, M, cb):
+        pre = {k: v.clone() for k, v in self.state.items()}
+        outs = super()._run_window(T, M, cb)
+        eager, eouts = L.build_lane_chunk(self.dev_cfg, T, M)(
+            pre, {f: torch.from_numpy(cb[r].copy()).to(self.device)
+                  for r, f in enumerate(CB_FIELDS)})
+        assert torch.equal(outs["packed"], eouts["packed"])
+        end = int(self.state["filloff"][0])
+        for k, v in self.state.items():
+            if k == "fillbuf":
+                v, eager[k] = v[:, :end], eager[k][:, :end]
+            assert torch.equal(v, eager[k]), k
+        self.checked += 1
+        return outs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("width", [0, 8])
+def test_graph_windows_equal_eager_chunk(cuda_device, width):
+    msgs = zipf_symbol_stream(1500, num_symbols=7, num_accounts=60, seed=5,
+                              payout_per_mille=6)
+    gpu = _Checked(LANE_CFG, width=width)
+    cpu = LaneSession(LANE_CFG, width=width, device="cpu")
+    for lo in range(0, len(msgs), 500):
+        assert gpu.process_wire(msgs[lo:lo + 500]) == \
+            cpu.process_wire(msgs[lo:lo + 500])
+    assert gpu.checked > 3
+    assert gpu.graph_stats["captures"] == 1
+    assert gpu.graph_stats["replays"] == gpu.steps
+
+
+@pytest.mark.cuda
+def test_state_swap_recaptures_and_stays_exact(cuda_device):
+    """Replacing the state between windows (a tensor, the whole dict,
+    load_numpy, import_canonical) captures the step graph again; the
+    session stays line-identical to a CPU session."""
+    msgs = zipf_symbol_stream(2000, num_symbols=7, num_accounts=60, seed=7,
+                              payout_per_mille=6)
+    gpu = LaneSession(LANE_CFG, width=8)
+    cpu = LaneSession(LANE_CFG, width=8, device="cpu")
+    swaps = [
+        lambda: gpu.state.update(bal=gpu.state["bal"].clone()),
+        lambda: setattr(gpu, "state", {k: v.clone()
+                                       for k, v in gpu.state.items()}),
+        lambda: gpu.load_numpy(L.state_to_numpy(gpu.state),
+                               *_lane_maps(gpu)),
+        lambda: gpu.import_canonical(gpu.export_canonical(),
+                                     *_lane_maps(gpu)),
+    ]
+    for i, lo in enumerate(range(0, len(msgs), 400)):
+        assert gpu.process_wire(msgs[lo:lo + 400]) == \
+            cpu.process_wire(msgs[lo:lo + 400])
+        assert gpu.graph_stats["captures"] == min(i, len(swaps)) + 1
+        if i < len(swaps):
+            key = gpu.graph_key()
+            swaps[i]()
+            assert gpu.graph_key() != key
+    gc, cc = gpu.export_canonical(), cpu.export_canonical()
+    for k in cc:
+        assert np.array_equal(gc[k], cc[k]), k
+
+
+def _lane_maps(ses):
+    sch = ses.scheduler
+    return (dict(sch.aid_idx), dict(sch.sid_lane), dict(sch.oid_sid),
+            sch._rr_lane)
+
+
+@pytest.mark.cuda
+def test_launches_count_graph_replays(cuda_device):
+    """The step graph holds one launch of each (2, joined) kernel; each
+    replay adds them to LAUNCHES, and the capture itself adds none."""
+    gpu = LaneSession(LANE_CFG, width=8)
+    before = dict(rowdma.LAUNCHES)
+    gpu.capture()
+    assert gpu._graph_counts == {"gather": 0, "scatter": 0, "gather_pos": 1,
+                                 "scatter_pos": 1}
+    # the warm-up step ran eagerly: one launch each
+    for k in ("gather_pos", "scatter_pos"):
+        assert rowdma.LAUNCHES[k] - before[k] == 1
+    before = dict(rowdma.LAUNCHES)
+    gpu.process_wire(zipf_symbol_stream(600, num_symbols=7, num_accounts=60,
+                                        seed=8))
+    torch.cuda.synchronize()
+    assert gpu.graph_stats["captures"] == 1 and gpu.steps > 0
+    for k in ("gather_pos", "scatter_pos"):
+        assert rowdma.LAUNCHES[k] - before[k] == gpu.steps

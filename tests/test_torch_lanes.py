@@ -16,7 +16,12 @@ fixed-mode scalar oracle, on CPU tensors.
 - state carried across packages (`load_numpy`), the canonical snapshot
   against `checkpoint.save_session`'s payload, snapshots restored in
   both directions, and the seq engine's canonical state restored into
-  the lanes engine and back.
+  the lanes engine and back;
+- what the card's step graph relies on, run eagerly here: a step over
+  NOP slots (the capture's warm-up) leaves the state as it was, the
+  session's window buffers reused across windows of any length give
+  what fresh ones give, and the re-capture key changes exactly when a
+  state tensor is replaced.
 
 Tolerance 0 everywhere: every value is an integer.
 """
@@ -45,7 +50,8 @@ from kme_tpu_torch.engine import seq as SQ
 from kme_tpu_torch.runtime.seqsession import SeqSession
 from kme_tpu_torch.runtime.sequencer import (CapacityError, EnvelopeError,
                                              Scheduler)
-from kme_tpu_torch.runtime.session import LaneEngineError, LaneSession
+from kme_tpu_torch.runtime.session import (CB_FIELDS, LaneEngineError,
+                                           LaneSession)
 from kme_tpu_torch.wire import OrderMsg, wire_lines
 
 torch.set_num_threads(1)
@@ -482,3 +488,94 @@ def test_seq_and_lanes_canonical_states_restore_into_each_other():
     seq_tail.router.sid_lane = dict(sch.sid_lane)
     seq_tail.router.oid_sid = dict(sch.oid_sid)
     assert seq_tail.process_wire(msgs[cut:]) == want[cut:]
+
+
+def _states_equal(a, b):
+    assert sorted(a) == sorted(b)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_idle_step_leaves_the_state_as_it_was(variant):
+    """The step graph's warm-up runs one step on the live state with
+    every slot a NOP (under compaction on the scrap lane): a state with
+    books, positions, balances and counters must come out bit-identical,
+    and the step index advances."""
+    kw, width = VARIANTS[variant]
+    ses = LaneSession(L.LaneConfig(**kw), width=width, device="cpu")
+    ses.process_wire(_port(zipf_symbol_stream(400, **STREAM)))
+    assert ses.metrics()["open_orders"] > 0 and ses.metrics()["positions"] > 0
+    before = {k: v.clone() for k, v in ses.state.items()}
+    io = L.make_step_io(ses.dev_cfg, 4, "cpu")
+    L.idle_step_io(ses.dev_cfg, io)
+    step = L.build_lane_step(ses.dev_cfg)
+    step(ses.state, io)
+    step(ses.state, io)
+    _states_equal(ses.state, before)
+    assert int(io["t"][0]) == 2
+    assert not io["out"][:2, L._OUT_FIELDS.index("ok")].eq(0).any()
+
+
+class _FreshBuffers(LaneSession):
+    """A session that gives every window new step buffers of exactly its
+    T steps, where LaneSession reuses one set sized for the longest."""
+
+    def _run_window(self, T, M, cb):
+        self._io = L.make_step_io(self.dev_cfg, T, self.device)
+        return super()._run_window(T, M, cb)
+
+
+@pytest.mark.parametrize("variant", sorted(VARIANTS))
+def test_reused_window_buffers_equal_fresh_ones(variant):
+    kw, width = VARIANTS[variant]
+    cfg = L.LaneConfig(**dict(kw, steps=8))
+    msgs = _port(zipf_symbol_stream(500, num_symbols=6, num_accounts=40,
+                                    seed=12, payout_per_mille=10))
+    ses = LaneSession(cfg, width=width, device="cpu")
+    fresh = _FreshBuffers(cfg, width=width, device="cpu")
+    for lo in range(0, len(msgs), 120):
+        assert ses.process_wire(msgs[lo:lo + 120]) == \
+            fresh.process_wire(msgs[lo:lo + 120])
+    _states_equal(ses.state, fresh.state)
+    assert ses._io["win"].shape[0] == L.window_steps(ses.dev_cfg)
+    # a window longer than the buffers is refused
+    cb = {f: torch.zeros(16, dtype=torch.int64) for f in CB_FIELDS}
+    with pytest.raises(ValueError, match="buffers"):
+        L.build_lane_chunk(ses.dev_cfg, 16, 16)(
+            ses.state, cb, io=L.make_step_io(ses.dev_cfg, 8, "cpu"))
+
+
+def test_graph_key_changes_exactly_when_a_state_tensor_is_replaced():
+    """The session captures its step graph again when the key changes:
+    windows, barriers, the fill-log rewind and every read leave the
+    state's tensors in place; replacing one tensor, the dict's tensors,
+    load_numpy and import_canonical do not."""
+    msgs = _port(zipf_symbol_stream(400, **dict(STREAM,
+                                                payout_per_mille=30)))
+    ses = LaneSession(L.LaneConfig(**CFG), width=16, device="cpu")
+    ref = LaneSession(L.LaneConfig(**CFG), width=16, device="cpu")
+    key = ses.graph_key()
+    assert [k for k, _ in key] == list(ses.state)
+    assert ses.process_wire(msgs[:200]) == ref.process_wire(msgs[:200])
+    assert ses.metrics()["barriers"] > 0
+    ses.metrics(), ses.histograms(), ses.export_canonical()
+    assert ses.graph_key() == key
+    ses.state = dict(ses.state)                 # same tensors
+    assert ses.graph_key() == key
+    swaps = [
+        lambda: ses.state.update(bal=ses.state["bal"].clone()),
+        lambda: setattr(ses, "state", {k: v.clone()
+                                       for k, v in ses.state.items()}),
+        lambda: ses.load_numpy(L.state_to_numpy(ses.state),
+                               *_maps(ses.scheduler)),
+        lambda: ses.import_canonical(ses.export_canonical(),
+                                     *_maps(ses.scheduler)),
+    ]
+    for swap in swaps:
+        swap()
+        assert ses.graph_key() != key
+        key = ses.graph_key()
+    assert ses.process_wire(msgs[200:]) == ref.process_wire(msgs[200:])
+    with pytest.raises(RuntimeError, match="card"):
+        ses.capture()
