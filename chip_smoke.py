@@ -2,10 +2,13 @@
 
     python3 chip_smoke.py            # the whole run (one card)
 
-Drives the port's main paths — wire JSON -> a session's process_wire ->
-the CUDA kernels -> MatchOut lines — at full width, and holds each
-kernel bit for bit against its plain PyTorch version. Four paths: three
-through SeqSession and the seq_step kernel, one per configuration: the
+Drives the port's main paths — wire JSON -> a session -> the CUDA
+kernels -> MatchOut lines — at full width, and holds each kernel bit for
+bit against its plain PyTorch version. Four paths: three through
+SeqSession and the seq_step kernel, one per configuration, each three
+ways (process_wire's Python line builder; the native host path serially,
+process_wire_buffer over WireBatches of 1024 parsed natively; and the
+native host path pipelined, submit/collect at depth 2): the
 `kme-serve` defaults (B1: fixed mode, 1024 symbols, 4096 accounts, 128
 slots, 16 max fills, 1024-message batches), the same at `--slots 8192`
 (B3: deep books, which the service turns on above 512 slots) and
@@ -13,37 +16,50 @@ slots, 16 max fills, 1024-message batches), the same at `--slots 8192`
 --engine lanes` at its defaults (width 8): LaneSession replaying a CUDA
 graph of the sweep step, whose position rows of both planes move through
 one launch of each row-copy kernel per step (B4 gather, B5 scatter, in
-their (2, joined) instantiation). Phases, in order; any failure exits
-non-zero:
+their (2, joined) instantiation), planned by the native scheduler.
+Phases, in order; any failure exits non-zero:
 
 1. card and build: the card's name and power limit, a fresh build of
    both kernel sources (one nvcc each, started together), each source's
    sha256 and ptxas report (registers, shared memory and spills of every
-   kernel);
+   kernel), and the host runtime (g++, built at first use);
 2. small: a small stream through a session on the card and one on the
    CPU (plain version) must give the same MatchOut lines and planes;
 2b. small java: the same for the java harness stream, java mode at 256
    slots (Q1 symbol 0, Q2, Q9, Q11), all 25 planes;
-3. B1 vs plain at full width: three batches of the zipf stream (the
-   first with trades, one with a PAYOUT, the last) must leave
-   bit-identical state planes, header rows and used fill prefix; so
-   must one full-width batch of a low-deposit stream, where the margin
-   check rejects orders;
-4. B1 main path: the stream end to end through process_wire, with the
-   kernel's launch count held to the dispatch count (and the rows-in-use
-   kernel's: one per dispatch at more than one row per side, none at
-   one), then a timed replay of the same dispatches (CUDA events around
-   the whole call, the rows-in-use launch included) with each dispatch's
-   byte bound and the rows in use of the book sides it touched;
+3. B1 vs plain at full width: the zipf stream's JSON parsed twice, line
+   by line with parse_order and as one buffer by the native parser
+   (WireBatch.parse_buffer), timed, with identical columns; three
+   batches of the stream (the first with trades, one with a PAYOUT, the
+   last) must leave bit-identical state planes, header rows and used
+   fill prefix; so must one full-width batch of a low-deposit stream,
+   where the margin check rejects orders;
+4. B1 main path: the stream end to end through process_wire's Python
+   line builder (`_use_native_wire` off), with the kernel's launch
+   count held to the dispatch count (and the rows-in-use kernel's: one
+   per dispatch at more than one row per side, none at one), and its
+   MatchOut to every earlier run's; then the native host path on fresh
+   sessions with the counts set to 0 before each: serially (the native
+   router asserted, no buffer call giving None) and pipelined at depth
+   2, each with the Python path's MatchOut, launches = dispatches, its
+   phases (plan_s, stage_s, dispatch_s, fetch_s, recon_s), the kernel's
+   share of the wall (CUDA events around each seq_scan), and for the
+   pipeline its h2d_overlap_frac (at least 0.5) and
+   measured_overlap_frac; then a timed replay of the same dispatches
+   (CUDA events around the whole call, the rows-in-use launch included)
+   with each dispatch's byte bound and the rows in use of the book
+   sides it touched;
 3b. B3 at 8192 slots: phase 3's three checks on the same stream (and the
    rows-in-use kernel against its plain version on each checked state),
-   then its main path as in phase 4, with the capacity rejects beside
-   phase 4's;
+   then its main path as in phase 4 (the native serial and pipelined
+   runs included), with the capacity rejects beside phase 4's;
 3c. B2 with B3, java mode at 8192 slots, on the java zipf stream: three
    checked batches as in 3b (the first with trades holds a Q2 ghost
    fill), then the main path, whose MatchOut must be the java oracle's
    (line count and sha256 below), and the end state's open orders and
-   positions;
+   positions; then the native serial and pipelined runs (java mode keeps
+   the Python router, the reconstruction is native), with the oracle's
+   MatchOut;
 3d. a deep book, which the zipf streams never build: one symbol rested
    3000 orders deep on one side (24 rows, past the 16 a trade stages),
    cancelled from the top rows, swept across rows, wiped by a PAYOUT and
@@ -63,7 +79,8 @@ non-zero:
    PAYOUT — each also run from the same pre-state by the eager chunk
    function on the card and in a CPU session: packed outputs, used fill
    prefix and canonical state identical;
-7. lanes main path: the step graph captured for a fresh session, then the
+7. lanes main path: the session's scheduler must be the native one; the
+   step graph captured for a fresh session, then the
    whole zipf stream through LaneSession.process_wire with every launch
    count set to 0 just before; its MatchOut must equal B1's (line count
    and sha256 from phase 4), its open orders, positions and capacity
@@ -129,6 +146,13 @@ JAVA_SHA256 = \
     "183a22c60e0130a4a8e34eaa8549bd09cae3f607f590edaff4a7cf628058b10b"
 JAVA_OPEN_ORDERS = 16_759
 JAVA_POSITIONS = 48_317
+# the MatchOut (lines, sha256) of the zipf stream at 128 slots (the lanes
+# engine gives the same) and at 8192 slots, as every run on the card has
+# given them
+B1_MATCHOUT = (
+    345_906, "454c29e38f8cc5b8e836f831c5479189c974cdec09800e74e84eaf8f1372a772")
+DEEP_MATCHOUT = (
+    346_474, "bb6686cfefe6fdf8b8f8759c1e54d573d52adeeda7bab905b2b677035744855d")
 LANES = dict(lanes=1024, slots=128, accounts=4096, max_fills=16)
 LANES_WIDTH = 8             # kme-serve --width default
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
@@ -354,11 +378,13 @@ def check_batches(SQ, cfg, chunks, checks, label, after=None):
 
 
 def main_path(SQ, ses, msgs, label):
-    """The stream end to end through process_wire with every launch count
-    set to 0 just before and read just after. -> (MatchOut lines, sha256,
-    host wall s, launches by configuration)."""
+    """The stream end to end through process_wire's Python line builder
+    (`_use_native_wire` off) with every launch count set to 0 just before
+    and read just after. -> (MatchOut lines, sha256, host wall s, launches
+    by configuration)."""
     import torch
 
+    ses._use_native_wire = False    # the Python line builder
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for key in SQ.LAUNCHES:
@@ -396,6 +422,156 @@ def main_path(SQ, ses, msgs, label):
         f"bytes")
     log(f"{label} MatchOut: {nlines} lines, sha256 {hasher.hexdigest()}")
     return nlines, hasher.hexdigest(), wall, launches
+
+
+def parse_both(parse_order, dumps_order, WireBatch, msgs, label):
+    """The stream's JSON lines parsed twice, timed: line by line with
+    parse_order (the OrderMsgs of the Python paths) and as one buffer
+    with WireBatch.parse_buffer (the columns of the native paths); the
+    columns must be identical. -> (OrderMsgs, WireBatch)."""
+    import numpy as np
+
+    lines = [dumps_order(m) for m in msgs]
+    buf = ("\n".join(lines) + "\n").encode()
+    t = time.perf_counter()
+    parsed = [parse_order(ln) for ln in lines]
+    py_s = time.perf_counter() - t
+    t = time.perf_counter()
+    wb = WireBatch.parse_buffer(buf)
+    native_s = time.perf_counter() - t
+    if wb._msgs is not None:
+        fail(f"{label}: the native parser refused the stream")
+    want = WireBatch.from_msgs(parsed)
+    for f in WireBatch._COLS + ("hnext", "hprev"):
+        if not np.array_equal(getattr(wb, f), getattr(want, f)):
+            fail(f"{label}: parse_buffer column {f} != parse_order's")
+    log(f"{label}: {len(msgs)} messages ({len(buf)} bytes of JSON) parsed "
+        f"by parse_order in {py_s:.4f} s, by WireBatch.parse_buffer (native) "
+        f"in {native_s:.4f} s ({py_s / native_s:.0f}x); columns identical "
+        f"(host clock)")
+    return parsed, wb
+
+
+def wire_batches(WireBatch, wb, B):
+    """`wb` cut into WireBatches of B messages (column views)."""
+    cols = WireBatch._COLS
+    return [WireBatch(min(B, wb.n - lo),
+                      [getattr(wb, f)[lo:lo + B] for f in cols],
+                      wb.hnext[lo:lo + B], wb.hprev[lo:lo + B])
+            for lo in range(0, wb.n, B)]
+
+
+@contextlib.contextmanager
+def kernel_events(SQ):
+    """CUDA events around every seq_scan call in the block (its
+    rows-in-use and chain kernels, on the stream it launches on); yields
+    the list of (start, end) pairs."""
+    import torch
+
+    orig, pairs = SQ.seq_scan, []
+
+    def timed(*a, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = orig(*a, **kw)
+        ev[1].record()
+        pairs.append(ev)
+        return out
+
+    SQ.seq_scan = timed
+    try:
+        yield pairs
+    finally:
+        SQ.seq_scan = orig
+
+
+def buffer_digest(parts):
+    """(MatchOut lines, sha256 of the lines each followed by a newline)
+    of process_wire_buffer / collect results."""
+    hasher = hashlib.sha256()
+    nlines = 0
+    for buf, off, _ in parts:
+        n = len(off) - 1
+        hasher.update(b"\n".join(buf[off[k]:off[k + 1]] for k in range(n)))
+        hasher.update(b"\n")
+        nlines += n
+    return nlines, hasher.hexdigest()
+
+
+def native_paths(SQ, SS, cfg, batches, want, label):
+    """The stream through the native host path twice, each on a fresh
+    session with every launch count set to 0 just before: serially
+    through process_wire_buffer, then pipelined through submit/collect at
+    depth 2. Each must give `want` (MatchOut lines, sha256) with launches
+    = dispatches; the router must be the native one in fixed mode.
+    -> {"serial": wall s, "pipelined": wall s}."""
+    import torch
+
+    walls = {}
+    for mode in ("serial", "pipelined"):
+        ses = SS.SeqSession(cfg)
+        router = SS.NativeSeqRouter if cfg.compat == "fixed" else SS.SeqRouter
+        if type(ses.router) is not router:
+            fail(f"{label} {mode}: the router is {type(ses.router).__name__}"
+                 f", not {router.__name__}")
+        torch.cuda.synchronize()
+        for key in SQ.LAUNCHES:
+            SQ.LAUNCHES[key] = 0
+        parts, pend = [], []
+        with kernel_events(SQ) as evs:
+            t = time.perf_counter()
+            for b in batches:
+                if mode == "serial":
+                    r = ses.process_wire_buffer(b)
+                    if r is None:
+                        fail(f"{label} serial: process_wire_buffer gave None")
+                    parts.append(r)
+                    continue
+                pend.append(ses.submit(b))
+                if len(pend) == 2:
+                    parts.append(ses.collect(pend.pop(0)))
+            while pend:
+                parts.append(ses.collect(pend.pop(0)))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+        launches = dict(SQ.LAUNCHES)
+        kern_s = sum(e0.elapsed_time(e1) for e0, e1 in evs) / 1e3
+        got = buffer_digest(parts)
+        if got != want:
+            fail(f"{label} {mode}: MatchOut {got[0]} lines sha256 {got[1]} "
+                 f"!= the Python path's {want[0]} lines sha256 {want[1]}")
+        key = cfg.compat
+        if launches[key] != ses.dispatches or ses.dispatches != len(batches):
+            fail(f"{label} {mode}: launches {launches[key]}, dispatches "
+                 f"{ses.dispatches}, batches {len(batches)}")
+        walls[mode] = wall
+        nmsgs = sum(b.n for b in batches)
+        log(f"{label} native {mode}: {nmsgs} messages in {wall:.3f} s = "
+            f"{nmsgs / wall:.0f} msg/s (host clock, synchronized); "
+            f"{ses.dispatches} dispatches = {launches[key]} kernel launches;"
+            f" MatchOut == the Python path's ({got[0]} lines, sha256 "
+            f"{got[1]})")
+        log(f"{label} native {mode} phases (s, host clock; fetch_s includes "
+            f"waiting for the kernel): "
+            + json.dumps({k: round(v, 4) for k, v in ses.phases.items()}))
+        line = (f"{label} native {mode}: kernel time (CUDA events) "
+                f"{kern_s:.4f} s = {kern_s / wall:.1%} of the wall")
+        if mode == "pipelined":
+            ovl = SS.measured_overlap_s(ses.windows)
+            coll = sum(t1 - t0 for kind, _, t0, t1 in ses.windows
+                       if kind == "collect")
+            if ses.h2d_overlap_frac < 0.5:
+                fail(f"{label} pipelined: h2d_overlap_frac "
+                     f"{ses.h2d_overlap_frac} < 0.5 at depth 2")
+            line += (f"; h2d_overlap_frac {ses.h2d_overlap_frac}; "
+                     f"measured_overlap_s {ovl:.4f} of {coll:.4f} s of "
+                     f"collect = measured_overlap_frac "
+                     f"{ovl / max(coll, 1e-9):.4f}; overflow fetches "
+                     f"{ses.overflow_fetches}")
+        log(line)
+        del ses
+    return walls
 
 
 def timed_replay(SQ, cfg, chunks, nmsgs, wall, card, label):
@@ -718,6 +894,7 @@ def lanes_path(L, LS, rowdma, msgs, b1):
     sha256, metrics) of phase 4's B1 main path."""
     import numpy as np
     import torch
+    from kme_tpu_torch.native.sched import NativeScheduler
 
     b1_lines, b1_sha, b1_met = b1
     cfg = L.LaneConfig(**LANES)
@@ -740,6 +917,9 @@ def lanes_path(L, LS, rowdma, msgs, b1):
     ses = LS.LaneSession(cfg, width=LANES_WIDTH)
     if not ses.dev_cfg.pos_dma:
         fail("lanes: LaneSession did not turn pos_dma on at the defaults")
+    if not isinstance(ses.scheduler, NativeScheduler):
+        fail(f"lanes: the scheduler is {type(ses.scheduler).__name__}, not "
+             f"the native one")
     ses.capture()
     st = ses.graph_stats
     log(f"lanes step graph: captured in {st['capture_s']:.4f} s, "
@@ -779,9 +959,9 @@ def lanes_path(L, LS, rowdma, msgs, b1):
         f"{st['replays']} replays, host {st['replay_s'] / st['replays'] * 1e6:.2f}"
         f" us per replay ({st['replay_s']:.3f} s enqueuing; the host blocks "
         f"there when the card's launch queue is full)")
-    log("lanes phases (s, host clock; dispatch_s enqueues the windows and "
-        "their graph replays, fetch_s waits for them, recon_s builds the "
-        "MatchOut lines): "
+    log("lanes phases (s, host clock; plan_s is NativeScheduler.plan, "
+        "dispatch_s enqueues the windows and their graph replays, fetch_s "
+        "waits for them, recon_s builds the MatchOut lines): "
         + json.dumps({k: round(v, 4) for k, v in ses.phases.items()}))
     log(f"lanes max_memory_allocated {torch.cuda.max_memory_allocated()} "
         f"bytes")
@@ -1016,9 +1196,10 @@ def main() -> int:
         from kme_tpu_torch.engine import seq as SQ
         from kme_tpu_torch.engine.lanes import MET_REJ_RISK
         from kme_tpu_torch.ops import rowdma
+        from kme_tpu_torch.runtime import seqsession as SS
         from kme_tpu_torch.runtime import session as LS
         from kme_tpu_torch.runtime.seqsession import SeqRouter, SeqSession
-        from kme_tpu_torch.wire import dumps_order, parse_order
+        from kme_tpu_torch.wire import WireBatch, dumps_order, parse_order
         from kme_tpu_torch.workload import (deep_book_stream, harness_stream,
                                             zipf_symbol_stream)
     except ImportError as e:
@@ -1041,6 +1222,13 @@ def main() -> int:
     for name in libs:
         log(f"{name}: source sha256 {native.source_sha256(name)}; ptxas:")
         log(native.build_logs.get(name, ""))
+    t = time.perf_counter()
+    host = native.load_library()
+    if host is None:
+        fail("KME_NATIVE=0 is set: this run drives the native host path")
+    log(f"host runtime {host._name} (g++ sources' sha256 "
+        f"{native.host_tag()}…) built or loaded in "
+        f"{time.perf_counter() - t:.1f} s")
 
     # ---- 2. small: card session vs CPU session; 2b. the same in java mode
     for label, kw, msgs in (
@@ -1063,12 +1251,11 @@ def main() -> int:
 
     # ---- 3. B1 vs plain version at full width
     cfg = SQ.SeqConfig(**FULL)
-    t = time.perf_counter()
-    msgs = zipf_symbol_stream(**STREAM)
-    msgs = [parse_order(dumps_order(m)) for m in msgs]
+    msgs, wb = parse_both(parse_order, dumps_order, WireBatch,
+                          zipf_symbol_stream(**STREAM), "stream")
     log(f"stream: {len(msgs)} messages, "
-        f"{sum(m.action == 200 for m in msgs)} PAYOUT barriers, parsed from "
-        f"JSON in {time.perf_counter() - t:.1f} s")
+        f"{sum(m.action == 200 for m in msgs)} PAYOUT barriers")
+    wbatches = wire_batches(WireBatch, wb, cfg.batch)
     B = cfg.batch
     chunks = route_chunks(SQ, SeqRouter, cfg, msgs)
     first_trade = trade_chunk(SQ, chunks)
@@ -1140,6 +1327,10 @@ def main() -> int:
         f"{met['open_orders']}, positions {met['positions']}")
     cap_128 = met["rej_capacity"]
     del ses, state
+    if (b1_lines, b1_sha) != B1_MATCHOUT:
+        fail(f"B1: MatchOut {b1_lines} lines sha256 {b1_sha}; earlier runs "
+             f"gave {B1_MATCHOUT}")
+    native_paths(SQ, SS, cfg, wbatches, (b1_lines, b1_sha), "B1")
     kern_ms, bound_ms = timed_replay(SQ, cfg, chunks, len(msgs), wall, card,
                                      "B1")
     kernels.append(kernel_entry("seq_step", "kme_tpu/engine/seq.py:1549",
@@ -1157,7 +1348,7 @@ def main() -> int:
     bal_lo = state["bal_lo"].clone()
     del state
     ses = SeqSession(cfg)
-    _, _, wall, launches = main_path(SQ, ses, msgs, "B3")
+    b3_lines, b3_sha, wall, launches = main_path(SQ, ses, msgs, "B3")
     met = ses.metrics()
     err = int(ses.state["err"][0, 0])
     if err != 0:
@@ -1171,6 +1362,10 @@ def main() -> int:
         f"{met['positions']}, deepest side {met['max_book_depth']}, sticky "
         f"error {err}")
     del ses
+    if (b3_lines, b3_sha) != DEEP_MATCHOUT:
+        fail(f"B3: MatchOut {b3_lines} lines sha256 {b3_sha}; earlier runs "
+             f"gave {DEEP_MATCHOUT}")
+    native_paths(SQ, SS, cfg, wbatches, (b3_lines, b3_sha), "B3")
     kern_ms, bound_ms = timed_replay(SQ, cfg, chunks, len(msgs), wall, card,
                                      "B3")
     kernels.append(kernel_entry("seq_step_deep", "kme_tpu/engine/seq.py:1549",
@@ -1180,11 +1375,8 @@ def main() -> int:
 
     # ---- 3c. B2 with B3: java mode at 8192 slots, the java zipf stream
     cfg = SQ.SeqConfig(**JAVA)
-    t = time.perf_counter()
-    msgs = zipf_symbol_stream(**JAVA_STREAM)
-    msgs = [parse_order(dumps_order(m)) for m in msgs]
-    log(f"java stream: {len(msgs)} messages, parsed from JSON in "
-        f"{time.perf_counter() - t:.1f} s")
+    msgs, wb = parse_both(parse_order, dumps_order, WireBatch,
+                          zipf_symbol_stream(**JAVA_STREAM), "java stream")
     chunks = route_chunks(SQ, SeqRouter, cfg, msgs)
     first_trade = trade_chunk(SQ, chunks)
     checks = sorted({first_trade, len(chunks) // 2, len(chunks) - 1})
@@ -1217,6 +1409,8 @@ def main() -> int:
         f"{JAVA_SHA256}); {open_orders} open orders, {npos} positions (real "
         f"and Q11 keys), sticky error 0")
     del ses, j
+    native_paths(SQ, SS, cfg, wire_batches(WireBatch, wb, cfg.batch),
+                 (JAVA_LINES, JAVA_SHA256), "B2")
     kern_ms, bound_ms = timed_replay(SQ, cfg, chunks, len(msgs), wall, card,
                                      "B2")
     kernels.append(kernel_entry("seq_step_java", "kme_tpu/engine/seq.py:1549",

@@ -8,8 +8,11 @@ PyTorch version beside it that runs on CPU tensors.
 
 Ported so far, each from wire JSON to MatchOut lines: the sequential
 matching engine in fixed and java mode (`runtime/seqsession.py` over
-`engine/seq.py` and `csrc/seq_step.cu`), and the sweep (lanes) engine on
-one device (`runtime/session.py` over `runtime/sequencer.py`,
-`engine/lanes.py`, `ops/rowdma.py` and `csrc/rowdma.cu`). Entry points
-run on the card unless the caller passes `device="cpu"`.
+`engine/seq.py` and `csrc/seq_step.cu`), serially or pipelined
+(`submit`/`collect`), and the sweep (lanes) engine on one device
+(`runtime/session.py` over `runtime/sequencer.py`, `engine/lanes.py`,
+`ops/rowdma.py` and `csrc/rowdma.cu`); both over the native host runtime
+copied from `kme_tpu` (`native/`: router, scheduler, batch plan, wire
+parser and MatchOut reconstructor in C++). Entry points run on the card
+unless the caller passes `device="cpu"`.
 """

@@ -1,0 +1,312 @@
+// Native router for the sequential engine (SeqRouter's C++ twin).
+//
+// The seq engine needs no conflict analysis — routing is pure id
+// mapping (dense aid/sid spaces, oid -> lane for cancels, host-reject
+// edge semantics identical to runtime/sequencer.py). The Python loop
+// costs ~2us/message (~0.8s on the 400k soak); this does the same work
+// over columnar int64 arrays in ~tens of ns/message. Semantics
+// authority: SeqRouter.route (runtime/seqsession.py); equality pinned
+// by tests/test_seq_engine.py.
+
+#include <climits>
+#include <cstdint>
+#include <unordered_map>
+#include <vector>
+
+namespace {
+
+// wire opcodes (kme_tpu/opcodes.py)
+constexpr int64_t OP_ADD_SYMBOL = 0, OP_REMOVE_SYMBOL = 1, OP_BUY = 2,
+                  OP_SELL = 3, OP_CANCEL = 4, OP_CREATE_BALANCE = 100,
+                  OP_TRANSFER = 101, OP_PAYOUT = 200;
+// seq lane acts (kme_tpu/engine/seq.py)
+constexpr int32_t L_BUY = 1, L_SELL = 2, L_CANCEL = 3, L_CREATE = 4,
+                  L_TRANSFER = 5, L_ADD_SYMBOL = 6, L_PAYOUT_YES = 7,
+                  L_PAYOUT_NO = 8, L_REMOVE_SYMBOL = 9;
+
+constexpr int32_t RT_OK = 0, RT_CAP_ACCOUNTS = 1, RT_CAP_SYMBOLS = 2;
+
+struct Router {
+  int64_t S, A;
+  std::unordered_map<int64_t, int32_t> aid_idx;
+  std::unordered_map<int64_t, int32_t> sid_lane;
+  std::unordered_map<int64_t, int64_t> oid_sid;
+
+  // route outputs (valid until the next call)
+  std::vector<int64_t> o_msg, o_oid;
+  std::vector<int32_t> o_act, o_aidx, o_price, o_size, o_lane;
+  std::vector<int64_t> o_rej;
+  int64_t err_value = 0;
+
+  int32_t acct(int64_t aid, bool* ok) {
+    auto it = aid_idx.find(aid);
+    if (it != aid_idx.end()) return it->second;
+    if ((int64_t)aid_idx.size() >= A) {
+      *ok = false;
+      err_value = aid;
+      return 0;
+    }
+    int32_t idx = (int32_t)aid_idx.size();
+    aid_idx.emplace(aid, idx);
+    return idx;
+  }
+
+  int32_t lane(int64_t sid, bool* ok) {
+    auto it = sid_lane.find(sid);
+    if (it != sid_lane.end()) return it->second;
+    if ((int64_t)sid_lane.size() >= S) {
+      *ok = false;
+      err_value = sid;
+      return 0;
+    }
+    int32_t l = (int32_t)sid_lane.size();
+    sid_lane.emplace(sid, l);
+    return l;
+  }
+};
+
+// splitmix64 finalizer — the shared 64-bit mixer of the group
+// assignment below and its Python twin (bridge/front.py _mix64). The
+// two MUST stay bit-identical: the front's split decision is part of
+// the durable stream (each group replays its own MatchIn), so an
+// assignment drift would re-home symbols across a version bump.
+inline uint64_t mix64(uint64_t z) {
+  z += 0x9E3779B97F4A7C15ull;
+  z = (z ^ (z >> 30)) * 0xBF58476D1CE4E5B9ull;
+  z = (z ^ (z >> 27)) * 0x94D049BB133111EBull;
+  return z ^ (z >> 31);
+}
+
+// rendezvous (highest-random-weight) choice: every (key, group) pair
+// gets an independent score; the max wins. Adding a group moves only
+// the keys the new group wins — the consistent-hash property the
+// front door needs when N changes.
+inline int32_t group_of(uint64_t key, int32_t ngroups, uint64_t salt) {
+  int32_t best = 0;
+  uint64_t best_score = 0;
+  for (int32_t g = 0; g < ngroups; g++) {
+    uint64_t score = mix64(key ^ mix64(salt + (uint64_t)g));
+    if (g == 0 || score > best_score) {
+      best = g;
+      best_score = score;
+    }
+  }
+  return best;
+}
+
+}  // namespace
+
+extern "C" {
+
+// Columnar group assignment: out[i] = rendezvous group of key[i] among
+// ngroups, under `salt` (distinct salts keep the symbol->group and
+// account->group spaces independently balanced). Stateless and pure —
+// tens of ns/key, same cost profile as kme_router_route.
+void kme_group_assign(int64_t n, const int64_t* key, int32_t ngroups,
+                      int64_t salt, int32_t* out) {
+  if (ngroups <= 1) {
+    for (int64_t i = 0; i < n; i++) out[i] = 0;
+    return;
+  }
+  for (int64_t i = 0; i < n; i++)
+    out[i] = group_of((uint64_t)key[i], ngroups, (uint64_t)salt);
+}
+
+void* kme_router_new(int64_t lanes, int64_t accounts) {
+  auto* r = new Router();
+  r->S = lanes;
+  r->A = accounts;
+  return r;
+}
+
+void kme_router_free(void* p) { delete static_cast<Router*>(p); }
+
+// Route n messages. Fields arrive as raw int64 values (anything beyond
+// int64 never reaches this path: the Python wrapper's array build
+// raises OverflowError first and that call falls back to the Python
+// router).
+// Returns RT_OK or a capacity code (err_value holds the offending id).
+int32_t kme_router_route(void* p, int64_t n, const int64_t* action,
+                         const int64_t* oid, const int64_t* aid,
+                         const int64_t* sid, const int64_t* price,
+                         const int64_t* size) {
+  Router& r = *static_cast<Router*>(p);
+  r.o_msg.clear();
+  r.o_oid.clear();
+  r.o_act.clear();
+  r.o_aidx.clear();
+  r.o_price.clear();
+  r.o_size.clear();
+  r.o_lane.clear();
+  r.o_rej.clear();
+  r.o_msg.reserve(n);
+  bool ok = true;
+  auto emit = [&](int64_t i, int32_t act, int32_t aidx, int32_t ln) {
+    r.o_msg.push_back(i);
+    r.o_act.push_back(act);
+    r.o_aidx.push_back(aidx);
+    r.o_price.push_back((int32_t)price[i]);
+    r.o_size.push_back((int32_t)size[i]);
+    r.o_lane.push_back(ln);
+    r.o_oid.push_back(oid[i]);
+  };
+  for (int64_t i = 0; i < n; i++) {
+    int64_t a = action[i];
+    if (a == OP_BUY || a == OP_SELL) {
+      // mutation ORDER matches the Python authority (lane, then
+      // oid_sid, then acct) so partial map state after a CapacityError
+      // is identical either way (ADVICE r4)
+      int32_t ln = r.lane(sid[i], &ok);
+      if (!ok) return RT_CAP_SYMBOLS;
+      r.oid_sid[oid[i]] = sid[i];
+      int32_t ai = r.acct(aid[i], &ok);
+      if (!ok) return RT_CAP_ACCOUNTS;
+      emit(i, a == OP_BUY ? L_BUY : L_SELL, ai, ln);
+    } else if (a == OP_CANCEL) {
+      auto it = r.oid_sid.find(oid[i]);
+      if (it == r.oid_sid.end()) {
+        r.o_rej.push_back(i);
+        continue;
+      }
+      // Python evaluates _acct before _lane here (argument order)
+      int32_t ai = r.acct(aid[i], &ok);
+      if (!ok) return RT_CAP_ACCOUNTS;
+      int32_t ln = r.lane(it->second, &ok);
+      if (!ok) return RT_CAP_SYMBOLS;
+      emit(i, L_CANCEL, ai, ln);
+    } else if (a == OP_CREATE_BALANCE) {
+      int32_t ai = r.acct(aid[i], &ok);
+      if (!ok) return RT_CAP_ACCOUNTS;
+      emit(i, L_CREATE, ai, 0);
+    } else if (a == OP_TRANSFER) {
+      int32_t ai = r.acct(aid[i], &ok);
+      if (!ok) return RT_CAP_ACCOUNTS;
+      emit(i, L_TRANSFER, ai, 0);
+    } else if (a == OP_ADD_SYMBOL) {
+      if (sid[i] < 0) {
+        r.o_rej.push_back(i);
+        continue;
+      }
+      int32_t ln = r.lane(sid[i], &ok);
+      if (!ok) return RT_CAP_SYMBOLS;
+      emit(i, L_ADD_SYMBOL, 0, ln);
+    } else if (a == OP_REMOVE_SYMBOL || a == OP_PAYOUT) {
+      // abs(INT64_MIN) = 2^63 can never be a (wrapped) Java-long map
+      // key, so the Python authority host-rejects it — and negating it
+      // here would be signed-overflow UB (same guard as kme_host.cpp)
+      if (sid[i] == INT64_MIN) {
+        r.o_rej.push_back(i);
+        continue;
+      }
+      int64_t s = sid[i] < 0 ? -sid[i] : sid[i];
+      auto it = r.sid_lane.find(s);
+      if (it == r.sid_lane.end()) {
+        r.o_rej.push_back(i);
+        continue;
+      }
+      int32_t act = a == OP_REMOVE_SYMBOL
+                        ? L_REMOVE_SYMBOL
+                        : (sid[i] >= 0 ? L_PAYOUT_YES : L_PAYOUT_NO);
+      emit(i, act, 0, it->second);
+      // resting-oid routes die with the wipe
+      for (auto it2 = r.oid_sid.begin(); it2 != r.oid_sid.end();) {
+        if (it2->second == s)
+          it2 = r.oid_sid.erase(it2);
+        else
+          ++it2;
+      }
+    } else {
+      r.o_rej.push_back(i);
+    }
+  }
+  return RT_OK;
+}
+
+int64_t kme_router_n_routed(void* p) {
+  return (int64_t)static_cast<Router*>(p)->o_msg.size();
+}
+int64_t kme_router_n_rejects(void* p) {
+  return (int64_t)static_cast<Router*>(p)->o_rej.size();
+}
+int64_t kme_router_err_value(void* p) {
+  return static_cast<Router*>(p)->err_value;
+}
+const int64_t* kme_router_o_msg(void* p) {
+  return static_cast<Router*>(p)->o_msg.data();
+}
+const int64_t* kme_router_o_oid(void* p) {
+  return static_cast<Router*>(p)->o_oid.data();
+}
+const int32_t* kme_router_o_act(void* p) {
+  return static_cast<Router*>(p)->o_act.data();
+}
+const int32_t* kme_router_o_aidx(void* p) {
+  return static_cast<Router*>(p)->o_aidx.data();
+}
+const int32_t* kme_router_o_price(void* p) {
+  return static_cast<Router*>(p)->o_price.data();
+}
+const int32_t* kme_router_o_size(void* p) {
+  return static_cast<Router*>(p)->o_size.data();
+}
+const int32_t* kme_router_o_lane(void* p) {
+  return static_cast<Router*>(p)->o_lane.data();
+}
+const int64_t* kme_router_o_rej(void* p) {
+  return static_cast<Router*>(p)->o_rej.data();
+}
+
+// map export/import (checkpoint contract, mirrors kme_sched_*)
+int64_t kme_router_n_accounts(void* p) {
+  return (int64_t)static_cast<Router*>(p)->aid_idx.size();
+}
+int64_t kme_router_n_symbols(void* p) {
+  return (int64_t)static_cast<Router*>(p)->sid_lane.size();
+}
+int64_t kme_router_n_routes(void* p) {
+  return (int64_t)static_cast<Router*>(p)->oid_sid.size();
+}
+void kme_router_export_accounts(void* p, int64_t* keys, int32_t* vals) {
+  int64_t i = 0;
+  for (auto& kv : static_cast<Router*>(p)->aid_idx) {
+    keys[i] = kv.first;
+    vals[i] = kv.second;
+    i++;
+  }
+}
+void kme_router_export_symbols(void* p, int64_t* keys, int32_t* vals) {
+  int64_t i = 0;
+  for (auto& kv : static_cast<Router*>(p)->sid_lane) {
+    keys[i] = kv.first;
+    vals[i] = kv.second;
+    i++;
+  }
+}
+void kme_router_export_routes(void* p, int64_t* keys, int64_t* vals) {
+  int64_t i = 0;
+  for (auto& kv : static_cast<Router*>(p)->oid_sid) {
+    keys[i] = kv.first;
+    vals[i] = kv.second;
+    i++;
+  }
+}
+void kme_router_import_accounts(void* p, int64_t n, const int64_t* keys,
+                                const int32_t* vals) {
+  auto& m = static_cast<Router*>(p)->aid_idx;
+  m.clear();
+  for (int64_t i = 0; i < n; i++) m.emplace(keys[i], vals[i]);
+}
+void kme_router_import_symbols(void* p, int64_t n, const int64_t* keys,
+                               const int32_t* vals) {
+  auto& m = static_cast<Router*>(p)->sid_lane;
+  m.clear();
+  for (int64_t i = 0; i < n; i++) m.emplace(keys[i], vals[i]);
+}
+void kme_router_import_routes(void* p, int64_t n, const int64_t* keys,
+                              const int64_t* vals) {
+  auto& m = static_cast<Router*>(p)->oid_sid;
+  m.clear();
+  for (int64_t i = 0; i < n; i++) m.emplace(keys[i], vals[i]);
+}
+
+}  // extern "C"

@@ -1,0 +1,634 @@
+// Native wire-stream reconstruction for the sequential engine.
+//
+// The engine returns compact per-message arrays + a packed fill log;
+// turning those into the byte-exact `IN {...}` / `OUT {...}` record
+// stream (consumer.js:19 format; Jackson template wire.order_json) was
+// a per-fill Python loop costing ~1s per 100k messages — the host-side
+// cap SURVEY.md §7 H5 warns about. This is the same reconstruction in
+// C++ behind a C ABI: one call emits every line into a single buffer
+// with per-line offsets; Python slices lazily or streams the buffer.
+// Semantics authority: SeqSession.process_wire (runtime/seqsession.py);
+// equivalence is pinned by tests/test_seq_engine.py.
+//
+// Built together with kme_host.cpp / kme_oracle.cpp by
+// kme_tpu/native/__init__.py.
+
+#include <charconv>
+#include <cstdint>
+#include <cstring>
+
+namespace {
+
+constexpr int32_t L_BUY = 1, L_SELL = 2;
+constexpr int64_t OP_BOUGHT = 5, OP_SOLD = 6, OP_REJECT = 7;
+
+struct Recon {
+  // output storage (valid until the next call / free)
+  char* buf = nullptr;
+  int64_t cap = 0, len = 0;
+  int64_t* line_off = nullptr;   // start offset of each line
+  int64_t n_lines = 0, lines_cap = 0;
+  int32_t* msg_lines = nullptr;  // lines per message
+  int64_t nmsg_cap = 0;
+  ~Recon() {
+    delete[] buf;
+    delete[] line_off;
+    delete[] msg_lines;
+  }
+};
+
+inline void put_raw(Recon& r, const char* s, int64_t n) {
+  std::memcpy(r.buf + r.len, s, n);
+  r.len += n;
+}
+
+inline void put_i64(Recon& r, int64_t v) {
+  auto res = std::to_chars(r.buf + r.len, r.buf + r.cap, v);
+  r.len = res.ptr - r.buf;
+}
+
+// order_json (wire.py): compact Jackson template, declaration order.
+inline void put_order(Recon& r, int64_t action, int64_t oid, int64_t aid,
+                      int64_t sid, int64_t price, int64_t size,
+                      bool has_next, int64_t next, bool has_prev,
+                      int64_t prev) {
+  put_raw(r, "{\"action\":", 10);
+  put_i64(r, action);
+  put_raw(r, ",\"oid\":", 7);
+  put_i64(r, oid);
+  put_raw(r, ",\"aid\":", 7);
+  put_i64(r, aid);
+  put_raw(r, ",\"sid\":", 7);
+  put_i64(r, sid);
+  put_raw(r, ",\"price\":", 9);
+  put_i64(r, price);
+  put_raw(r, ",\"size\":", 8);
+  put_i64(r, size);
+  put_raw(r, ",\"next\":", 8);
+  if (has_next) put_i64(r, next); else put_raw(r, "null", 4);
+  put_raw(r, ",\"prev\":", 8);
+  if (has_prev) put_i64(r, prev); else put_raw(r, "null", 4);
+  put_raw(r, "}", 1);
+}
+
+inline void start_line(Recon& r, const char* key, int64_t klen) {
+  r.line_off[r.n_lines++] = r.len;
+  put_raw(r, key, klen);
+}
+
+}  // namespace
+
+extern "C" {
+
+void* kme_recon_new() { return new Recon(); }
+void kme_recon_free(void* p) { delete static_cast<Recon*>(p); }
+
+const char* kme_recon_buf(void* p) { return static_cast<Recon*>(p)->buf; }
+int64_t kme_recon_len(void* p) { return static_cast<Recon*>(p)->len; }
+int64_t kme_recon_n_lines(void* p) {
+  return static_cast<Recon*>(p)->n_lines;
+}
+const int64_t* kme_recon_line_off(void* p) {
+  return static_cast<Recon*>(p)->line_off;
+}
+const int32_t* kme_recon_msg_lines(void* p) {
+  return static_cast<Recon*>(p)->msg_lines;
+}
+
+// Returns 0 on success. All per-message arrays are in arrival order.
+// d_* arrays are valid where d_isdev != 0; trades carry d_sid (the
+// lane's symbol) and their fills live at f_*[d_off .. d_off+d_nfill).
+int32_t kme_recon_wire(
+    int64_t nmsg, const int64_t* m_action, const int64_t* m_oid,
+    const int64_t* m_aid, const int64_t* m_sid, const int64_t* m_price,
+    const int64_t* m_size, const int64_t* m_next, const uint8_t* m_has_next,
+    const int64_t* m_prev, const uint8_t* m_has_prev,
+    const uint8_t* d_isdev, const int32_t* d_act, const uint8_t* d_ok,
+    const int32_t* d_nfill, const int64_t* d_off, const int64_t* d_residual,
+    const int64_t* d_prev_oid, const uint8_t* d_append, const int64_t* d_sid,
+    int64_t nfills, const int64_t* f_oid, const int64_t* f_aid,
+    const int64_t* f_price, const int64_t* f_size, void* handle) {
+  Recon& r = *static_cast<Recon*>(handle);
+  // worst-case line budget: IN + OUT per message + 2 lines per fill.
+  // Longest line: "OUT " (4) + 65 bytes of JSON scaffolding + 8 fields
+  // of up to 20 chars (int64 min) = 229; 240 leaves slack.
+  int64_t lines = 2 * nmsg + 2 * nfills;
+  int64_t need = 240 * lines + 64;
+  if (r.cap < need) {
+    delete[] r.buf;
+    r.buf = new char[need];
+    r.cap = need;
+  }
+  if (r.lines_cap < lines) {
+    delete[] r.line_off;
+    r.line_off = new int64_t[lines];
+    r.lines_cap = lines;
+  }
+  if (r.nmsg_cap < nmsg) {
+    delete[] r.msg_lines;
+    r.msg_lines = new int32_t[nmsg];
+    r.nmsg_cap = nmsg;
+  }
+  r.len = 0;
+  r.n_lines = 0;
+
+  for (int64_t i = 0; i < nmsg; i++) {
+    int64_t lines0 = r.n_lines;
+    start_line(r, "IN ", 3);
+    put_order(r, m_action[i], m_oid[i], m_aid[i], m_sid[i], m_price[i],
+              m_size[i], m_has_next[i], m_next[i], m_has_prev[i],
+              m_prev[i]);
+    bool isdev = d_isdev[i] != 0;
+    bool ok = isdev && d_ok[i] != 0;
+    if (!ok) {
+      start_line(r, "OUT ", 4);
+      put_order(r, OP_REJECT, m_oid[i], m_aid[i], m_sid[i], m_price[i],
+                m_size[i], m_has_next[i], m_next[i], m_has_prev[i],
+                m_prev[i]);
+    } else {
+      int32_t act = d_act[i];
+      bool is_trade = act == L_BUY || act == L_SELL;
+      if (is_trade) {
+        int64_t sid = d_sid[i];
+        int64_t mk = act == L_BUY ? OP_SOLD : OP_BOUGHT;
+        int64_t tk = act == L_BUY ? OP_BOUGHT : OP_SOLD;
+        int64_t o0 = d_off[i];
+        for (int32_t e = 0; e < d_nfill[i]; e++) {
+          start_line(r, "OUT ", 4);
+          put_order(r, mk, f_oid[o0 + e], f_aid[o0 + e], sid, 0,
+                    f_size[o0 + e], false, 0, false, 0);
+          start_line(r, "OUT ", 4);
+          put_order(r, tk, m_oid[i], m_aid[i], sid,
+                    m_price[i] - f_price[o0 + e], f_size[o0 + e],
+                    false, 0, false, 0);
+        }
+        start_line(r, "OUT ", 4);
+        bool app = d_append[i] != 0;
+        put_order(r, m_action[i], m_oid[i], m_aid[i], m_sid[i],
+                  m_price[i], d_residual[i], m_has_next[i], m_next[i],
+                  app || m_has_prev[i], app ? d_prev_oid[i] : m_prev[i]);
+      } else {
+        start_line(r, "OUT ", 4);
+        put_order(r, m_action[i], m_oid[i], m_aid[i], m_sid[i],
+                  m_price[i], m_size[i], m_has_next[i], m_next[i],
+                  m_has_prev[i], m_prev[i]);
+      }
+    }
+    r.msg_lines[i] = static_cast<int32_t>(r.n_lines - lines0);
+  }
+  return 0;
+}
+
+// One-pass reconstruction straight from the engine's routed/host arrays
+// (the D2H half of the native host path). kme_recon_wire needs ~10
+// per-message scatter arrays built in numpy first; this entry absorbs
+// that: routed rows arrive in ascending msg-index order (the router
+// emits at most one row per message, in order), so a single merge walk
+// recovers isdev/act/ok/fill-window per message, translates lane -> sid
+// and fill account-index -> aid through the two LUTs, and emits through
+// the same line builders. Fill windows are the running sum of h_nfill
+// over ALL routed rows (failed rows carry nfill 0), matching the numpy
+// cumsum. Returns 0 on success, 1 on an out-of-range lane / account
+// index / fill offset (the Python caller raises; numpy would IndexError
+// on the same input).
+int32_t kme_recon_batch(
+    int64_t nmsg, const int64_t* m_action, const int64_t* m_oid,
+    const int64_t* m_aid, const int64_t* m_sid, const int64_t* m_price,
+    const int64_t* m_size, const int64_t* m_next, const uint8_t* m_has_next,
+    const int64_t* m_prev, const uint8_t* m_has_prev,
+    int64_t nr, const int64_t* r_msg, const int32_t* r_act,
+    const int32_t* r_lane,
+    const uint8_t* h_ok, const int64_t* h_nfill, const int64_t* h_resid,
+    const int64_t* h_prev, const uint8_t* h_append,
+    int64_t nlanes, const int64_t* lane_sid,
+    int64_t nacct, const int64_t* idx2aid,
+    int64_t nfills, const int64_t* f_oid, const int64_t* f_aidx,
+    const int64_t* f_price, const int64_t* f_size, void* handle) {
+  Recon& r = *static_cast<Recon*>(handle);
+  int64_t lines = 2 * nmsg + 2 * nfills;
+  int64_t need = 240 * lines + 64;
+  if (r.cap < need) {
+    delete[] r.buf;
+    r.buf = new char[need];
+    r.cap = need;
+  }
+  if (r.lines_cap < lines) {
+    delete[] r.line_off;
+    r.line_off = new int64_t[lines];
+    r.lines_cap = lines;
+  }
+  if (r.nmsg_cap < nmsg) {
+    delete[] r.msg_lines;
+    r.msg_lines = new int32_t[nmsg];
+    r.nmsg_cap = nmsg;
+  }
+  r.len = 0;
+  r.n_lines = 0;
+
+  int64_t k = 0;   // routed-row cursor
+  int64_t o0 = 0;  // running fill offset
+  for (int64_t i = 0; i < nmsg; i++) {
+    int64_t lines0 = r.n_lines;
+    start_line(r, "IN ", 3);
+    put_order(r, m_action[i], m_oid[i], m_aid[i], m_sid[i], m_price[i],
+              m_size[i], m_has_next[i], m_next[i], m_has_prev[i],
+              m_prev[i]);
+    bool isdev = k < nr && r_msg[k] == i;
+    bool ok = isdev && h_ok[k] != 0;
+    if (!ok) {
+      start_line(r, "OUT ", 4);
+      put_order(r, OP_REJECT, m_oid[i], m_aid[i], m_sid[i], m_price[i],
+                m_size[i], m_has_next[i], m_next[i], m_has_prev[i],
+                m_prev[i]);
+    } else {
+      int32_t act = r_act[k];
+      if (act == L_BUY || act == L_SELL) {
+        if (r_lane[k] < 0 || r_lane[k] >= nlanes) return 1;
+        int64_t sid = lane_sid[r_lane[k]];
+        int64_t mk = act == L_BUY ? OP_SOLD : OP_BOUGHT;
+        int64_t tk = act == L_BUY ? OP_BOUGHT : OP_SOLD;
+        for (int64_t e = 0; e < h_nfill[k]; e++) {
+          if (o0 + e >= nfills) return 1;
+          int64_t ai = f_aidx[o0 + e];
+          if (ai < 0 || ai >= nacct) return 1;
+          start_line(r, "OUT ", 4);
+          put_order(r, mk, f_oid[o0 + e], idx2aid[ai], sid, 0,
+                    f_size[o0 + e], false, 0, false, 0);
+          start_line(r, "OUT ", 4);
+          put_order(r, tk, m_oid[i], m_aid[i], sid,
+                    m_price[i] - f_price[o0 + e], f_size[o0 + e],
+                    false, 0, false, 0);
+        }
+        start_line(r, "OUT ", 4);
+        bool app = h_append[k] != 0;
+        put_order(r, m_action[i], m_oid[i], m_aid[i], m_sid[i],
+                  m_price[i], h_resid[k], m_has_next[i], m_next[i],
+                  app || m_has_prev[i], app ? h_prev[k] : m_prev[i]);
+      } else {
+        start_line(r, "OUT ", 4);
+        put_order(r, m_action[i], m_oid[i], m_aid[i], m_sid[i],
+                  m_price[i], m_size[i], m_has_next[i], m_next[i],
+                  m_has_prev[i], m_prev[i]);
+      }
+    }
+    if (isdev) {
+      o0 += h_nfill[k];
+      k++;
+    }
+    r.msg_lines[i] = static_cast<int32_t>(r.n_lines - lines0);
+  }
+  return 0;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// kme_parse: newline-separated JSON order messages -> columnar arrays.
+//
+// The input half of the wire boundary (the reference consumes JSON
+// bytes from Kafka and Jackson-binds them onto the Order POJO,
+// KProcessor.java:96, 448-475). Semantics authority: wire.parse_order —
+// creator-bound value fields default to 0 when absent/null, next/prev
+// bind by name (null/absent -> has=0), unknown keys are ignored, fields
+// may appear in any order, last occurrence wins. This parser handles
+// the integer/null/object subset exactly; ANY construct outside it
+// (floats, strings, nested values, syntax errors, ints beyond int64)
+// returns -(line+1) and the caller re-parses the whole buffer through
+// the Python authority so error behavior and coercions stay identical
+// (wire.WireBatch.parse_buffer).
+
+namespace {
+
+struct Parse {
+  int64_t* cols[8] = {};  // action oid aid sid price size next prev
+  uint8_t* hnext = nullptr;
+  uint8_t* hprev = nullptr;
+  int64_t* tidcol = nullptr;  // transport-advisory trace word (FLAG_TID)
+  uint8_t* htid = nullptr;
+  int64_t cap = 0, n = 0;
+  int64_t err_off = 0;       // byte offset of the frame that failed
+  Recon emit;                // canonical-JSON emission scratch
+  int64_t* emit_off = nullptr;  // n+1 line offsets into emit.buf
+  int64_t emit_off_cap = 0;
+  ~Parse() {
+    for (auto* c : cols) delete[] c;
+    delete[] hnext;
+    delete[] hprev;
+    delete[] tidcol;
+    delete[] htid;
+    delete[] emit_off;
+  }
+};
+
+inline void parse_reserve(Parse& P, int64_t n) {
+  if (P.cap >= n) return;
+  for (auto*& c : P.cols) {
+    delete[] c;
+    c = new int64_t[n];
+  }
+  delete[] P.hnext;
+  delete[] P.hprev;
+  delete[] P.tidcol;
+  delete[] P.htid;
+  P.hnext = new uint8_t[n];
+  P.hprev = new uint8_t[n];
+  P.tidcol = new int64_t[n];
+  P.htid = new uint8_t[n];
+  P.cap = n;
+}
+
+inline void skip_ws(const char*& p, const char* end) {
+  while (p < end && (*p == ' ' || *p == '\t' || *p == '\r')) p++;
+}
+
+// parse an int64 with JSON number syntax restricted to integers:
+// -?(0|[1-9][0-9]*). Returns false on anything else (incl. overflow).
+inline bool parse_int(const char*& p, const char* end, int64_t* out) {
+  bool neg = false;
+  if (p < end && *p == '-') {
+    neg = true;
+    p++;
+  }
+  if (p >= end || *p < '0' || *p > '9') return false;
+  if (*p == '0' && p + 1 < end && p[1] >= '0' && p[1] <= '9')
+    return false;  // leading zero: invalid JSON
+  uint64_t v = 0;
+  const uint64_t lim = neg ? (uint64_t)1 << 63 : ((uint64_t)1 << 63) - 1;
+  while (p < end && *p >= '0' && *p <= '9') {
+    uint64_t d = (uint64_t)(*p - '0');
+    if (v > (lim - d) / 10) return false;  // beyond int64
+    v = v * 10 + d;
+    p++;
+  }
+  if (p < end && (*p == '.' || *p == 'e' || *p == 'E')) return false;
+  *out = neg ? (int64_t)(0 - v) : (int64_t)v;
+  return true;
+}
+
+// Template fast path: the overwhelmingly common case is the exact
+// Jackson template order_json emits (compact, declaration field order,
+// next/prev always present). One memcmp per literal + digit runs; any
+// deviation falls through to the general object walk above.
+inline bool fast_line(const char* p, const char* end, int64_t* v,
+                      uint8_t* has) {
+  static const struct { const char* lit; int n; } L[8] = {
+      {"{\"action\":", 10}, {",\"oid\":", 7}, {",\"aid\":", 7},
+      {",\"sid\":", 7},     {",\"price\":", 9}, {",\"size\":", 8},
+      {",\"next\":", 8},    {",\"prev\":", 8}};
+  for (int f = 0; f < 8; f++) {
+    if (end - p < L[f].n || std::memcmp(p, L[f].lit, L[f].n))
+      return false;
+    p += L[f].n;
+    if (f >= 6 && end - p >= 4 && !std::memcmp(p, "null", 4)) {
+      p += 4;
+      v[f] = 0;
+      has[f] = 0;
+    } else {
+      if (!parse_int(p, end, &v[f])) return false;
+      has[f] = 1;
+    }
+  }
+  return p < end && *p == '}' && p + 1 == end;
+}
+
+}  // namespace
+
+extern "C" {
+
+void* kme_parse_new() { return new Parse(); }
+void kme_parse_free(void* p) { delete static_cast<Parse*>(p); }
+
+const int64_t* kme_parse_col(void* p, int32_t i) {
+  return static_cast<Parse*>(p)->cols[i];
+}
+const uint8_t* kme_parse_hnext(void* p) {
+  return static_cast<Parse*>(p)->hnext;
+}
+const uint8_t* kme_parse_hprev(void* p) {
+  return static_cast<Parse*>(p)->hprev;
+}
+const int64_t* kme_parse_tid(void* p) {
+  return static_cast<Parse*>(p)->tidcol;
+}
+const uint8_t* kme_parse_htid(void* p) {
+  return static_cast<Parse*>(p)->htid;
+}
+
+// Parse `len` bytes of newline-separated order JSON. Returns the line
+// count on success, -(line+1) on the first line outside the fast
+// subset (caller falls back to the Python authority).
+int64_t kme_parse_lines(void* handle, const char* buf, int64_t len) {
+  Parse& P = *static_cast<Parse*>(handle);
+  // count lines (a trailing newline does not open an empty last line)
+  int64_t nlines = 0;
+  for (int64_t i = 0; i < len; i++)
+    if (buf[i] == '\n') nlines++;
+  if (len > 0 && buf[len - 1] != '\n') nlines++;
+  parse_reserve(P, nlines);
+  P.n = 0;
+  const char* p = buf;
+  const char* bend = buf + len;
+  for (int64_t li = 0; li < nlines; li++) {
+    const char* end = static_cast<const char*>(
+        std::memchr(p, '\n', bend - p));
+    if (!end) end = bend;
+    int64_t v[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    uint8_t has[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+    if (fast_line(p, end, v, has)) {
+      for (int f = 0; f < 8; f++) P.cols[f][li] = v[f];
+      P.hnext[li] = has[6];
+      P.hprev[li] = has[7];
+      P.tidcol[li] = 0;
+      P.htid[li] = 0;
+      P.n++;
+      p = end < bend ? end + 1 : end;
+      continue;
+    }
+    for (int f = 0; f < 8; f++) {
+      v[f] = 0;
+      has[f] = 0;
+    }
+    skip_ws(p, end);
+    if (p >= end || *p != '{') return -(li + 1);
+    p++;
+    skip_ws(p, end);
+    bool first = true;
+    while (true) {
+      if (p < end && *p == '}') {
+        p++;
+        break;
+      }
+      if (!first) {
+        if (p >= end || *p != ',') return -(li + 1);
+        p++;
+        skip_ws(p, end);
+      }
+      first = false;
+      if (p >= end || *p != '"') return -(li + 1);
+      p++;
+      const char* k0 = p;
+      while (p < end && *p != '"') {
+        if (*p == '\\') return -(li + 1);  // escaped keys: fall back
+        p++;
+      }
+      if (p >= end) return -(li + 1);
+      int64_t klen = p - k0;
+      p++;
+      skip_ws(p, end);
+      if (p >= end || *p != ':') return -(li + 1);
+      p++;
+      skip_ws(p, end);
+      int fi = -1;
+      switch (klen) {
+        case 3:
+          if (!std::memcmp(k0, "oid", 3)) fi = 1;
+          else if (!std::memcmp(k0, "aid", 3)) fi = 2;
+          else if (!std::memcmp(k0, "sid", 3)) fi = 3;
+          break;
+        case 4:
+          if (!std::memcmp(k0, "size", 4)) fi = 5;
+          else if (!std::memcmp(k0, "next", 4)) fi = 6;
+          else if (!std::memcmp(k0, "prev", 4)) fi = 7;
+          break;
+        case 5:
+          if (!std::memcmp(k0, "price", 5)) fi = 4;
+          break;
+        case 6:
+          if (!std::memcmp(k0, "action", 6)) fi = 0;
+          break;
+      }
+      if (p < end && *p == 'n') {
+        if (end - p < 4 || std::memcmp(p, "null", 4)) return -(li + 1);
+        p += 4;
+        // null: value fields -> 0 (Jackson primitive default),
+        // next/prev -> unset; LAST occurrence wins either way
+        if (fi >= 0) {
+          v[fi] = 0;
+          has[fi] = 0;
+        }
+      } else {
+        int64_t x;
+        if (!parse_int(p, end, &x)) return -(li + 1);
+        if (fi >= 0) {
+          v[fi] = x;
+          has[fi] = 1;
+        }
+      }
+      skip_ws(p, end);
+    }
+    skip_ws(p, end);
+    if (p != end) return -(li + 1);  // trailing garbage
+    if (p < bend) p++;               // consume '\n'
+    for (int f = 0; f < 8; f++) P.cols[f][li] = v[f];
+    P.hnext[li] = has[6];
+    P.hprev[li] = has[7];
+    P.tidcol[li] = 0;
+    P.htid[li] = 0;
+    P.n++;
+  }
+  return P.n;
+}
+
+// ---------------------------------------------------------------------------
+// Binary order frames (wire.py layout authority): 72 bytes little-
+// endian — magic 0xB1, version, kind, flags, u32 length prefix, then
+// action/oid/aid/sid/price/size/next/prev as int64. Values are
+// memcpy'd (alignment-safe); the build targets little-endian hosts
+// only, same assumption the journal's binary framing already makes.
+
+int64_t kme_parse_err_off(void* p) {
+  return static_cast<Parse*>(p)->err_off;
+}
+
+// Parse `len` bytes of concatenated binary order frames into the same
+// columns kme_parse_lines fills. Returns the frame count, or a
+// negative validation code for the FIRST bad frame (offset readable
+// via kme_parse_err_off): -1 truncated, -2 bad magic, -3 version
+// skew, -4 bad kind, -5 bad length. Check order matches
+// wire._check_frame_header exactly — the Python caller re-raises
+// through the Python authority so the surfaced error is identical.
+int64_t kme_parse_frames(void* handle, const uint8_t* buf, int64_t len) {
+  // Flags bit 2 (FLAG_TID) extends the frame by a trailing int64 trace
+  // word: 80 bytes instead of 72. The word is transport-advisory — it
+  // never reaches the canonical JSON emission (kme_parse_emit).
+  constexpr int64_t FRAME_SIZE = 72, FRAME_HDR = 8;
+  constexpr int64_t FRAME_SIZE_TRACED = 80;
+  Parse& P = *static_cast<Parse*>(handle);
+  parse_reserve(P, len / FRAME_SIZE + 1);
+  P.n = 0;
+  P.err_off = 0;
+  int64_t off = 0, i = 0;
+  while (off < len) {
+    P.err_off = off;
+    const uint8_t* b = buf + off;
+    int64_t rem = len - off;
+    if (rem < FRAME_HDR) return -1;
+    if (b[0] != 0xB1) return -2;
+    if (b[1] != 1) return -3;
+    if (b[2] != 0) return -4;
+    const bool traced = (b[3] & 4) != 0;
+    const int64_t expected = traced ? FRAME_SIZE_TRACED : FRAME_SIZE;
+    uint32_t length;
+    std::memcpy(&length, b + 4, 4);
+    if (length != expected) return -5;
+    if (rem < expected) return -1;
+    int64_t v[8];
+    std::memcpy(v, b + 8, 64);
+    for (int f = 0; f < 8; f++) P.cols[f][i] = v[f];
+    P.hnext[i] = b[3] & 1;
+    P.hprev[i] = (b[3] >> 1) & 1;
+    if (traced) {
+      std::memcpy(&P.tidcol[i], b + FRAME_SIZE, 8);
+      P.htid[i] = 1;
+    } else {
+      P.tidcol[i] = 0;
+      P.htid[i] = 0;
+    }
+    off += expected;
+    i++;
+  }
+  P.n = i;
+  return i;
+}
+
+// Emit the canonical Jackson JSON line for every parsed row (the value
+// the broker stores — binary is transport-only, the durable log and
+// the oracle replay see order_json bytes regardless of encoding).
+// Lines are concatenated with NO separators; kme_parse_emit_off gives
+// n+1 offsets. Goes through put_order, the same emitter the byte-
+// pinned reconstruction uses, so encode parity is inherited.
+int64_t kme_parse_emit(void* handle) {
+  Parse& P = *static_cast<Parse*>(handle);
+  Recon& r = P.emit;
+  // worst case per line: 65 bytes of scaffolding + 8 fields of up to
+  // 20 chars (int64 min) = 225; 240 leaves slack
+  int64_t need = 240 * (P.n > 0 ? P.n : 1);
+  if (r.cap < need) {
+    delete[] r.buf;
+    r.buf = new char[need];
+    r.cap = need;
+  }
+  if (P.emit_off_cap < P.n + 1) {
+    delete[] P.emit_off;
+    P.emit_off = new int64_t[P.n + 1];
+    P.emit_off_cap = P.n + 1;
+  }
+  r.len = 0;
+  for (int64_t i = 0; i < P.n; i++) {
+    P.emit_off[i] = r.len;
+    put_order(r, P.cols[0][i], P.cols[1][i], P.cols[2][i], P.cols[3][i],
+              P.cols[4][i], P.cols[5][i], P.hnext[i] != 0, P.cols[6][i],
+              P.hprev[i] != 0, P.cols[7][i]);
+  }
+  P.emit_off[P.n] = r.len;
+  return r.len;
+}
+
+const char* kme_parse_emit_buf(void* p) {
+  return static_cast<Parse*>(p)->emit.buf;
+}
+const int64_t* kme_parse_emit_off(void* p) {
+  return static_cast<Parse*>(p)->emit_off;
+}
+
+}  // extern "C"

@@ -11,25 +11,42 @@ REMOVE_SYMBOL) are ordinary device messages (act codes 7/8/9). Java mode
 adds the raw Java-long aid/sid columns and the Q1 merged-book flag, and
 refuses what lies outside its device surface (`UnsupportedJavaOp`).
 
-One dispatch per `process`/`process_wire` call: all K chunks go to the
-card in one kernel launch (`seq_scan`), and the outputs come back in ONE
-device-to-host copy of the headers plus an adaptive fill prefix.
+The host path is native (native/kme_*.cpp): in fixed mode the C++ router
+routes, and a `WireBatch` is routed and packed in one call
+(`kme_plan_batch`); in both modes `process_wire_buffer` builds the
+MatchOut bytes in one call (`kme_recon_batch`). `KME_NATIVE=0` selects the
+Python router and line builder, which stay the semantics authority.
+
+One dispatch per batch: all K chunks go to the card in one kernel launch
+(`seq_scan`). On the card the message planes go through a ring of pinned
+host buffers and a copy stream; right behind the kernel, the headers plus
+an adaptive fill prefix are copied back into pinned memory and an event
+is recorded. `submit` returns after that, so the card runs batch N while
+the host plans batch N+1 and reconstructs batch N-1 (`collect`, which
+waits on batch N's event alone).
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
+import dataclasses
 import time
-from typing import Dict, List
+import weakref
+from typing import Dict, Iterable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from kme_tpu_torch import opcodes as op
 from kme_tpu_torch.engine import seq as SQ
+from kme_tpu_torch.native import load_library
+from kme_tpu_torch.native.sched import (_arr, export_map, import_map,
+                                        plan_batch, recon_batch)
 from kme_tpu_torch.runtime.sequencer import CapacityError, EnvelopeError
 from kme_tpu_torch.runtime.session import LaneEngineError
 from kme_tpu_torch.utils import jlong, pow2_bucket
-from kme_tpu_torch.wire import (OrderMsg, OutRecord, order_json,
+from kme_tpu_torch.wire import (OrderMsg, OutRecord, WireBatch, order_json,
                                 reject_reason_codes)
 
 _TRADE_ACTS = {op.BUY: SQ.L_BUY, op.SELL: SQ.L_SELL}
@@ -89,6 +106,8 @@ class SeqRouter:
 
     def route(self, msgs):
         """-> (cols dict incl. msg_index, host_reject msg indices)."""
+        if isinstance(msgs, WireBatch):
+            msgs = msgs.msgs()
         java = self.compat == "java"
         cols = {k: [] for k in ("msg_index", "act", "aid", "price",
                                 "size", "lane", "oid", "aid_raw",
@@ -189,11 +208,230 @@ class SeqRouter:
         return out, host_rejects
 
 
+class NativeSeqRouter:
+    """C++ twin of SeqRouter (native/kme_router.cpp): identical routing
+    over columnar int64 arrays, fixed mode. The id maps live in C++; the
+    dict properties export/import them for `load_numpy` and snapshots. A
+    CALL whose fields overflow int64 routes through a temporary Python
+    router (maps synced both ways); subsequent calls are native again."""
+
+    def __init__(self, num_lanes: int, num_accounts: int, lib) -> None:
+        self.S = num_lanes
+        self.A = num_accounts
+        self._lib = lib
+        self._h = lib.kme_router_new(num_lanes, num_accounts)
+        self._fin = weakref.finalize(self, lib.kme_router_free, self._h)
+        # bumped on every wholesale map import (every setter below):
+        # SeqSession's recon-LUT cache keys on (map sizes, epoch), and
+        # sizes alone can collide across an import
+        self._map_epoch = 0
+
+    # -- map views (load_numpy and snapshots read and write these) -------
+    def _import(self, ifn, d, vdt):
+        self._map_epoch += 1
+        import_map(self._h, ifn, d, vdt)
+
+    @property
+    def aid_idx(self):
+        lib = self._lib
+        return export_map(self._h, lib.kme_router_n_accounts,
+                          lib.kme_router_export_accounts, np.int32)
+
+    @aid_idx.setter
+    def aid_idx(self, d):
+        self._import(self._lib.kme_router_import_accounts, d, np.int32)
+
+    @property
+    def sid_lane(self):
+        lib = self._lib
+        return export_map(self._h, lib.kme_router_n_symbols,
+                          lib.kme_router_export_symbols, np.int32)
+
+    @sid_lane.setter
+    def sid_lane(self, d):
+        self._import(self._lib.kme_router_import_symbols, d, np.int32)
+
+    @property
+    def oid_sid(self):
+        lib = self._lib
+        return export_map(self._h, lib.kme_router_n_routes,
+                          lib.kme_router_export_routes, np.int64)
+
+    @oid_sid.setter
+    def oid_sid(self, d):
+        self._import(self._lib.kme_router_import_routes, d, np.int64)
+
+    def acct_of_idx(self) -> List[int]:
+        m = self.aid_idx
+        out = [0] * len(m)
+        for aid, idx in m.items():
+            out[idx] = aid
+        return out
+
+    def sid_of_lane(self) -> Dict[int, int]:
+        return {lane: sid for sid, lane in self.sid_lane.items()}
+
+    def route(self, msgs):
+        n = len(msgs)
+        try:
+            if isinstance(msgs, WireBatch):
+                # columnar fast path: zero per-message Python work
+                raw = {f: np.ascontiguousarray(getattr(msgs, f), np.int64)
+                       for f in ("action", "oid", "aid", "sid",
+                                 "price", "size")}
+            else:
+                raw = {f: np.fromiter((getattr(m, f) for m in msgs),
+                                      np.int64, n)
+                       for f in ("action", "oid", "aid", "sid", "price",
+                                 "size")}
+        except OverflowError:
+            # a field beyond int64: the columnar path cannot carry it
+            py = SeqRouter(self.S, self.A)
+            py.aid_idx = self.aid_idx
+            py.sid_lane = self.sid_lane
+            py.oid_sid = self.oid_sid
+            cols, rejects = py.route(msgs)
+            self.aid_idx = py.aid_idx
+            self.sid_lane = py.sid_lane
+            self.oid_sid = py.oid_sid
+            return cols, rejects
+        bad = ((raw["price"] < -(2**31)) | (raw["price"] >= 2**31)
+               | (raw["size"] < -(2**31)) | (raw["size"] >= 2**31))
+        if bad.any():
+            i = int(np.argmax(bad))
+            raise EnvelopeError(
+                f"message {i}: price/size outside int32 "
+                f"(price={int(raw['price'][i])}, "
+                f"size={int(raw['size'][i])})")
+        lib = self._lib
+        P64 = ctypes.POINTER(ctypes.c_int64)
+        rc = lib.kme_router_route(
+            self._h, n, *(raw[f].ctypes.data_as(P64)
+                          for f in ("action", "oid", "aid", "sid",
+                                    "price", "size")))
+        if rc != 0:
+            raise CapacityError(
+                f"{'account' if rc == 1 else 'symbol'} capacity "
+                f"exhausted (id={lib.kme_router_err_value(self._h)})")
+        nr = lib.kme_router_n_routed(self._h)
+        nj = lib.kme_router_n_rejects(self._h)
+
+        def arr(fn, dt, cnt):
+            return _arr(fn(self._h), cnt, dt)
+
+        cols = {
+            "msg_index": arr(lib.kme_router_o_msg, np.int64, nr),
+            "act": arr(lib.kme_router_o_act, np.int32, nr),
+            "aid": arr(lib.kme_router_o_aidx, np.int32, nr),
+            "price": arr(lib.kme_router_o_price, np.int32, nr),
+            "size": arr(lib.kme_router_o_size, np.int32, nr),
+            "lane": arr(lib.kme_router_o_lane, np.int32, nr),
+            "oid": arr(lib.kme_router_o_oid, np.int64, nr),
+        }
+        rejects = set(arr(lib.kme_router_o_rej, np.int64, nj).tolist())
+        return cols, rejects
+
+
 def make_seq_router(num_lanes: int, num_accounts: int,
                     compat: str = "fixed"):
-    """The Python router (the native router comes with the serving
-    slice of the port)."""
-    return SeqRouter(num_lanes, num_accounts, compat)
+    """The native router in fixed mode (identical routing); the Python
+    router in java mode (it carries the raw-id and flag columns) and
+    under KME_NATIVE=0. A host runtime that fails to build raises."""
+    if compat == "java":
+        return SeqRouter(num_lanes, num_accounts, compat="java")
+    lib = load_library()
+    if lib is not None:
+        return NativeSeqRouter(num_lanes, num_accounts, lib)
+    return SeqRouter(num_lanes, num_accounts)
+
+
+def measured_overlap_s(windows: Iterable[Tuple[str, int, float, float]]
+                       ) -> float:
+    """Measured host/device overlap from SeqSession.windows' (kind, batch,
+    t0, t1) entries: the time collect (host fetch+recon of batch N) spent
+    while another batch was submitted-but-not-collected (its device
+    execution span is bounded by [submit_end, collect_start]). The port's
+    copy of `kme_tpu/telemetry/journal.py`'s."""
+    subs: Dict[int, Tuple[float, float]] = {}
+    cols: Dict[int, Tuple[float, float]] = {}
+    for kind, b, t0, t1 in windows:
+        (subs if kind == "submit" else cols)[b] = (t0, t1)
+    inflight = {b: (subs[b][1], cols[b][0])
+                for b in subs if b in cols and cols[b][0] > subs[b][1]}
+    total = 0.0
+    for b, (c0, c1) in cols.items():
+        cover = 0.0
+        for b2, (s1, k0) in inflight.items():
+            if b2 != b:
+                cover += max(0.0, min(c1, k0) - max(c0, s1))
+        total += min(cover, c1 - c0)
+    return total
+
+
+class _Staging:
+    """The card's side of the host path: a ring of pinned host buffers
+    for the message planes, a copy stream for their H2D copies, and a
+    side stream for the rare second-round output copies."""
+
+    def __init__(self, device: torch.device) -> None:
+        self.device = device
+        self.copy = torch.cuda.Stream(device)
+        self.side = torch.cuda.Stream(device)
+        # [pinned int32 buffer, event of the last copy out of it]
+        self.ring: List[list] = []
+        self.turn = 0
+
+    def stage(self, planes: List[np.ndarray], inflight: int
+              ) -> List[torch.Tensor]:
+        """Copy the (K, B) int32 planes into a ring slot and from there
+        to the card on the copy stream; the current (compute) stream
+        waits for that copy. -> the planes on the card."""
+        # pipeline depth + 1 slots: one per batch in flight and this one
+        while len(self.ring) < inflight + 2:
+            self.ring.append([None, None])
+        slot = self.ring[self.turn % len(self.ring)]
+        self.turn += 1
+        if slot[1] is not None:
+            # the slot's last copy has long been issued; a slot is
+            # written again only after it has completed
+            slot[1].synchronize()
+        K, B = planes[0].shape
+        n = len(planes) * K * B
+        if slot[0] is None or slot[0].numel() < n:
+            slot[0] = torch.empty(n, dtype=torch.int32, pin_memory=True)
+        host = slot[0][:n].view(len(planes), K, B)
+        hv = host.numpy()
+        for j, plane in enumerate(planes):
+            hv[j] = plane
+        compute = torch.cuda.current_stream(self.device)
+        with torch.cuda.stream(self.copy):
+            # allocated on the copy stream, read on the compute stream:
+            # record_stream keeps the allocator from handing the block out
+            # again before the kernels queued there have read it
+            dev = torch.empty((len(planes), K, B), dtype=torch.int32,
+                              device=self.device)
+            dev.copy_(host, non_blocking=True)
+            slot[1] = torch.cuda.Event()
+            slot[1].record(self.copy)
+        dev.record_stream(compute)
+        compute.wait_event(slot[1])
+        return list(dev.unbind(0))
+
+
+@dataclasses.dataclass
+class _Pending:
+    """One dispatched batch, from submit (or `_run`) to its fetch."""
+    seq: int                # submit order (-1 for the serial path)
+    msgs: object            # what was planned (a WireBatch from submit)
+    cols: dict
+    host_rejects: set
+    outp: torch.Tensor      # (K, out_rows, 128) on the session's device
+    cnts: list
+    K: int
+    ghint: int              # fill groups per call in the first fetch
+    head: torch.Tensor      # the headers + hint prefix (pinned on the card)
+    done: Optional[object]  # event behind the early copy (card only)
+    stage_s: float
 
 
 class SeqSession:
@@ -201,9 +439,10 @@ class SeqSession:
     mode.
 
     Same public surface as the JAX package's SeqSession (process /
-    process_wire / metrics / histograms / export_state). The state lives
-    on `device` (default the card; `device="cpu"` runs the kernel's plain
-    PyTorch version)."""
+    process_wire / process_wire_buffer / submit / collect / metrics /
+    histograms / export_state). The state lives on `device` (default the
+    card; `device="cpu"` runs the kernel's plain PyTorch version, and
+    there `submit` runs the batch before it returns)."""
 
     def __init__(self, cfg: SQ.SeqConfig, device="cuda") -> None:
         self.cfg = cfg
@@ -213,13 +452,29 @@ class SeqSession:
         self._metrics = np.zeros(SQ.N_METRICS, np.int64)
         self._hist = np.zeros((SQ.N_HIST, SQ.N_HIST_BUCKETS), np.int64)
         # CUMULATIVE wall seconds per phase across every batch
-        self.phases = {"plan_s": 0.0, "dispatch_s": 0.0, "fetch_s": 0.0}
+        self.phases = {"plan_s": 0.0, "stage_s": 0.0, "dispatch_s": 0.0,
+                       "fetch_s": 0.0, "recon_s": 0.0}
         self.dispatches = 0
+        # second-round fetches of calls whose fills overflowed the hint
+        self.overflow_fetches = 0
         # adaptive fill-slice hint (fill groups per call fetched in the
-        # single fetch; grows to the observed high-water mark)
+        # first fetch; grows to the observed high-water mark)
         self._ghint = 8
         # per-message REJ_* reason codes for the last processed batch
         self.last_reasons = None
+        self._use_native_wire = True
+        self._recon = None          # native reconstructor handle
+        self._staging = (_Staging(self.device)
+                         if self.device.type == "cuda" else None)
+        # ("submit"|"collect", pipeline-batch-idx, t0, t1) wall windows
+        # of the pipelined path, for measured-overlap reporting
+        self.windows: List[tuple] = []
+        self._n_submit = 0
+        self._n_collect = 0
+        # H2D overlap accounting: staging time spent while an earlier
+        # submit was still uncollected counts as overlapped
+        self._h2d_total_s = 0.0
+        self._h2d_overlap_s = 0.0
 
     def load_numpy(self, arrays: dict, aid_idx: Dict[int, int],
                    sid_lane: Dict[int, int], oid_sid: Dict[int, int]) -> None:
@@ -231,12 +486,25 @@ class SeqSession:
         self.router.sid_lane = dict(sid_lane)
         self.router.oid_sid = dict(oid_sid)
 
+    @contextlib.contextmanager
+    def _phase(self, name: str):
+        t = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.phases[name] += time.perf_counter() - t
+
     # ------------------------------------------------------------------
 
     def _plan(self, msgs):
         """Route + pack: columnar router output -> the stacked (K, B)
         int32 input planes of one dispatch. Returns (cols, host_rejects,
-        stacked, cnts, K)."""
+        stacked, cnts, K). A WireBatch through the native router takes
+        one native call (kme_plan_batch); the numpy pack below is its
+        byte-exact twin and java mode's path."""
+        if (isinstance(msgs, WireBatch)
+                and isinstance(self.router, NativeSeqRouter)):
+            return plan_batch(self.router, msgs, self.cfg.batch)
         cols, host_rejects = self.router.route(msgs)
         n = len(cols["act"])
         B = self.cfg.batch
@@ -266,35 +534,64 @@ class SeqSession:
         cnts = [max(min(B, n - ci * B), 0) for ci in range(K)]
         return cols, host_rejects, stacked, cnts, K
 
-    def _run(self, msgs):
-        """Plan, dispatch (ONE kernel launch over all chunks), fetch.
-        Phase wall times accumulate in self.phases."""
-        t0 = time.perf_counter()
-        cols, host_rejects, stacked, cnts, K = self._plan(msgs)
-        t1 = time.perf_counter()
-        dev = {f: torch.from_numpy(stacked[f]).to(self.device,
-                                                  non_blocking=True)
-               for f in SQ.msg_fields(self.cfg)}
-        outp = SQ.seq_scan(self.cfg, self.state, dev)
-        self.dispatches += 1
-        t2 = time.perf_counter()
-        host, fills = self._fetch_outputs(outp, cnts, K)
-        t3 = time.perf_counter()
-        self.phases["plan_s"] += t1 - t0
-        self.phases["dispatch_s"] += t2 - t1
-        self.phases["fetch_s"] += t3 - t2
-        return cols, host_rejects, host, fills
+    def _hint(self) -> int:
+        """Fill groups per call that the first fetch copies."""
+        return min(pow2_bucket(self._ghint, lo=1), self.cfg.fill_cap // 128)
 
-    def _fetch_outputs(self, outp, cnts, K):
-        """ONE device-to-host copy of every call's header plus the
-        adaptive fill-group hint's worth of fill rows; calls whose
-        fill_total overflows the hint get a second, rare copy."""
+    def _dispatch(self, msgs, seq: int = -1) -> _Pending:
+        """Plan, stage, launch (ONE kernel launch over all chunks) and,
+        on the card, enqueue the early copy of the headers plus the
+        hint's fill prefix into pinned memory behind an event. Nothing
+        here waits for the card."""
+        with self._phase("plan_s"):
+            cols, host_rejects, stacked, cnts, K = self._plan(msgs)
+        fields = SQ.msg_fields(self.cfg)
+        t = time.perf_counter()
+        with self._phase("stage_s"):
+            if self._staging is None:
+                dev = {f: torch.from_numpy(np.ascontiguousarray(stacked[f]))
+                       for f in fields}
+            else:
+                dev = dict(zip(fields, self._staging.stage(
+                    [stacked[f] for f in fields],
+                    self._n_submit - self._n_collect)))
+        stage_s = time.perf_counter() - t
+        with self._phase("dispatch_s"):
+            outp = SQ.seq_scan(self.cfg, self.state, dev)
+            self.dispatches += 1
+            ghint = self._hint()
+            rows = SQ.hdr_rows(self.cfg) + 5 * ghint
+            done = None
+            if self._staging is None:
+                head = outp[:, :rows]
+            else:
+                # on the compute stream right behind the kernel, so that
+                # the event waits for this batch's kernel alone and not
+                # for the batches submitted after it
+                head = torch.empty((K, rows, SQ.LN), dtype=torch.int32,
+                                   pin_memory=True)
+                head.copy_(outp[:, :rows], non_blocking=True)
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(self.device))
+        # the rows-in-use scratch that seq_scan allocated is freed to the
+        # compute stream's pool: only work queued behind this kernel can
+        # reuse it, so the handle need not hold it; `outp` it must hold
+        return _Pending(seq, msgs, cols, host_rejects, outp, cnts, K,
+                        ghint, head, done, stage_s)
+
+    def _fetch(self, p: _Pending):
+        """Wait for the batch's early copy, unpack its headers, and fetch
+        the fill rows of calls that overflowed the hint in a second,
+        rare round (on the card: on the side stream, behind this batch's
+        event, so it never queues behind a later kernel).
+        -> (host dict, fills (4, F))."""
         HR = SQ.hdr_rows(self.cfg)
-        ghint = min(pow2_bucket(self._ghint, lo=1), self.cfg.fill_cap // 128)
-        fetched = outp[:, :HR + 5 * ghint, :].cpu().numpy()
+        if p.done is not None:
+            p.done.synchronize()
+        fetched = p.head.numpy()
         results = []
-        for ci in range(K):
-            res = SQ.unpack_hdr(self.cfg, fetched[ci][:HR], cnts[ci])
+        for ci in range(p.K):
+            res = SQ.unpack_hdr(self.cfg, fetched[ci][:HR], p.cnts[ci])
             if res["err"] != SQ.LERR_OK:
                 raise LaneEngineError(res["err"])
             results.append(res)
@@ -302,8 +599,8 @@ class SeqSession:
         self._ghint = max(self._ghint, *gneed)
         fills = []
         for ci, res in enumerate(results):
-            if gneed[ci] > ghint:
-                groups = outp[ci, HR:HR + 5 * gneed[ci]].cpu().numpy()
+            if gneed[ci] > p.ghint:
+                groups = self._second_round(p, ci, HR, HR + 5 * gneed[ci])
             else:
                 groups = fetched[ci][HR:HR + 5 * gneed[ci]]
             fills.append(SQ.unpack_fills(groups, res["fill_total"]))
@@ -314,10 +611,178 @@ class SeqSession:
                           "nfill", "prev_oid")}
         return host, np.concatenate(fills, axis=1)
 
+    def _second_round(self, p: _Pending, ci: int, lo: int, hi: int):
+        self.overflow_fetches += 1
+        if p.done is None:
+            return p.outp[ci, lo:hi].numpy()
+        side = self._staging.side
+        rows = torch.empty((hi - lo, SQ.LN), dtype=torch.int32,
+                           pin_memory=True)
+        with torch.cuda.stream(side):
+            side.wait_event(p.done)
+            rows.copy_(p.outp[ci, lo:hi], non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(side)
+        ev.synchronize()
+        return rows.numpy()
+
+    def _run(self, msgs):
+        """One batch serially: dispatch, then fetch.
+        -> (cols, host_rejects, host dict, fills (4, F))."""
+        p = self._dispatch(msgs)
+        with self._phase("fetch_s"):
+            host, fills = self._fetch(p)
+        return p.cols, p.host_rejects, host, fills
+
+    # -- pipelined serving: dispatch batch N+1 before fetching N --------
+
+    def submit(self, msgs):
+        """Route + pack + stage + DISPATCH a batch without fetching its
+        outputs; returns an opaque handle for collect(). Several handles
+        may be in flight: the state threads through the batches in submit
+        order, so collect them in submit order (anything else raises).
+        On the card this returns once the kernel and its early output
+        copy are queued; on the CPU the batch has run when it returns."""
+        t0 = time.perf_counter()
+        if not isinstance(msgs, WireBatch):
+            try:
+                msgs = WireBatch.from_msgs(msgs)
+            except OverflowError:
+                raise ValueError(
+                    "pipelined serving requires int64-range ids — "
+                    "route beyond-int64 streams through process_wire")
+        p = self._dispatch(msgs, self._n_submit)
+        # the staging overlapped the card exactly when an earlier submit
+        # is still uncollected: its kernel runs while these planes stage
+        self._h2d_total_s += p.stage_s
+        if self._n_submit > self._n_collect:
+            self._h2d_overlap_s += p.stage_s
+        self.windows.append(("submit", self._n_submit, t0,
+                             time.perf_counter()))
+        self._n_submit += 1
+        return p
+
+    @property
+    def h2d_overlap_frac(self) -> float:
+        """Fraction of H2D staging wall hidden under in-flight device
+        compute. Serial paths report 0.0; a depth-N pipeline approaches
+        (N-1)/N, so depth 2 gives at least 0.5."""
+        if self._h2d_total_s <= 0.0:
+            return 0.0
+        return round(self._h2d_overlap_s / self._h2d_total_s, 4)
+
+    def collect(self, handle: _Pending):
+        """Complete a submit(): wait for its outputs (its own event, not
+        the later batches'), fetch and reconstruct the byte stream.
+        Returns (buf, line_off, msg_lines) like process_wire_buffer
+        (needs the native reconstructor)."""
+        if handle.seq != self._n_collect:
+            raise ValueError(
+                f"collect out of submit order: batch {handle.seq} while "
+                f"batch {self._n_collect} is next")
+        t0 = time.perf_counter()
+        with self._phase("fetch_s"):
+            host, fills = self._fetch(handle)
+        with self._phase("recon_s"):
+            r = self._recon_buffer(handle.msgs, handle.cols,
+                                   handle.host_rejects, host, fills)
+        self.windows.append(("collect", self._n_collect, t0,
+                             time.perf_counter()))
+        self._n_collect += 1
+        return r
+
     # ------------------------------------------------------------------
 
+    def process_wire_buffer(self, msgs):
+        """Serving fast path: the full byte-exact record stream as ONE
+        utf-8 buffer + line offsets + per-message line counts, built by
+        the native reconstructor (native/kme_wire.cpp). `msgs` may be a
+        WireBatch (no per-message Python work) or an OrderMsg sequence
+        (columnarized here, one attribute walk). Returns (buf: bytes,
+        line_off: (L+1,) np.int64 incl. end sentinel, msg_lines: (nmsg,)
+        np.int32), or None under KME_NATIVE=0 or when a field exceeds
+        int64 (callers then take process_wire's Python path)."""
+        if load_library() is None:
+            return None
+        if not len(msgs):
+            return b"", np.zeros(1, np.int64), np.zeros(0, np.int32)
+        if isinstance(msgs, WireBatch):
+            batch = msgs
+        else:
+            try:
+                batch = WireBatch.from_msgs(msgs)
+            except OverflowError:
+                return None  # beyond-int64 ids ride the Python path
+        cols, host_rejects, host, fills = self._run(batch)
+        with self._phase("recon_s"):
+            return self._recon_buffer(batch, cols, host_rejects, host, fills)
+
+    def _recon_luts(self):
+        """lane -> sid and account-idx -> aid LUTs for reconstruction,
+        cached against the native router's id-map sizes: the maps only
+        grow (REMOVE_SYMBOL wipes books, not the lane mapping), and
+        exporting them is O(accounts) per batch. Wholesale imports bump
+        _map_epoch, so a same-size restore never serves a stale cache;
+        Python routers are uncached (their dicts mutate without a
+        hook)."""
+        r = self.router
+        key = None
+        if isinstance(r, NativeSeqRouter):
+            key = (int(r._lib.kme_router_n_symbols(r._h)),
+                   int(r._lib.kme_router_n_accounts(r._h)),
+                   r._map_epoch)
+            cached = getattr(self, "_lut_cache", None)
+            if cached is not None and cached[0] == key:
+                return cached[1], cached[2]
+        lut = np.zeros(self.cfg.lanes, np.int64)
+        for lane, sid in r.sid_of_lane().items():
+            lut[lane] = sid
+        idx2aid = np.array(r.acct_of_idx() or [0], np.int64)
+        if key is not None:
+            self._lut_cache = (key, lut, idx2aid)
+        return lut, idx2aid
+
+    def _recon_buffer(self, batch, cols, host_rejects, host, fills):
+        """Columnar inputs + device results -> the byte-exact record
+        stream through the native one-pass reconstructor
+        (kme_recon_batch)."""
+        lib = load_library()
+        if lib is None:
+            raise RuntimeError(
+                "the native reconstructor (kme_wire.cpp) is required for "
+                "the pipelined/buffer serving path — KME_NATIVE=0 is set; "
+                "use process_wire")
+        self.last_reasons = reject_reason_codes(
+            batch.n, cols["msg_index"], cols["act"], host["ok"],
+            host["cap_reject"], host_rejects)
+        if self._recon is None:
+            self._recon = lib.kme_recon_new()
+            # release the native buffer with the session
+            self._recon_fin = weakref.finalize(self, lib.kme_recon_free,
+                                               self._recon)
+        lane_sid, idx2aid = self._recon_luts()
+        return recon_batch(lib, self._recon, batch, cols, host, fills,
+                           lane_sid, idx2aid)
+
     def process_wire(self, msgs) -> List[List[str]]:
-        """The MatchOut lines of each message (the `order_json` path)."""
+        """The MatchOut lines of each message: sliced from
+        process_wire_buffer's bytes, or built by the Python line builder
+        (the `order_json` path) when `_use_native_wire` is off, under
+        KME_NATIVE=0, or for ids beyond int64."""
+        if self._use_native_wire:
+            r = self.process_wire_buffer(msgs)
+            if r is not None:
+                buf, line_off, msg_lines = r
+                text = buf.decode("ascii")
+                out = []
+                li = 0
+                for nl in msg_lines.tolist():
+                    out.append([text[line_off[li + k]:line_off[li + k + 1]]
+                                for k in range(nl)])
+                    li += nl
+                return out
+        if isinstance(msgs, WireBatch):
+            msgs = msgs.msgs()
         cols, host_rejects, host, fills = self._run(msgs)
         idx_to_aid = self.router.acct_of_idx()
         lane_to_sid = self.router.sid_of_lane()
@@ -385,6 +850,8 @@ class SeqSession:
         return out
 
     def process(self, msgs) -> List[List[OutRecord]]:
+        if isinstance(msgs, WireBatch):
+            msgs = msgs.msgs()
         cols, host_rejects, host, fills = self._run(msgs)
         idx_to_aid = self.router.acct_of_idx()
         lane_to_sid = self.router.sid_of_lane()

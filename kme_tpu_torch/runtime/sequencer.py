@@ -1,9 +1,10 @@
 """Conflict-free scheduler: wire messages -> (step, lane) placements.
 
-The port of `kme_tpu/runtime/sequencer.py` (Python scheduler; the native
-C++ scheduler comes with the serving slice). The exactness contract
-(engine/lanes.py docstring): a parallel step is bit-exact with serial
-replay iff
+The port of `kme_tpu/runtime/sequencer.py`: the Python scheduler, the
+semantics authority of the native C++ one (`native/sched.py`), which
+`make_scheduler` hands out whenever the host runtime loads. The
+exactness contract (engine/lanes.py docstring): a parallel step is
+bit-exact with serial replay iff
   (a) each symbol's messages stay in arrival order in its lane,
   (b) no two messages in a step share an actor account,
   (c) PAYOUT / REMOVE_SYMBOL run as exclusive barrier steps.
@@ -111,8 +112,12 @@ _TRADE_ACTS = {op.BUY: L.L_BUY, op.SELL: L.L_SELL}
 
 
 def make_scheduler(num_lanes: int, num_accounts: int, width: int = 0):
-    """The Python scheduler (the native one comes with the serving
-    slice of the port)."""
+    """The native C++ scheduler (identical plans); the Python one only
+    under KME_NATIVE=0. A host runtime that fails to build raises."""
+    from kme_tpu_torch.native.sched import NativeScheduler, native_available
+
+    if native_available():
+        return NativeScheduler(num_lanes, num_accounts, width)
     return Scheduler(num_lanes, num_accounts, width)
 
 

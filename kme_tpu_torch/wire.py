@@ -8,7 +8,8 @@ declaration order and `next`/`prev` always present (null when unset —
 quirk Q9). Incoming messages are parsed by field name; missing fields
 default to 0 / null (Jackson primitive defaults).
 
-The binary order frames and `WireBatch` belong to the serving slice.
+`WireBatch` is the columnar batch of the native host path; the binary
+order frames come with the service.
 """
 
 from __future__ import annotations
@@ -16,6 +17,8 @@ from __future__ import annotations
 import dataclasses
 import json
 from typing import Iterator, Optional
+
+import numpy as np
 
 _FIELDS = ("action", "oid", "aid", "sid", "price", "size")
 
@@ -52,8 +55,6 @@ def reject_reason_codes(nmsg, msg_index, act, ok, cap_reject, host_rejects):
     not-ok is capacity when the cap flag fired, else classified by the
     internal lane act (1/2 trade -> risk, 3 cancel, 7/8/9 barrier,
     other device ops -> other). Returns a (nmsg,) uint8 array."""
-    import numpy as np
-
     reasons = np.zeros(nmsg, np.uint8)
     if host_rejects:
         reasons[list(host_rejects)] = REJ_UNROUTABLE
@@ -159,3 +160,119 @@ class OutRecord:
 def wire_lines(records: Iterator[OutRecord]) -> Iterator[str]:
     for r in records:
         yield r.wire()
+
+
+class WireBatch:
+    """Columnar view of a message batch: the input format of the native
+    host path (SeqSession.process_wire_buffer and submit consume it
+    directly — router and reconstructor read the columns, so no
+    per-message attribute walk runs on the hot path).
+
+    Columns (numpy): action/oid/aid/sid/price/size/next/prev int64,
+    hnext/hprev uint8 (1 = pointer present — Jackson binds next/prev from
+    input too), plus tid int64 / htid uint8 for the additive trace word
+    (zeros when no frame carried one). Values beyond int64 cannot be
+    represented; builders raise OverflowError and callers stay on the
+    OrderMsg-list path (which carries arbitrary ints)."""
+
+    __slots__ = ("n", "action", "oid", "aid", "sid", "price", "size",
+                 "next", "prev", "hnext", "hprev", "tid", "htid",
+                 "_msgs")
+
+    _COLS = ("action", "oid", "aid", "sid", "price", "size", "next",
+             "prev")
+
+    def __init__(self, n, cols, hnext, hprev, msgs=None, tid=None,
+                 htid=None):
+        self.n = n
+        for f, v in zip(self._COLS, cols):
+            setattr(self, f, v)
+        self.hnext = hnext
+        self.hprev = hprev
+        if tid is None or htid is None:
+            tid = np.zeros(n, np.int64)
+            htid = np.zeros(n, np.uint8)
+        self.tid = tid
+        self.htid = htid
+        self._msgs = msgs
+
+    def record_tid(self, i: int) -> Optional[int]:
+        """The trace word carried by row `i`, or None."""
+        return int(self.tid[i]) if self.htid[i] else None
+
+    def __len__(self) -> int:
+        return self.n
+
+    @classmethod
+    def from_msgs(cls, msgs) -> "WireBatch":
+        """OrderMsg sequence -> columns (ONE attribute walk; raises
+        OverflowError on values beyond int64)."""
+        n = len(msgs)
+        cols = [np.fromiter((m.action for m in msgs), np.int64, n),
+                np.fromiter((m.oid for m in msgs), np.int64, n),
+                np.fromiter((m.aid for m in msgs), np.int64, n),
+                np.fromiter((m.sid for m in msgs), np.int64, n),
+                np.fromiter((m.price for m in msgs), np.int64, n),
+                np.fromiter((m.size for m in msgs), np.int64, n),
+                np.fromiter((0 if m.next is None else m.next
+                             for m in msgs), np.int64, n),
+                np.fromiter((0 if m.prev is None else m.prev
+                             for m in msgs), np.int64, n)]
+        hnext = np.fromiter((m.next is not None for m in msgs), np.uint8, n)
+        hprev = np.fromiter((m.prev is not None for m in msgs), np.uint8, n)
+        return cls(n, cols, hnext, hprev,
+                   msgs if isinstance(msgs, list) else list(msgs))
+
+    @classmethod
+    def parse_buffer(cls, buf: bytes) -> "WireBatch":
+        """Newline-separated order JSON -> columns, via the native parser
+        (kme_wire.cpp kme_parse_*); a buffer with any line outside its
+        integer/null subset is parsed whole through parse_order, so
+        coercions and errors are exactly the Python authority's. Under
+        KME_NATIVE=0 every buffer takes parse_order."""
+        from kme_tpu_torch.native import load_library
+
+        if not buf:
+            # empty payload = zero messages (the native column pointers
+            # are unallocated at n == 0)
+            return cls._empty()
+        lib = load_library()
+        if lib is not None:
+            h = lib.kme_parse_new()
+            try:
+                rc = lib.kme_parse_lines(h, buf, len(buf))
+                if rc >= 0:
+                    n = int(rc)
+                    cols = [np.ctypeslib.as_array(
+                        lib.kme_parse_col(h, i), (max(n, 1),))[:n].copy()
+                        for i in range(8)]
+                    hnext = np.ctypeslib.as_array(
+                        lib.kme_parse_hnext(h), (max(n, 1),))[:n].copy()
+                    hprev = np.ctypeslib.as_array(
+                        lib.kme_parse_hprev(h), (max(n, 1),))[:n].copy()
+                    return cls(n, cols, hnext, hprev)
+            finally:
+                lib.kme_parse_free(h)
+        msgs = [parse_order(ln) for ln in buf.split(b"\n") if ln]
+        return cls.from_msgs(msgs)
+
+    @classmethod
+    def _empty(cls) -> "WireBatch":
+        return cls(0, [np.zeros(0, np.int64) for _ in range(8)],
+                   np.zeros(0, np.uint8), np.zeros(0, np.uint8), [])
+
+    def msgs(self) -> list:
+        """Materialize the OrderMsg view (lazily, for the Python paths;
+        the native path never calls this)."""
+        if self._msgs is None:
+            act, oid, aid = self.action, self.oid, self.aid
+            sid, pr, sz = self.sid, self.price, self.size
+            nx, pv = self.next, self.prev
+            hn, hp = self.hnext, self.hprev
+            self._msgs = [
+                OrderMsg(int(act[i]), int(oid[i]), int(aid[i]),
+                         int(sid[i]), int(pr[i]), int(sz[i]),
+                         int(nx[i]) if hn[i] else None,
+                         int(pv[i]) if hp[i] else None)
+                for i in range(self.n)]
+        return self._msgs

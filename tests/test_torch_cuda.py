@@ -7,7 +7,9 @@ plane, and both position planes joined to int64) against theirs; the
 seq and lanes sessions on the card against the same sessions on the
 CPU; and the lanes session's step graph against the eager chunk
 function from the same pre-state, across state swaps, with its launches
-counted per replay.
+counted per replay; and the seq session's pipelined serving on the card
+(submit/collect at depths 2 and 3, the pinned staging ring wrapping, the
+second-round output copy) against its serial path and the CPU session.
 
 Every test here carries the `cuda` marker and skips where
 `torch.cuda.is_available()` is false (a CUDA kernel has no CPU mode).
@@ -426,3 +428,78 @@ def test_launches_count_graph_replays(cuda_device):
     assert gpu.graph_stats["captures"] == 1 and gpu.steps > 0
     for k in ("gather_pos", "scatter_pos"):
         assert rowdma.LAUNCHES[k] - before[k] == gpu.steps
+
+
+def _pipelined(ses, batches, depth):
+    """submit up to `depth` batches ahead of collect; -> the bytes."""
+    parts, pend = [], []
+    for b in batches:
+        pend.append(ses.submit(b))
+        if len(pend) >= depth:
+            parts.append(ses.collect(pend.pop(0)))
+    while pend:
+        parts.append(ses.collect(pend.pop(0)))
+    return b"".join(p[0] for p in parts)
+
+
+def _pipe_stream(compat):
+    return zipf_symbol_stream(2000, num_symbols=7, num_accounts=60, seed=4,
+                              payout_per_mille=6 if compat == "fixed" else 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compat,depth", [("fixed", 2), ("fixed", 3),
+                                          ("java", 2)])
+def test_pipelined_on_card_equals_serial_and_cpu(cuda_device, compat, depth):
+    """submit/collect on the card (pinned staging ring, copy stream, early
+    header copy behind an event) gives the bytes and state of the serial
+    path on the card and of the CPU session."""
+    cfg = SQ.SeqConfig(**(KW if compat == "fixed" else JAVA_KW))
+    msgs = _pipe_stream(compat)
+    parts = [msgs[lo:lo + cfg.batch] for lo in range(0, len(msgs), cfg.batch)]
+    serial, cpu = SeqSession(cfg), SeqSession(cfg, device="cpu")
+    want = b"".join(cpu.process_wire_buffer(p)[0] for p in parts)
+    assert b"".join(serial.process_wire_buffer(p)[0] for p in parts) == want
+    ses = SeqSession(cfg)
+    before = SQ.LAUNCHES[compat]
+    assert _pipelined(ses, parts, depth) == want
+    assert SQ.LAUNCHES[compat] - before == len(parts) == ses.dispatches
+    for k in SQ.state_keys(cfg):
+        assert torch.equal(ses.state[k].cpu(), cpu.state[k]), k
+    # every submit after the first staged under an uncollected batch
+    # (the >= 0.5 gate on this wall-clock share is chip_smoke.py's, over
+    # 107 batches; over 9, the first submit's one-off costs can outweigh
+    # the other 8)
+    assert 0 < ses.h2d_overlap_frac < 1
+    assert len(ses._staging.ring) == depth + 1
+
+
+@pytest.mark.cuda
+def test_pinned_ring_wraps_many_times(cuda_device):
+    """Depth 3 over 64-message batches: the staging ring (depth + 1 slots)
+    is reused many times, each slot only after its last copy."""
+    cfg = SQ.SeqConfig(**KW)
+    msgs = _pipe_stream("fixed")
+    parts = [msgs[lo:lo + 64] for lo in range(0, len(msgs), 64)]
+    cpu = SeqSession(cfg, device="cpu")
+    want = b"".join(cpu.process_wire_buffer(p)[0] for p in parts)
+    ses = SeqSession(cfg)
+    assert _pipelined(ses, parts, 3) == want
+    ring = ses._staging.ring
+    assert len(ring) == 4 and ses._staging.turn == len(parts) > 6 * len(ring)
+
+
+@pytest.mark.cuda
+def test_forced_hint_runs_the_overflow_copy(cuda_device, monkeypatch):
+    """With the first fetch cut to one fill group per call, calls with
+    more fills take the side stream's second-round copy; the bytes do
+    not change."""
+    cfg = SQ.SeqConfig(**KW)
+    msgs = _pipe_stream("fixed")
+    parts = [msgs[lo:lo + cfg.batch] for lo in range(0, len(msgs), cfg.batch)]
+    cpu = SeqSession(cfg, device="cpu")
+    want = b"".join(cpu.process_wire_buffer(p)[0] for p in parts)
+    ses = SeqSession(cfg)
+    monkeypatch.setattr(ses, "_hint", lambda: 1)
+    assert _pipelined(ses, parts, 2) == want
+    assert ses.overflow_fetches > 0 and cpu.overflow_fetches == 0

@@ -76,7 +76,8 @@ def test_port_imports_without_jax_or_kme_tpu():
     mods = set(r.stdout.split())
     for m in ("kme_tpu_torch.engine.seq", "kme_tpu_torch.runtime.seqsession",
               "kme_tpu_torch.wire", "kme_tpu_torch.workload",
-              "kme_tpu_torch.native", "kme_tpu_torch.opcodes",
+              "kme_tpu_torch.native", "kme_tpu_torch.native.sched",
+              "kme_tpu_torch.opcodes",
               "kme_tpu_torch.engine.lanes", "kme_tpu_torch.ops.rowdma",
               "kme_tpu_torch.runtime.session",
               "kme_tpu_torch.runtime.sequencer"):
