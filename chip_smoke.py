@@ -95,7 +95,26 @@ Phases, in order; any failure exits non-zero:
    at 8 rows of 32 KiB per plane (kernel, plain version on the card,
    library call) back to back, and the kernel in a CUDA graph of 100
    launches, with the byte bounds;
-9. summary: one `kernels` JSON line, the card line, then the device line
+10. serving (kme_tpu_torch.bridge), at the serve defaults on the card:
+   (a) `MatchService(engine="seq", pipeline=2)` behind `serve_broker` on
+   127.0.0.1:0, the zipf stream produced over TCP (`TcpBroker.
+   produce_batch` of 4096) and its MatchOut consumed over TCP: B1's
+   MatchOut, launches = dispatches; wall, messages/s, the service gauges
+   and the kernel's share (CUDA events); (b) the same stream exactly once
+   over a persisted broker log with checkpoints every 32768 messages,
+   both dropped at about 60,000 messages and rebuilt from disk: the
+   resumed service's stamped MatchOut log is B1's again; snapshot bytes,
+   save and restore seconds; (c) the java stream through `compat="java"`
+   at 8192 slots, one seqjava checkpoint mid-stream and a resume from it:
+   the java oracle's MatchOut; (d) the first 20,000 messages through
+   `engine="lanes"` with a snapshot at offset 10,240, restored into a seq
+   service that finishes them: both equal B1's lines for those messages;
+   (e) a card SeqSession and a CPU one after the same four batches write
+   snapshots with equal payload digests; (f) `python -m kme_tpu_torch.cli
+   serve` as a subprocess on the card, fed by the CLI's `loadgen`
+   (a harness stream), consumed over TCP: equal to a `device="cpu"`
+   service's MatchOut for the same stream;
+11. summary: one `kernels` JSON line, the card line, then the device line
    last.
 
 `plain_ms` in the kernels line is the plain version's time per call:
@@ -120,10 +139,13 @@ import collections
 import contextlib
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
 import warnings
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 FULL = dict(lanes=1024, slots=128, accounts=4096, max_fills=16, batch=1024,
             pos_cap=1 << 17, fill_cap=1 << 15, probe_max=64)
@@ -154,6 +176,15 @@ B1_MATCHOUT = (
 DEEP_MATCHOUT = (
     346_474, "bb6686cfefe6fdf8b8f8759c1e54d573d52adeeda7bab905b2b677035744855d")
 LANES = dict(lanes=1024, slots=128, accounts=4096, max_fills=16)
+# MatchService's arguments at the kme-serve defaults
+SERVE = dict(symbols=1024, accounts=4096, slots=128, max_fills=16,
+             batch=1024)
+# phase 10's cuts: snapshot cadence and crash point of the exactly-once
+# runs (fixed, java), and the lanes prefix with its snapshot offset
+SERVE_CKPT_EVERY, SERVE_CRASH_AT = 32_768, 60_000
+JAVA_CKPT_EVERY = 50_000
+LANES_PREFIX, LANES_CUT = 20_000, 10_240
+CLI_EVENTS = 10_000
 LANES_WIDTH = 8             # kme-serve --width default
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 ROW_BYTES = 128 * 4
@@ -1182,6 +1213,405 @@ def time_rowdma(rowdma, max_err, launches, card):
                      ms["2 x index_copy_"]),
     ]
 
+def stream_digest(lines):
+    """(MatchOut lines, sha256 of the lines each followed by a newline),
+    as main_path forms them."""
+    hasher = hashlib.sha256()
+    for ln in lines:
+        hasher.update(ln.encode())
+        hasher.update(b"\n")
+    return len(lines), hasher.hexdigest()
+
+
+def per_message(lines):
+    """A MatchOut log split into each input message's lines (every
+    message opens with its IN line)."""
+    out = []
+    for ln in lines:
+        if ln.startswith("IN "):
+            out.append([])
+        out[-1].append(ln)
+    return out
+
+
+def log_lines(broker, topic):
+    return [f"{r.key} {r.value}"
+            for r in broker.fetch(topic, 0, 1 << 30, timeout=0)]
+
+
+def timed_checkpoints(svc, secs):
+    """Time every snapshot the service writes (its wall into `secs`)."""
+    orig = svc.checkpoint
+
+    def checkpoint():
+        t = time.perf_counter()
+        orig()
+        secs.append(time.perf_counter() - t)
+
+    svc.checkpoint = checkpoint
+
+
+def zero_launches(*counters):
+    import torch
+
+    torch.cuda.synchronize()
+    for c in counters:
+        for key in c:
+            c[key] = 0
+
+
+def seq_launches_checked(SQ, svc, label):
+    import torch
+
+    torch.cuda.synchronize()
+    ses = svc._session
+    key = ses.cfg.compat
+    if SQ.LAUNCHES[key] != ses.dispatches or ses.dispatches == 0:
+        fail(f"{label}: {SQ.LAUNCHES[key]} kernel launches for "
+             f"{ses.dispatches} dispatches")
+    return ses.dispatches
+
+
+def crash_and_resume(SQ, values, root, kw, crash_at, label,
+                     resume_kw=None):
+    """`values` into a persisted broker log; a service with a checkpoint
+    directory and exactly-once output runs to `crash_at` messages, then
+    service and broker are dropped (no teardown) and rebuilt from disk;
+    the resumed service finishes the stream. -> (stamped MatchOut log
+    lines, snapshot offset, snapshot bytes, save s, broker reload s,
+    restore s, duplicates suppressed)."""
+    from kme_tpu_torch.bridge.broker import InProcessBroker
+    from kme_tpu_torch.bridge.provision import provision
+    from kme_tpu_torch.bridge.service import TOPIC_IN, TOPIC_OUT, MatchService
+    from kme_tpu_torch.runtime import checkpoint as ck
+
+    log_dir, ck_dir = os.path.join(root, "log"), os.path.join(root, "ck")
+    kw = dict(kw, checkpoint_dir=ck_dir, exactly_once=True)
+    b1 = InProcessBroker(persist_dir=log_dir)
+    provision(b1)
+    for v in values:
+        b1.produce(TOPIC_IN, None, v)
+    svc1 = MatchService(b1, **kw)
+    save_s = []
+    timed_checkpoints(svc1, save_s)
+    zero_launches(SQ.LAUNCHES)
+    t = time.perf_counter()
+    svc1.run(max_messages=crash_at, poll_timeout=0.05)
+    wall1 = time.perf_counter() - t
+    d1 = seq_launches_checked(SQ, svc1, f"{label} first incarnation")
+    snap = svc1._last_ckpt_offset
+    if len(save_s) != 1 or not 0 < snap < svc1.offset:
+        fail(f"{label}: {len(save_s)} snapshots, the last at {snap} of "
+             f"{svc1.offset} messages run")
+    path = ck.snapshot_path(ck_dir, snap)
+    nbytes = os.path.getsize(path)
+    ran = svc1.offset
+    del svc1, b1                    # the whole process dies
+    t = time.perf_counter()
+    b2 = InProcessBroker(persist_dir=log_dir)
+    reload_s = time.perf_counter() - t
+    t = time.perf_counter()
+    svc2 = MatchService(b2, **dict(kw, **(resume_kw or {})))
+    restore_s = time.perf_counter() - t
+    if svc2.offset != snap:
+        fail(f"{label}: resumed at {svc2.offset}, the snapshot is at {snap}")
+    zero_launches(SQ.LAUNCHES)
+    t = time.perf_counter()
+    svc2.run(max_messages=len(values) - snap, poll_timeout=0.05)
+    wall2 = time.perf_counter() - t
+    d2 = seq_launches_checked(SQ, svc2, f"{label} resumed")
+    lines = log_lines(b2, TOPIC_OUT)
+    dups = b2.dup_suppressed
+    svc2.close()
+    log(f"{label}: first incarnation {ran} messages in {wall1:.3f} s "
+        f"({d1} dispatches = launches), snapshot at offset {snap}: "
+        f"{nbytes} bytes, saved in {save_s[0]:.3f} s; broker log reloaded "
+        f"in {reload_s:.3f} s; service restored in {restore_s:.3f} s; "
+        f"resumed run {len(values) - snap} messages in {wall2:.3f} s ({d2} "
+        f"dispatches = launches); {dups} replayed records suppressed by "
+        f"their (epoch, out_seq) stamps (host clock)")
+    return lines, snap
+
+
+def serving_phase(SQ, rowdma, zipf, java_msgs, b1, card):
+    """Phase 10: the serving stack on the card (see the module
+    docstring); `b1` = (MatchOut lines, sha256) of phase 4."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+    from kme_tpu_torch.bridge.broker import InProcessBroker
+    from kme_tpu_torch.bridge.consume import consume_lines
+    from kme_tpu_torch.bridge.provision import provision
+    from kme_tpu_torch.bridge.service import TOPIC_IN, TOPIC_OUT, MatchService
+    from kme_tpu_torch.bridge.tcp import TcpBroker, serve_broker
+    from kme_tpu_torch.runtime import checkpoint as ck
+    from kme_tpu_torch.runtime.seqsession import SeqSession
+    from kme_tpu_torch.wire import dumps_order, parse_order
+    from kme_tpu_torch.workload import harness_stream
+
+    root = tempfile.mkdtemp(prefix="kme_serving_")
+    values = [dumps_order(m) for m in zipf]
+    try:
+        # ---- (a) the pipelined seq service over TCP
+        t_phase = time.perf_counter()
+        srv, broker = serve_broker("127.0.0.1", 0, InProcessBroker())
+        host, port = srv.server_address[:2]
+        client = TcpBroker(host, port)
+        try:
+            provision(client)
+            t = time.perf_counter()
+            for lo in range(0, len(values), 4096):
+                client.produce_batch(TOPIC_IN, [(None, v) for v in
+                                                values[lo:lo + 4096]])
+            prod_s = time.perf_counter() - t
+            svc = MatchService(broker, engine="seq", compat="fixed",
+                               pipeline=2, **SERVE)
+            if svc.pipeline != 2:
+                fail("serve-tcp: the service did not take the pipeline")
+            zero_launches(SQ.LAUNCHES)
+            with kernel_events(SQ) as evs:
+                t = time.perf_counter()
+                n = svc.run(max_messages=len(values), poll_timeout=0.05)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t
+            dispatches = seq_launches_checked(SQ, svc, "serve-tcp")
+            kern_s = sum(e0.elapsed_time(e1) for e0, e1 in evs) / 1e3
+            gauges = svc.telemetry.snapshot()["gauges"]
+            spans = dict(svc._ptimer.totals)
+            svc.close()
+            t = time.perf_counter()
+            lines = list(consume_lines(client, follow=False))
+            cons_s = time.perf_counter() - t
+        finally:
+            client.close()
+            srv.shutdown()
+            srv.server_close()
+        got = stream_digest(lines)
+        if n != len(values) or got != b1:
+            fail(f"serve-tcp: {n} messages served, MatchOut {got[0]} lines "
+                 f"sha256 {got[1]}; B1 gives {b1[0]} lines sha256 {b1[1]}")
+        log(f"serve-tcp: {len(values)} messages produced over TCP in "
+            f"{prod_s:.3f} s; served in {wall:.3f} s = "
+            f"{len(values) / wall:.0f} msg/s (host clock, synchronized; "
+            f"{dispatches} dispatches = kernel launches); MatchOut "
+            f"consumed over TCP in {cons_s:.3f} s == B1's ({got[0]} lines, "
+            f"sha256 {got[1]}); card {card}")
+        log(f"serve-tcp: kernel time (CUDA events) {kern_s:.4f} s = "
+            f"{kern_s / wall:.1%} of the service wall; gauges plan_s "
+            f"{gauges['plan_s']} recon_s {gauges['recon_s']} host_path_s "
+            f"{gauges['host_path_s']} device_ms_per_batch "
+            f"{gauges['device_ms_per_batch']} h2d_overlap_frac "
+            f"{gauges.get('h2d_overlap_frac')}; session phases "
+            + json.dumps({k: round(v, 4)
+                          for k, v in svc._session.phases.items()}))
+        rest = wall - sum(spans.values())
+        log(f"serve-tcp: service wall by span (s, host clock): serve_engine "
+            f"(submit + collect) {spans.get('serve_engine', 0):.4f}, "
+            f"serve_produce (MatchOut into the broker, "
+            f"{len(lines)} produce calls) {spans.get('serve_produce', 0):.4f}"
+            f", the rest (broker fetch, JSON join and parse, counters, "
+            f"metrics refresh) {rest:.4f}")
+        per_msg = per_message(lines)
+        del svc, broker, lines
+        log(f"phase 10a took {time.perf_counter() - t_phase:.1f} s")
+
+        # ---- (b) crash and resume, exactly once, seq fixed
+        t_phase = time.perf_counter()
+        kw = dict(engine="seq", compat="fixed", pipeline=2,
+                  checkpoint_every=SERVE_CKPT_EVERY, **SERVE)
+        lines, _ = crash_and_resume(SQ, values, os.path.join(root, "b"), kw,
+                                    SERVE_CRASH_AT, "crash-resume")
+        got = stream_digest(lines)
+        if got != b1:
+            fail(f"crash-resume: MatchOut log {got[0]} lines sha256 "
+                 f"{got[1]}; B1 gives {b1[0]} lines sha256 {b1[1]}")
+        log(f"crash-resume: the stamped MatchOut log == B1's ({got[0]} "
+            f"lines, sha256 {got[1]})")
+        del lines
+        log(f"phase 10b took {time.perf_counter() - t_phase:.1f} s")
+
+        # ---- (c) java at 8192 slots, one seqjava checkpoint, a resume
+        t_phase = time.perf_counter()
+        kw = dict(SERVE, engine="seq", compat="java", slots=8192,
+                  checkpoint_every=JAVA_CKPT_EVERY)
+        lines, snap = crash_and_resume(
+            SQ, [dumps_order(m) for m in java_msgs], os.path.join(root, "c"),
+            kw, SERVE_CRASH_AT, "java",
+            resume_kw={"checkpoint_every": 1 << 30})
+        got = stream_digest(lines)
+        if got != (JAVA_LINES, JAVA_SHA256):
+            fail(f"java service: MatchOut log {got[0]} lines sha256 "
+                 f"{got[1]}; the java oracle gives {JAVA_LINES} lines "
+                 f"sha256 {JAVA_SHA256}")
+        log(f"java service: resumed from the seqjava snapshot at {snap}; "
+            f"the MatchOut log == the java oracle's ({got[0]} lines, sha256 "
+            f"{got[1]})")
+        del lines
+        log(f"phase 10c took {time.perf_counter() - t_phase:.1f} s")
+
+        # ---- (d) lanes through the service, its snapshot into seq
+        t_phase = time.perf_counter()
+        P, cut = LANES_PREFIX, LANES_CUT
+        want = [ln for m in per_msg[:P] for ln in m]
+        ck_dir = os.path.join(root, "d")
+        b = InProcessBroker()
+        provision(b)
+        for v in values[:P]:
+            b.produce(TOPIC_IN, None, v)
+        svc = MatchService(b, engine="lanes", width=LANES_WIDTH,
+                           checkpoint_dir=ck_dir, checkpoint_every=cut,
+                           **SERVE)
+        ses = svc._session
+        ses.capture()           # set-up: its warm-up step counts launches
+        zero_launches(rowdma.LAUNCHES)
+        t = time.perf_counter()
+        svc.run(max_messages=P, poll_timeout=0.05)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        lanes_out = log_lines(b, TOPIC_OUT)
+        launches = dict(rowdma.LAUNCHES)
+        if any(launches[k] != ses.steps for k in ("gather_pos",
+                                                  "scatter_pos")):
+            fail(f"lanes service: launches {launches} for {ses.steps} "
+                 f"padded steps")
+        if lanes_out != want:
+            fail(f"lanes service: MatchOut of the first {P} messages != "
+                 f"B1's")
+        if svc._last_ckpt_offset != cut:
+            fail(f"lanes service: the snapshot is at "
+                 f"{svc._last_ckpt_offset}, not {cut}")
+        nbytes = os.path.getsize(ck.snapshot_path(ck_dir, cut))
+        log(f"lanes service: {P} messages in {wall:.3f} s = "
+            f"{P / wall:.0f} msg/s (host clock, synchronized), "
+            f"{ses.steps} padded steps = B4 = B5 launches; MatchOut == "
+            f"B1's for those messages; lanes snapshot at {cut}: {nbytes} "
+            f"bytes")
+        del svc, ses, b
+        b = InProcessBroker()
+        provision(b)
+        for v in values[:P]:
+            b.produce(TOPIC_IN, None, v)
+        t = time.perf_counter()
+        svc = MatchService(b, engine="seq", compat="fixed",
+                           checkpoint_dir=ck_dir, checkpoint_every=1 << 30,
+                           **SERVE)
+        restore_s = time.perf_counter() - t
+        if svc.offset != cut:
+            fail(f"lanes -> seq: the seq service resumed at {svc.offset}")
+        zero_launches(SQ.LAUNCHES)
+        svc.run(max_messages=P - cut, poll_timeout=0.05)
+        seq_launches_checked(SQ, svc, "lanes -> seq")
+        seq_out = log_lines(b, TOPIC_OUT)
+        if seq_out != [ln for m in per_msg[cut:P] for ln in m]:
+            fail("lanes -> seq: the seq service's MatchOut for messages "
+                 f"{cut}..{P} != B1's")
+        log(f"lanes -> seq: the lanes snapshot restored into a seq service "
+            f"in {restore_s:.3f} s; its MatchOut for messages {cut}..{P} == "
+            f"B1's ({len(seq_out)} lines)")
+        del svc, b, want, lanes_out, seq_out
+        log(f"phase 10d took {time.perf_counter() - t_phase:.1f} s")
+
+        # ---- (e) card and CPU sessions write the same snapshot
+        t_phase = time.perf_counter()
+        cfg = SQ.SeqConfig(**FULL)
+        gpu, cpu = SeqSession(cfg), SeqSession(cfg, device="cpu")
+        for lo in range(0, 4 * cfg.batch, cfg.batch):
+            part = zipf[lo:lo + cfg.batch]
+            if gpu.process_wire(part) != cpu.process_wire(part):
+                fail(f"snapshot digests: card != CPU MatchOut at {lo}")
+        dig = []
+        for name, ses in (("card", gpu), ("cpu", cpu)):
+            path = ck.save_seq_session(os.path.join(root, "e", name), ses,
+                                       4 * cfg.batch)
+            data, _ = ck._load_file(path)
+            dig.append(bytes(data["digest"]).decode())
+        if dig[0] != dig[1]:
+            fail(f"snapshot digests: card {dig[0]} != CPU {dig[1]}")
+        log(f"snapshot digests after 4 full-width batches: card == CPU "
+            f"(sha256 {dig[0]})")
+        del gpu, cpu
+        log(f"phase 10e took {time.perf_counter() - t_phase:.1f} s")
+
+        # ---- (f) the CLI once: serve on the card, fed by loadgen
+        t_phase = time.perf_counter()
+        hmsgs = harness_stream(CLI_EVENTS, seed=0, payout_opcode_bug=False,
+                               validate=True)
+        hvalues = [dumps_order(m) for m in hmsgs]
+        b = InProcessBroker()
+        provision(b)
+        for v in hvalues:
+            b.produce(TOPIC_IN, None, v)
+        ref = MatchService(b, engine="seq", compat="fixed", device="cpu",
+                           **SERVE)
+        ref.run(max_messages=len(hvalues), poll_timeout=0.05)
+        want = log_lines(b, TOPIC_OUT)
+        del ref, b
+        if [parse_order(v) for v in hvalues] != hmsgs:
+            fail("harness stream: the JSON does not round-trip")
+        cli = [sys.executable, "-m", "kme_tpu_torch.cli"]
+        env = dict(os.environ, PYTHONPATH=ROOT)
+        # the serve ends 10 s after its input goes idle: the loadgen (no
+        # torch import) produces before the serve's loop starts, and the
+        # consumer below reads while it waits
+        serve = subprocess.Popen(
+            cli + ["serve", "--listen", "127.0.0.1:0", "--engine", "seq",
+                   "--pipeline", "2", "--auto-provision", "--idle-exit",
+                   "10"], cwd=ROOT, env=env, stderr=subprocess.PIPE,
+            text=True)
+        errs = []
+        try:
+            addr = None
+            while addr is None:
+                line = serve.stderr.readline()
+                if not line:
+                    fail(f"CLI serve exited before listening: {errs}")
+                errs.append(line.rstrip())
+                if "broker listening on" in line:
+                    addr = line.rsplit(" ", 1)[1].strip()
+            drain = threading.Thread(
+                target=lambda: errs.extend(ln.rstrip()
+                                           for ln in serve.stderr),
+                daemon=True)
+            drain.start()
+            gen = subprocess.run(
+                cli + ["loadgen", "--events", str(CLI_EVENTS), "--seed", "0",
+                       "--validate", "--fix-payout-opcode", "--broker",
+                       addr], cwd=ROOT, env=env, capture_output=True,
+                text=True, timeout=300)
+            if gen.returncode != 0:
+                fail(f"CLI loadgen rc={gen.returncode}: {gen.stderr}")
+            h, p = addr.rsplit(":", 1)
+            client = TcpBroker(h, int(p))
+            got = []
+            try:
+                for ln in consume_lines(client, follow=True,
+                                        poll_timeout=0.5, idle_exit=60):
+                    got.append(ln)
+                    if len(got) == len(want):
+                        break
+            finally:
+                client.close()
+            rc = serve.wait(timeout=120)
+            drain.join(timeout=30)
+        finally:
+            if serve.poll() is None:
+                serve.kill()
+                serve.wait()
+        if rc != 0:
+            fail(f"CLI serve rc={rc}: {errs[-5:]}")
+        if got != want:
+            fail(f"CLI serve: {len(got)} MatchOut lines != the CPU "
+                 f"service's {len(want)}")
+        log(f"CLI serve on the card fed by the CLI loadgen ({len(hvalues)} "
+            f"messages): MatchOut == the CPU service's ({len(want)} lines, "
+            f"sha256 {stream_digest(want)[1]}); serve said "
+            f"{[e for e in errs if 'processed' in e]}")
+        log(f"phase 10f took {time.perf_counter() - t_phase:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
 
 def main() -> int:
     try:
@@ -1377,6 +1807,7 @@ def main() -> int:
     cfg = SQ.SeqConfig(**JAVA)
     msgs, wb = parse_both(parse_order, dumps_order, WireBatch,
                           zipf_symbol_stream(**JAVA_STREAM), "java stream")
+    java_msgs = msgs
     chunks = route_chunks(SQ, SeqRouter, cfg, msgs)
     first_trade = trade_chunk(SQ, chunks)
     checks = sorted({first_trade, len(chunks) // 2, len(chunks) - 1})
@@ -1428,7 +1859,10 @@ def main() -> int:
     launches = lanes_path(L, LS, rowdma, zipf, (b1_lines, b1_sha, b1_met))
     kernels.extend(time_rowdma(rowdma, rd_err, launches, card))
 
-    # ---- 9. summary
+    # ---- 10. serving: the service over TCP, checkpoints, the CLI
+    serving_phase(SQ, rowdma, zipf, java_msgs, (b1_lines, b1_sha), card)
+
+    # ---- 11. summary
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

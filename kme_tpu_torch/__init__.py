@@ -13,6 +13,10 @@ matching engine in fixed and java mode (`runtime/seqsession.py` over
 (`runtime/session.py` over `runtime/sequencer.py`, `engine/lanes.py`,
 `ops/rowdma.py` and `csrc/rowdma.cu`); both over the native host runtime
 copied from `kme_tpu` (`native/`: router, scheduler, batch plan, wire
-parser and MatchOut reconstructor in C++). Entry points run on the card
-unless the caller passes `device="cpu"`.
+parser and MatchOut reconstructor in C++). Around them: checkpoints
+whose files restore across packages (`runtime/checkpoint.py`,
+`runtime/javasnap.py`), the host engines (`oracle/`, `native/oracle.py`)
+and the serving stack (`bridge/`: broker, TCP, `MatchService`, `serve`)
+with its CLI (`cli.py`). Entry points run on the card unless the caller
+passes `device="cpu"`.
 """

@@ -1,0 +1,841 @@
+"""In-process broker core: ordered topic logs with offset fetch.
+
+Semantics mirror what the reference actually uses of Kafka
+(the reference's topic.js:14-25, exchange_test.js:14-16, consumer.js:13-17):
+- named topics created explicitly (1 partition each — the provisioner
+  pins `numPartitions: 1`, so each topic is ONE totally-ordered log);
+- producers append (key, value) string records;
+- consumers fetch by offset (fromBeginning => offset 0) and poll
+  blocking with a timeout.
+
+Thread-safe; `fetch` blocks on a condition variable until data arrives
+or the timeout lapses — the poll-loop shape of a Kafka consumer without
+the broker round-trip.
+
+`persist_dir` makes the logs DURABLE: each topic appends to an
+append-only JSONL file and the broker reloads every topic at startup —
+the Kafka-retains-the-log property the engine's checkpoint/resume
+contract depends on (the restored MatchIn offset must still address the
+same records after a broker restart). A torn trailing line (crash mid-
+append) is dropped on reload.
+
+Exactly-once visible output (the path the reference commented out at
+KProcessor.java:29) is built from two broker-side rules applied to
+records carrying an ``(epoch, out_seq)`` produce stamp:
+
+- **fencing**: a produce stamped with an epoch below the broker's fence
+  raises BrokerFenced — a deposed leader can never make a write
+  visible. The fence advances to any higher epoch seen (produce or an
+  explicit ``fence()`` from a newly promoted leader) and is recovered
+  from the stamps in the log on reload.
+- **idempotent produce**: per topic, a stamped record whose ``out_seq``
+  is at or below the durable watermark is suppressed (no append,
+  ``dup_suppressed`` counts it) — a restarted leader deterministically
+  re-produces its post-snapshot tail with the SAME stamps, so the
+  durable log itself stays duplicate-free.
+
+Unstamped produces behave exactly as before; log lines stay
+``[key,value]`` for them and gain two elements (``[key,value,epoch,
+out_seq]``) only when stamped, so pre-existing logs load unchanged.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import sys
+import threading
+from typing import Dict, IO, List, Optional
+
+from kme_tpu_torch import faults
+
+
+class BrokerError(RuntimeError):
+    pass
+
+
+class BrokerOverload(BrokerError):
+    """The bounded ingress queue shed this produce (wire-level
+    `rej_overload`, wire.py rej table code 9). Producers should back
+    off and retry; the broker never blocks them.
+
+    When the adaptive controller sheds (rather than the binary
+    `max_lag` bound), `backoff_ms` carries the AIMD producer hint —
+    pause at least this long before re-offering — and `detail` the
+    observed backlog / threshold / degradation state for REJ
+    annotation. Both stay None on the binary path."""
+
+    code = "rej_overload"
+    backoff_ms: Optional[int] = None
+    detail: Optional[dict] = None
+
+
+class BrokerFenced(BrokerError):
+    """A produce stamped with a stale leader epoch. Not retryable: the
+    producer has been deposed and must exit so its supervisor can
+    restart it under a fresh epoch (serve exits 75)."""
+
+    code = "fenced"
+
+
+@dataclasses.dataclass(frozen=True)
+class Record:
+    offset: int
+    key: Optional[str]
+    value: str
+    epoch: Optional[int] = None
+    out_seq: Optional[int] = None
+    # broker-admission wall clock, microseconds since epoch — the
+    # INTENDED-START stamp for coordinated-omission-safe latency
+    # (stamped at produce time, before any queueing the consumer's
+    # dequeue rate would hide). In-memory only: log rows keep their
+    # [key,value(,epoch,out_seq)] shape, so records reloaded after a
+    # restart carry ats=None and latency attribution simply skips them.
+    ats: Optional[int] = None
+    # transport-advisory trace word (wire FLAG_TID / produce "tid").
+    # In-memory only, like ats: the AUTHORITATIVE trace id is always
+    # derived from durable identity (dtrace.trace_id over the record's
+    # offset), so traces survive reloads that drop this field. Carried
+    # ids exist so clients can correlate their own sends with the
+    # derived waterfalls (loadgen RTT sampling).
+    tid: Optional[int] = None
+
+
+class _Topic:
+    def __init__(self, partitions: int = 1,
+                 logfile: Optional[IO] = None) -> None:
+        self.partitions = partitions
+        self.log: List[Record] = []
+        self.logfile = logfile
+        # idempotent-produce watermark: highest out_seq made durable on
+        # this topic (-1 = no stamped record yet); recovered from the
+        # log stamps on reload.
+        self.max_out_seq = -1
+
+
+# -- adaptive overload control (SEDA-style, Welsh et al. SOSP '01) ---------
+#
+# The binary `max_lag` bound above sheds EVERYTHING past a fixed backlog —
+# including the cancels and payouts that would actually shrink the book.
+# The controller replaces that cliff with a degradation state machine and
+# priority-aware admission; the binary path stays available and unchanged.
+
+# priority classes: lower admits longer. Book-DRAINING ops are the last
+# thing an overloaded engine should refuse (each admitted cancel/payout
+# REMOVES resting state); ADMIN ops are cheap and rare; fresh ORDERS are
+# what grows the backlog, so they shed first.
+CLS_DRAIN = 0    # CANCEL, PAYOUT, REMOVE_SYMBOL
+CLS_ADMIN = 1    # CREATE_BALANCE, TRANSFER, ADD_SYMBOL
+CLS_ORDER = 2    # BUY, SELL, and anything unparseable
+
+_CLS_BY_ACTION = {4: CLS_DRAIN, 200: CLS_DRAIN, 1: CLS_DRAIN,
+                  100: CLS_ADMIN, 101: CLS_ADMIN, 0: CLS_ADMIN}
+
+
+def classify_produce(value: str):
+    """(priority class, oid, aid) of one wire value. Malformed input is
+    CLS_ORDER — never give garbage the drain-priority fast lane."""
+    try:
+        doc = json.loads(value)
+        action = int(doc.get("action"))
+        oid = int(doc.get("oid") or 0)
+        aid = int(doc.get("aid") or 0)
+    except (ValueError, TypeError, AttributeError):
+        return CLS_ORDER, 0, 0
+    return _CLS_BY_ACTION.get(action, CLS_ORDER), oid, aid
+
+
+def classify_actions(actions):
+    """Vectorized _CLS_BY_ACTION over an int action column — the binary
+    produce path's classifier (frames already carry decoded columns, so
+    admission never touches JSON there). int8 class per row."""
+    import numpy as np
+
+    acts = np.asarray(actions)
+    out = np.full(len(acts), CLS_ORDER, np.int8)
+    for a, c in _CLS_BY_ACTION.items():
+        out[acts == a] = c
+    return out
+
+
+class OverloadController:
+    """Degradation state machine with hysteresis + priority admission.
+
+    States (gauge codes): 0 normal — admit everything; 1 shedding —
+    admit DRAIN/ADMIN, ration ORDER flow (linear ramp between the low
+    and drain watermarks) under per-account fairness caps; 2 draining —
+    admit ONLY book-draining ops until the backlog falls back below the
+    high watermark.
+
+    Transitions are driven by the observed backlog (produce side) and
+    an EWMA of admission-to-produce latency (fed by the service):
+
+        normal   -> shedding   backlog >= high_lag OR latency > budget
+        shedding -> draining   backlog >= drain_lag
+        shedding -> normal     backlog <= low_lag AND latency cool
+        draining -> shedding   backlog <  high_lag
+
+    (draining exits only through shedding — the hysteresis that stops
+    the controller flapping at a watermark.)
+
+    The AIMD producer contract rides `BrokerOverload.backoff_ms`: each
+    shed grows the hint additively (bounded); each admitted record in
+    normal state halves it. Producers sleep >= the hint before
+    re-offering and grow their offered rate additively afterwards.
+
+    Deterministic by construction: no wall clock, no RNG — the same
+    (value, backlog) sequence yields the same decisions, which is what
+    lets simulate_overload() gate shed_frac in CI at zero noise.
+    """
+
+    NORMAL, SHEDDING, DRAINING = 0, 1, 2
+    STATE_NAMES = ("normal", "shedding", "draining")
+
+    def __init__(self, high_lag: int, low_lag: Optional[int] = None,
+                 drain_lag: Optional[int] = None,
+                 p99_budget_ms: Optional[float] = None,
+                 account_cap: float = 0.5, fair_window: int = 128,
+                 backoff_step_ms: int = 5,
+                 backoff_max_ms: int = 2000) -> None:
+        if high_lag < 2:
+            raise ValueError("overload high_lag must be >= 2")
+        self.high_lag = int(high_lag)
+        self.low_lag = (max(1, self.high_lag // 2) if low_lag is None
+                        else int(low_lag))
+        self.drain_lag = (self.high_lag * 2 if drain_lag is None
+                          else int(drain_lag))
+        if not (self.low_lag < self.high_lag <= self.drain_lag):
+            raise ValueError("need low_lag < high_lag <= drain_lag")
+        self.p99_budget_ms = p99_budget_ms
+        self.account_cap = float(account_cap)
+        self.fair_window = int(fair_window)
+        self.backoff_step_ms = int(backoff_step_ms)
+        self.backoff_max_ms = int(backoff_max_ms)
+        self.state = self.NORMAL
+        self.backoff_ms = 0
+        self.lat_ewma_ms = 0.0
+        self.transitions = 0
+        self.admitted_by_class = {c: 0 for c in range(3)}
+        self.shed_by_class = {c: 0 for c in range(3)}
+        self.fairness_sheds = 0
+        # ration tokens: in shedding, each arriving ORDER earns
+        # (drain_lag - backlog) tokens out of (drain_lag - low_lag);
+        # one admit costs a full span. Pure integer arithmetic.
+        self._tokens = 0
+        # sliding window of recently admitted ORDER aids for the
+        # fairness cap (one flooder can't take the whole ration)
+        self._fair_ring: List[int] = []
+        self._fair_pos = 0
+        self._fair_counts: Dict[int, int] = {}
+        # flight-recorder seam: called as cb(prev_code, new_code) on
+        # every state transition. The controller stays a pure state
+        # machine — the callback observes decisions, never makes them,
+        # and a raising callback cannot wedge admission
+        self.on_transition = None
+
+    # -- feeds ---------------------------------------------------------
+
+    def observe_latency(self, seconds: float) -> None:
+        """Admission-to-produce latency feed (service e2e stage)."""
+        ms = seconds * 1000.0
+        self.lat_ewma_ms += 0.2 * (ms - self.lat_ewma_ms)
+
+    def _lat_hot(self) -> bool:
+        return (self.p99_budget_ms is not None
+                and self.lat_ewma_ms > self.p99_budget_ms)
+
+    # -- state machine -------------------------------------------------
+
+    def _to(self, state: int) -> None:
+        if state != self.state:
+            prev, self.state = self.state, state
+            self.transitions += 1
+            cb = self.on_transition
+            if cb is not None:
+                try:
+                    cb(prev, state)
+                except Exception:
+                    pass
+
+    def _update_state(self, backlog: int) -> None:
+        if self.state == self.NORMAL:
+            if backlog >= self.drain_lag:
+                self._to(self.DRAINING)
+            elif backlog >= self.high_lag or self._lat_hot():
+                self._to(self.SHEDDING)
+        elif self.state == self.SHEDDING:
+            if backlog >= self.drain_lag:
+                self._to(self.DRAINING)
+            elif backlog <= self.low_lag and not self._lat_hot():
+                self._to(self.NORMAL)
+        else:
+            if backlog < self.high_lag:
+                self._to(self.SHEDDING)
+
+    # -- admission -----------------------------------------------------
+
+    def _fair_blocked(self, aid: int) -> bool:
+        n = len(self._fair_ring)
+        if n < 8:        # no meaningful share signal yet
+            return False
+        return self._fair_counts.get(aid, 0) > self.account_cap * n
+
+    def _fair_admit(self, aid: int) -> None:
+        if self.fair_window <= 0:
+            return
+        if len(self._fair_ring) < self.fair_window:
+            self._fair_ring.append(aid)
+        else:
+            old = self._fair_ring[self._fair_pos]
+            c = self._fair_counts.get(old, 0) - 1
+            if c <= 0:
+                self._fair_counts.pop(old, None)
+            else:
+                self._fair_counts[old] = c
+            self._fair_ring[self._fair_pos] = aid
+            self._fair_pos = (self._fair_pos + 1) % self.fair_window
+        self._fair_counts[aid] = self._fair_counts.get(aid, 0) + 1
+
+    def _shed(self, cls: int, oid: int, aid: int, backlog: int,
+              threshold: int, fairness: bool = False):
+        self.shed_by_class[cls] += 1
+        if fairness:
+            self.fairness_sheds += 1
+        self.backoff_ms = min(self.backoff_max_ms,
+                              self.backoff_ms + self.backoff_step_ms)
+        return False, {"backlog": backlog, "threshold": threshold,
+                       "state": self.STATE_NAMES[self.state],
+                       "cls": cls, "oid": oid, "aid": aid,
+                       "backoff_ms": self.backoff_ms,
+                       "fairness": fairness}
+
+    def admit(self, value: str, backlog: int):
+        """One admission decision: (True, None) or (False, detail)."""
+        cls, oid, aid = classify_produce(value)
+        return self.admit_classified(cls, oid, aid, backlog)
+
+    def admit_classified(self, cls: int, oid: int, aid: int,
+                         backlog: int):
+        """admit() with the (class, oid, aid) triple already known —
+        the binary produce path classifies whole batches from the
+        decoded action column (classify_actions) and never pays a
+        json.loads per record. Same decisions, same counters."""
+        self._update_state(backlog)
+        if self.state == self.NORMAL:
+            self.admitted_by_class[cls] += 1
+            self.backoff_ms //= 2
+            return True, None
+        if self.state == self.DRAINING:
+            if cls == CLS_DRAIN:
+                self.admitted_by_class[cls] += 1
+                return True, None
+            return self._shed(cls, oid, aid, backlog, self.drain_lag)
+        # SHEDDING
+        if cls != CLS_ORDER:
+            self.admitted_by_class[cls] += 1
+            return True, None
+        if self._fair_blocked(aid):
+            return self._shed(cls, oid, aid, backlog, self.high_lag,
+                              fairness=True)
+        span = self.drain_lag - self.low_lag
+        room = max(0, self.drain_lag - backlog)
+        self._tokens += min(room, span)
+        if self._tokens >= span:
+            self._tokens -= span
+            self.admitted_by_class[cls] += 1
+            self._fair_admit(aid)
+            return True, None
+        return self._shed(cls, oid, aid, backlog, self.high_lag)
+
+    def snapshot(self) -> dict:
+        return {"state": self.STATE_NAMES[self.state],
+                "state_code": self.state,
+                "backoff_ms": self.backoff_ms,
+                "lat_ewma_ms": round(self.lat_ewma_ms, 3),
+                "transitions": self.transitions,
+                "admitted_by_class": dict(self.admitted_by_class),
+                "shed_by_class": dict(self.shed_by_class),
+                "fairness_sheds": self.fairness_sheds}
+
+
+def simulate_overload(values: List[str], windows, controller:
+                      OverloadController, drain_per_msg: float = 2.0
+                      ) -> dict:
+    """Deterministic arrival/drain replay of the admission logic — the
+    CI-gated half of the storm suite (live chaos runs prove parity and
+    SLOs; this proves the shed POLICY never drifts unnoticed).
+
+    Each message is one arrival tick. At base pacing the consumer
+    drains `drain_per_msg` records per tick; inside a burst window
+    (lo, hi, mult) arrivals outpace the drain mult-fold, so the drain
+    credit is scaled by 1/mult. No wall clock, no RNG: the same
+    (values, windows, controller params) triple yields bit-identical
+    results on any machine.
+    """
+    backlog = 0
+    credit = 0.0
+    admitted_idx: List[int] = []
+    max_backlog = 0
+    for i, v in enumerate(values):
+        mult = 1
+        for lo, hi, m in windows:
+            if lo <= i < hi:
+                mult = m
+                break
+        credit += drain_per_msg / mult
+        drains = int(credit)
+        if drains:
+            credit -= drains
+            backlog = max(0, backlog - drains)
+        ok, _ = controller.admit(v, backlog)
+        if ok:
+            admitted_idx.append(i)
+            backlog += 1
+            if backlog > max_backlog:
+                max_backlog = backlog
+    total = len(values)
+    shed = total - len(admitted_idx)
+    return {"total": total, "admitted": len(admitted_idx),
+            "shed": shed,
+            "shed_frac": (shed / total) if total else 0.0,
+            "max_backlog": max_backlog,
+            "admitted_idx": admitted_idx,
+            "controller": controller.snapshot()}
+
+
+def _flush_log_lines(logfile, lines: List[str]) -> None:
+    """The batched durable-write exit point for produce_frames: ONE
+    write + flush for a whole admitted prefix. Deliberately outside
+    the produce_frames lint hot-scope — this is the sanctioned place
+    for the blocking I/O, so anything blocking reappearing inside the
+    per-record loop fails KME-H001."""
+    logfile.write("".join(lines))
+    logfile.flush()
+
+
+class InProcessBroker:
+    """The broker API the rest of the bridge codes against. The TCP
+    client (tcp.TcpBroker) implements the same three methods."""
+
+    def __init__(self, persist_dir: Optional[str] = None,
+                 max_lag: Optional[int] = None,
+                 overload: Optional[OverloadController] = None,
+                 clock=None) -> None:
+        from kme_tpu_torch.bridge.clock import WALL
+
+        # the clock seam (bridge/clock.py): admission stamps (``ats``)
+        # come off this object so a simulated broker stamps virtual
+        # microseconds deterministically
+        self._clock = clock or WALL
+        self._topics: Dict[str, _Topic] = {}
+        self._lock = threading.Lock()
+        self._data = threading.Condition(self._lock)
+        self._persist_dir = persist_dir
+        # bounded ingress: once a consumer has committed a watermark for
+        # a topic (MatchService commits MatchIn each batch), producing
+        # more than `max_lag` records past it is refused with
+        # BrokerOverload instead of growing the backlog without bound —
+        # shed load, never stall. Topics without a watermark (MatchOut)
+        # are unbounded.
+        self._max_lag = max_lag
+        self._commits: Dict[str, int] = {}
+        self.overload_rejects = 0
+        # ingress encoding mix + decode cost. JSON produces count only
+        # on admission-bounded topics (a committed watermark marks a
+        # topic as ingress — MatchOut publishes are never counted);
+        # produce_frames is definitionally ingress and always counts.
+        # Feeds the wire_binary_frac / parse_ns_per_msg gauges
+        # (service).
+        self.wire_binary_records = 0
+        self.wire_json_records = 0
+        self.wire_parse_ns = 0
+        # adaptive overload control: an OverloadController makes the
+        # shed decision priority-aware (same arming rule as max_lag —
+        # only topics with a committed watermark are bounded). The
+        # binary max_lag check above it is untouched and wins first.
+        self.overload = overload
+        # fn(topic, detail) called AFTER a controller shed, outside the
+        # broker lock (MatchService wires this to --annotate-rejects so
+        # shed storms are debuggable from the journal). Must not call
+        # back into the broker.
+        self.shed_observer = None
+        # exactly-once state (recovered from log stamps on reload)
+        self._fence_epoch = 0
+        self.fenced_produces = 0
+        self.dup_suppressed = 0
+        # latency attribution hook: fn(topic, records, now_us) called
+        # after each non-empty fetch DELIVERS records to a consumer —
+        # the serving process hosts the broker, so consumer receipt of
+        # MatchOut is observable here (MatchService wires this to the
+        # lat_consume histogram). Called outside the broker lock.
+        self.deliver_observer = None
+        if persist_dir is not None:
+            os.makedirs(persist_dir, exist_ok=True)
+            for name in sorted(os.listdir(persist_dir)):
+                if name.endswith(".log"):
+                    self._load_topic(name[:-4])
+
+    # -- durability -----------------------------------------------------
+
+    def _log_path(self, name: str) -> str:
+        return os.path.join(self._persist_dir, f"{name}.log")
+
+    def _load_topic(self, name: str) -> None:
+        """Reload a topic log. Committed records are NEVER rewritten: a
+        torn FINAL line (crash mid-append) is repaired crash-safely by
+        truncating the file at the torn line's byte offset; an
+        undecodable INTERIOR line is corruption of committed data and
+        refuses to load (silently dropping everything after it would
+        permanently lose records the checkpoint offset still addresses)."""
+        path = self._log_path(name)
+        topic = _Topic()
+        with open(path, "rb") as f:
+            data = f.read()
+        pos = 0
+        torn_at = None
+        while pos < len(data):
+            nl = data.find(b"\n", pos)
+            if nl < 0:
+                torn_at = pos  # unterminated trailing append
+                break
+            try:
+                row = json.loads(data[pos:nl].decode("utf-8"))
+                if len(row) not in (2, 4):
+                    raise ValueError(f"bad row arity {len(row)}")
+                key, value = row[0], row[1]
+                epoch = row[2] if len(row) == 4 else None
+                out_seq = row[3] if len(row) == 4 else None
+            except (ValueError, TypeError, UnicodeDecodeError):
+                # produce() appends each record as ONE newline-terminated
+                # write, and partial writes are prefixes — so any line
+                # that HAS its newline was committed whole; failing to
+                # decode it means committed data corruption, not a crash
+                # artifact, wherever it sits in the file.
+                raise BrokerError(
+                    f"corrupt record in {path} at byte {pos}: refusing "
+                    f"to load (only an unterminated final line is "
+                    f"repairable; committed records are immutable)")
+            topic.log.append(Record(len(topic.log), key, value,
+                                    epoch, out_seq))
+            if out_seq is not None:
+                topic.max_out_seq = max(topic.max_out_seq, int(out_seq))
+            if epoch is not None:
+                self._fence_epoch = max(self._fence_epoch, int(epoch))
+            pos = nl + 1
+        if torn_at is not None:
+            print(f"broker: dropping torn tail of {path} at byte {torn_at} "
+                  f"({len(data) - torn_at} bytes)", file=sys.stderr)
+            with open(path, "r+b") as f:
+                f.truncate(torn_at)
+        topic.logfile = open(path, "a", encoding="utf-8")
+        self._topics[name] = topic
+
+    # -- admin ----------------------------------------------------------
+
+    def create_topic(self, name: str, partitions: int = 1) -> bool:
+        """Create a topic; False if it already exists (kafkajs
+        createTopics semantics: returns false when nothing was created)."""
+        if partitions != 1:
+            raise BrokerError("only 1 partition per topic is supported "
+                              "(the reference provisions exactly 1)")
+        if "/" in name or name.startswith("."):
+            raise BrokerError(f"invalid topic name {name!r}")
+        with self._lock:
+            if name in self._topics:
+                return False
+            logfile = None
+            if self._persist_dir is not None:
+                logfile = open(self._log_path(name), "a", encoding="utf-8")
+            self._topics[name] = _Topic(partitions, logfile)
+            return True
+
+    def topics(self) -> Dict[str, int]:
+        with self._lock:
+            return {n: t.partitions for n, t in self._topics.items()}
+
+    # -- data path ------------------------------------------------------
+
+    def produce(self, topic: str, key: Optional[str], value: str,
+                epoch: Optional[int] = None,
+                out_seq: Optional[int] = None,
+                ats: Optional[int] = None,
+                tid: Optional[int] = None) -> int:
+        """Append one record; returns its offset. With an
+        ``(epoch, out_seq)`` stamp the append is fenced and idempotent:
+        a stale epoch raises BrokerFenced, and an ``out_seq`` at or
+        below the topic's durable watermark is suppressed (returns -1,
+        nothing appended) — replayed tails after a crash vanish here
+        instead of surfacing to consumers.
+
+        ``ats`` overrides the admission stamp (microseconds): remote
+        producers stamp at their FIRST send attempt and re-send the
+        same stamp across reconnects, so latency histograms include the
+        reconnect delay instead of hiding it (coordinated omission).
+
+        ``tid`` attaches a transport-advisory trace word to the
+        in-memory record (Record.tid); durable rows are unchanged."""
+        if faults.should("broker.produce"):
+            raise BrokerError("injected fault: broker.produce")
+        with self._data:
+            t = self._topics.get(topic)
+            if t is None:
+                raise BrokerError(f"unknown topic {topic!r}")
+            if epoch is not None:
+                if epoch < self._fence_epoch:
+                    self.fenced_produces += 1
+                    raise BrokerFenced(
+                        f"fenced: produce to {topic!r} from stale epoch "
+                        f"{epoch} < fence {self._fence_epoch}")
+                self._fence_epoch = epoch
+            if out_seq is not None and out_seq <= t.max_out_seq:
+                self.dup_suppressed += 1
+                return -1
+            if (self._max_lag is not None and topic in self._commits
+                    and len(t.log) - self._commits[topic]
+                    >= self._max_lag):
+                self.overload_rejects += 1
+                raise BrokerOverload(
+                    f"rej_overload: topic {topic!r} backlog "
+                    f"{len(t.log) - self._commits[topic]} >= max_lag "
+                    f"{self._max_lag}")
+            shed_detail = None
+            if self.overload is not None and topic in self._commits:
+                ok, shed_detail = self.overload.admit(
+                    value, len(t.log) - self._commits[topic])
+                if not ok:
+                    self.overload_rejects += 1
+            if shed_detail is None:
+                off = len(t.log)
+                if ats is None:
+                    ats = self._clock.time_us()
+                t.log.append(Record(off, key, value, epoch, out_seq,
+                                    ats, tid))
+                if out_seq is not None:
+                    t.max_out_seq = out_seq
+                if topic in self._commits:
+                    self.wire_json_records += 1
+                if t.logfile is not None:
+                    row = ([key, value]
+                           if epoch is None and out_seq is None
+                           else [key, value, epoch, out_seq])
+                    t.logfile.write(json.dumps(row,
+                                               separators=(",", ":"))
+                                    + "\n")
+                    t.logfile.flush()
+                self._data.notify_all()
+                return off
+        # controller shed: annotate + raise OUTSIDE the broker lock (the
+        # observer may touch journals/telemetry; it must never deadlock a
+        # concurrent fetch)
+        obs = self.shed_observer
+        if obs is not None:
+            try:
+                obs(topic, shed_detail)
+            except Exception:
+                pass        # observability must never mask the shed
+        exc = BrokerOverload(
+            f"rej_overload: topic {topic!r} backlog "
+            f"{shed_detail['backlog']} state {shed_detail['state']} "
+            f"(adaptive shed, backoff {shed_detail['backoff_ms']} ms)")
+        exc.backoff_ms = shed_detail["backoff_ms"]
+        exc.detail = shed_detail
+        raise exc
+
+    def produce_frames(self, topic: str, key: Optional[str], buf: bytes,
+                       epoch: Optional[int] = None,
+                       seq0: Optional[int] = None,
+                       ats: Optional[int] = None):
+        """Binary batch append: one contiguous buffer of 72-byte wire
+        frames (wire.py layout; 80 bytes when FLAG_TID carries a trace
+        word) -> records, without materializing a Python dict per
+        record. Trace words land on Record.tid only — the stored value
+        bytes and durable rows are identical with tracing on or off. The frames decode ONCE (native
+        kme_parse_frames + the pinned kme_parse_emit emitter when
+        available) into the canonical order_json values the broker
+        always stores — the durable log, oracle replay, and MatchOut
+        bytes cannot tell which encoding carried a record. Admission
+        control classifies straight off the decoded action column
+        (classify_actions + admit_classified): no JSON anywhere on the
+        path.
+
+        Fencing/idempotence mirror produce(): with `epoch`/`seq0`,
+        record i carries out_seq seq0+i and duplicates are suppressed
+        individually. `ats` stamps the WHOLE batch (default: now).
+
+        Returns (n_appended, last_offset). On a mid-batch refusal
+        (max_lag or controller shed) the admitted prefix STAYS
+        appended — identical to a producer looping produce() — and the
+        raised BrokerOverload carries `.admitted` (records kept) plus
+        the usual backoff hint, so binary producers resume from
+        buf[admitted*72:] after backing off. Malformed frames raise
+        wire.WireFrameError (rej_malformed class) with NOTHING
+        appended — validation happens before admission."""
+        if faults.should("broker.produce"):
+            raise BrokerError("injected fault: broker.produce")
+        import time as _time
+
+        from kme_tpu_torch import wire as _wire
+
+        t0 = _time.perf_counter_ns()
+        wb, values = _wire.frames_to_values(buf)
+        cls_col = classify_actions(wb.action)
+        oid_col, aid_col = wb.oid, wb.aid
+        parse_ns = _time.perf_counter_ns() - t0
+        if ats is None:
+            ats = self._clock.time_us()
+        appended, last_off = 0, -1
+        shed_detail = overload_msg = None
+        with self._data:
+            self.wire_parse_ns += parse_ns
+            t = self._topics.get(topic)
+            if t is None:
+                raise BrokerError(f"unknown topic {topic!r}")
+            if epoch is not None:
+                if epoch < self._fence_epoch:
+                    self.fenced_produces += 1
+                    raise BrokerFenced(
+                        f"fenced: produce to {topic!r} from stale epoch "
+                        f"{epoch} < fence {self._fence_epoch}")
+                self._fence_epoch = epoch
+            bounded = topic in self._commits
+            lines: List[str] = []
+            for i in range(wb.n):
+                out_seq = None if seq0 is None else seq0 + i
+                if out_seq is not None and out_seq <= t.max_out_seq:
+                    self.dup_suppressed += 1
+                    continue
+                backlog = (len(t.log) - self._commits[topic]
+                           if bounded else 0)
+                if (self._max_lag is not None and bounded
+                        and backlog >= self._max_lag):
+                    self.overload_rejects += 1
+                    overload_msg = (
+                        f"rej_overload: topic {topic!r} backlog "
+                        f"{backlog} >= max_lag {self._max_lag}")
+                    break
+                if self.overload is not None and bounded:
+                    ok, shed_detail = self.overload.admit_classified(
+                        int(cls_col[i]), int(oid_col[i]),
+                        int(aid_col[i]), backlog)
+                    if not ok:
+                        self.overload_rejects += 1
+                        break
+                off = len(t.log)
+                t.log.append(Record(off, key, values[i], epoch, out_seq,
+                                    ats, wb.record_tid(i)))
+                if out_seq is not None:
+                    t.max_out_seq = out_seq
+                if t.logfile is not None:
+                    row = ([key, values[i]]
+                           if epoch is None and out_seq is None
+                           else [key, values[i], epoch, out_seq])
+                    lines.append(json.dumps(row, separators=(",", ":"))
+                                 + "\n")
+                appended += 1
+                last_off = off
+            if lines:
+                # ONE write + flush for the whole admitted prefix (the
+                # per-record flush in produce() is the other half of
+                # the JSON ingress tax). A torn tail still repairs:
+                # partial writes are prefixes, so only the final line
+                # can be incomplete — exactly what _load_topic fixes.
+                _flush_log_lines(t.logfile, lines)
+            if appended:
+                self.wire_binary_records += appended
+                self._data.notify_all()
+        if overload_msg is None and shed_detail is None:
+            return appended, last_off
+        if shed_detail is not None:
+            obs = self.shed_observer
+            if obs is not None:
+                try:
+                    obs(topic, shed_detail)
+                except Exception:
+                    pass    # observability must never mask the shed
+            exc = BrokerOverload(
+                f"rej_overload: topic {topic!r} backlog "
+                f"{shed_detail['backlog']} state {shed_detail['state']} "
+                f"(adaptive shed, backoff {shed_detail['backoff_ms']} "
+                f"ms)")
+            exc.backoff_ms = shed_detail["backoff_ms"]
+            exc.detail = shed_detail
+        else:
+            exc = BrokerOverload(overload_msg)
+        exc.admitted = appended
+        raise exc
+
+    def fence(self, epoch: int) -> None:
+        """Advance the fence so every produce stamped below `epoch` is
+        rejected. A newly promoted leader calls this at startup: the
+        reloaded log only teaches the broker its PREDECESSORS' epochs,
+        so without an explicit fence a zombie old leader holding the
+        previous epoch would still get through."""
+        with self._lock:
+            self._fence_epoch = max(self._fence_epoch, int(epoch))
+
+    @property
+    def fence_epoch(self) -> int:
+        with self._lock:
+            return self._fence_epoch
+
+    def fetch(self, topic: str, offset: int, max_records: int = 1024,
+              timeout: float = 0.0) -> List[Record]:
+        """Records from `offset` (at most max_records). Blocks up to
+        `timeout` seconds while the log end is <= offset."""
+        if faults.should("broker.fetch"):
+            raise BrokerError("injected fault: broker.fetch")
+        with self._data:
+            t = self._topics.get(topic)
+            if t is None:
+                raise BrokerError(f"unknown topic {topic!r}")
+            if timeout > 0 and len(t.log) <= offset:
+                self._data.wait_for(lambda: len(t.log) > offset,
+                                    timeout=timeout)
+            recs = t.log[offset:offset + max_records]
+        obs = self.deliver_observer
+        if obs is not None and recs:
+            try:
+                obs(topic, recs, self._clock.time_us())
+            except Exception:
+                pass        # observability must never fail a fetch
+        return recs
+
+    def commit(self, topic: str, offset: int) -> None:
+        """Advance a consumer watermark (arms the `max_lag` ingress
+        bound for `topic`). Monotonic; unknown topics raise."""
+        with self._lock:
+            if topic not in self._topics:
+                raise BrokerError(f"unknown topic {topic!r}")
+            cur = self._commits.get(topic, 0)
+            self._commits[topic] = max(cur, int(offset))
+
+    def end_offset(self, topic: str) -> int:
+        with self._lock:
+            t = self._topics.get(topic)
+            if t is None:
+                raise BrokerError(f"unknown topic {topic!r}")
+            return len(t.log)
+
+    def sync(self) -> None:
+        """fsync every topic log to stable storage. `produce` only
+        flush()es (process-crash durability); callers that are about to
+        commit an offset DERIVED from these records (MatchService
+        checkpoints) call sync() first so an fsync'd snapshot offset can
+        never address records the OS lost in a power failure. The
+        persist directory is fsync'd too: a freshly created topic log is
+        a new directory entry, and POSIX only makes those durable after
+        a directory fsync."""
+        with self._lock:
+            any_file = False
+            for t in self._topics.values():
+                if t.logfile is not None:
+                    t.logfile.flush()
+                    os.fsync(t.logfile.fileno())
+                    any_file = True
+            if any_file:
+                dfd = os.open(self._persist_dir, os.O_RDONLY)
+                try:
+                    os.fsync(dfd)
+                finally:
+                    os.close(dfd)

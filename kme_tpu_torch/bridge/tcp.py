@@ -1,0 +1,552 @@
+"""TCP process boundary for the broker: JSON-lines request/response.
+
+The reference's clients cross a process boundary to the broker over the
+Kafka wire protocol (kafkajs in Node, kafka-clients on the JVM). The
+equivalent here is a deliberately small framed protocol — one JSON
+object per line — carrying the three broker operations:
+
+  {"op":"create_topic","topic":T,"partitions":1}  -> {"ok":true,"created":b}
+  {"op":"topics"}                                 -> {"ok":true,"topics":{...}}
+  {"op":"produce","topic":T,"key":K,"value":V}    -> {"ok":true,"offset":N}
+  {"op":"fetch","topic":T,"offset":N,"max":M,
+   "timeout_ms":W}                                -> {"ok":true,
+                                                     "records":[[o,k,v],...]}
+  {"op":"end_offset","topic":T}                   -> {"ok":true,"offset":N}
+  {"op":"commit","topic":T,"offset":N}            -> {"ok":true}
+  {"op":"sync"}                                   -> {"ok":true}
+  {"op":"fence","epoch":E}                        -> {"ok":true}
+
+Exactly-once produces additionally carry "epoch" and "out_seq" keys
+(optional — absent means the unstamped at-least-once path); fetch rows
+for stamped records come back as [o,k,v,epoch,out_seq], and rows whose
+record carries a broker-admission timestamp append a sixth element:
+[o,k,v,epoch,out_seq,ats] (microseconds, wall clock). Clients parse by
+length, so old/new peers interoperate. Produce requests may carry an
+"ats" admission stamp: the client stamps at its FIRST send attempt and
+re-sends the same stamp when it retries the same record across a
+reconnect, so ingress latency histograms include the reconnect delay
+(coordinated-omission-safe) instead of restarting the clock.
+
+Distributed tracing rides the same parse-by-length scheme: a produce
+request may carry a "tid" trace word (transport-advisory — see
+telemetry/dtrace.py; the durable log never stores it), and fetch rows
+for records carrying one gain a seventh element
+[o,k,v,epoch,out_seq,ats,tid] (ats padded with null when absent so the
+position is stable).
+
+**Binary framing (additive, auto-negotiated per message).** The server
+peeks one byte per request: '{' (0x7B) opens the JSON line above;
+0xB1 (wire.WIRE_MAGIC) opens a binary PRODUCE envelope — the 8-byte
+frame header (magic, version, kind=FRAME_PRODUCE, flags, u32 body
+length) followed by u16 topic-length + topic, u8 key-length (255 =
+null) + key, three i64s (epoch, seq0, ats; INT64_MIN = absent), then
+the 72-byte order frames themselves. The reply is the usual JSON line
+({"ok":true,"n":N,"last_offset":O}); overload replies add "admitted"
+(records kept before the shed) so binary producers resume from
+buf[admitted*72:]. `fetch_bin` is the symmetric read path: a JSON
+request, answered by a JSON header line ({"ok":true,"n":N,
+"nbytes":B}) followed by B bytes of fixed-width rows — per record
+i64 offset/epoch/out_seq/ats/tid (INT64_MIN = absent), u8 key-length
+(255 = null) + key, u32 value-length + value. Both paths carry the
+(epoch, out_seq) stamps and ats without a per-record dict on either
+side; JSON stays fully supported on the same socket (COMPAT.md).
+
+Errors come back as {"ok":false,"error":"..."}; the client raises
+BrokerError (BrokerOverload when the reply carries
+"code":"rej_overload" — the bounded-ingress shed; BrokerFenced for
+"code":"fenced" — a stale-epoch produce, which callers must treat as
+fatal, not retryable; malformed binary frames carry
+"code":"rej_malformed" and raise ValueError). `serve_broker` hosts an
+InProcessBroker for any number of concurrent client connections
+(thread per connection — the broker core is already thread-safe).
+"""
+
+from __future__ import annotations
+
+import json
+import socket
+import socketserver
+import struct
+import threading
+from typing import List, Optional, Tuple
+
+from kme_tpu_torch import faults
+from kme_tpu_torch.bridge.broker import (BrokerError, BrokerFenced,
+                                   BrokerOverload, InProcessBroker,
+                                   Record)
+from kme_tpu_torch.wire import (FRAME_PRODUCE, WIRE_MAGIC, WIRE_VERSION,
+                          WireFrameError, rej_name)
+
+# binary envelope scaffolding (layout documented in the module
+# docstring; the 8-byte header is wire.py's frame header)
+_ENV_HDR = struct.Struct("<BBBBI")
+_ENV_META = struct.Struct("<qqq")       # epoch, seq0, ats
+_REC_HDR = struct.Struct("<qqqqq")      # offset, epoch, out_seq, ats, tid
+_I64_NONE = -(1 << 63)                  # "absent" for optional i64s
+_MAGIC_BYTE = bytes([WIRE_MAGIC])
+
+
+def _opt(v: Optional[int]) -> int:
+    return _I64_NONE if v is None else int(v)
+
+
+def _unopt(v: int) -> Optional[int]:
+    return None if v == _I64_NONE else v
+
+
+def _row(r: Record) -> list:
+    """Wire row for a fetched record — the shortest shape that loses
+    nothing: [o,k,v], +[epoch,out_seq] when stamped, +[ats] when the
+    broker recorded an admission time, +[tid] when the record carries a
+    trace word (ats stays in position 5, null when absent)."""
+    ats = getattr(r, "ats", None)
+    tid = getattr(r, "tid", None)
+    if tid is not None:
+        return [r.offset, r.key, r.value, r.epoch, r.out_seq, ats, tid]
+    if ats is not None:
+        return [r.offset, r.key, r.value, r.epoch, r.out_seq, ats]
+    if r.epoch is None and r.out_seq is None:
+        return [r.offset, r.key, r.value]
+    return [r.offset, r.key, r.value, r.epoch, r.out_seq]
+
+
+class _Handler(socketserver.StreamRequestHandler):
+    def _read_exact(self, n: int) -> bytes:
+        data = self.rfile.read(n)
+        if len(data) != n:        # client died mid-frame
+            raise ConnectionResetError("short read inside binary frame")
+        return data
+
+    def _produce_frames_req(self, broker: InProcessBroker) -> dict:
+        """Binary PRODUCE envelope: the magic byte was already consumed
+        by the dispatch peek; read the rest of the 8-byte header, then
+        the declared body, and hand the raw frames to the broker without
+        building per-record dicts."""
+        hdr = _MAGIC_BYTE + self._read_exact(_ENV_HDR.size - 1)
+        _magic, version, kind, _flags, length = _ENV_HDR.unpack(hdr)
+        body = self._read_exact(length) if length else b""
+        # envelope validation mirrors wire.py's frame-validation order
+        if version != WIRE_VERSION:
+            raise WireFrameError("version_skew",
+                                 f"envelope version {version}, "
+                                 f"expected {WIRE_VERSION}")
+        if kind != FRAME_PRODUCE:
+            raise WireFrameError("bad_kind", f"envelope kind {kind}")
+        off = 2
+        if len(body) < off:
+            raise WireFrameError("truncated", "envelope shorter than "
+                                 "its topic-length field")
+        (tlen,) = struct.unpack_from("<H", body, 0)
+        if len(body) < off + tlen + 1:
+            raise WireFrameError("truncated", "envelope topic/key header")
+        topic = body[off:off + tlen].decode("utf-8", "replace")
+        off += tlen
+        klen = body[off]
+        off += 1
+        key: Optional[str] = None
+        if klen != 255:
+            if len(body) < off + klen:
+                raise WireFrameError("truncated", "envelope key")
+            key = body[off:off + klen].decode("utf-8", "replace")
+            off += klen
+        if len(body) < off + _ENV_META.size:
+            raise WireFrameError("truncated", "envelope epoch/seq/ats")
+        epoch, seq0, ats = _ENV_META.unpack_from(body, off)
+        off += _ENV_META.size
+        n, last = broker.produce_frames(
+            topic, key, body[off:], epoch=_unopt(epoch),
+            seq0=_unopt(seq0), ats=_unopt(ats))
+        return {"ok": True, "n": n, "last_offset": last}
+
+    def handle(self) -> None:
+        broker: InProcessBroker = self.server.broker  # type: ignore
+        while True:
+            try:
+                first = self.rfile.read(1)
+            except (ConnectionResetError, OSError):
+                return
+            if not first:
+                return
+            tail = b""      # binary payload appended after the JSON line
+            try:
+                if first == _MAGIC_BYTE:
+                    resp = self._produce_frames_req(broker)
+                else:
+                    raw = first + self.rfile.readline()
+                    resp, tail = self._dispatch(broker, raw)
+            except ConnectionResetError:
+                return
+            except WireFrameError as e:
+                # malformed binary input is a clean protocol error, not
+                # a dropped connection — the stream stays in lockstep
+                # because the envelope header told us how much to read
+                resp = {"ok": False, "error": str(e),
+                        "code": rej_name(e.code)}
+            except (BrokerOverload, BrokerFenced) as e:
+                resp = {"ok": False, "error": str(e), "code": e.code}
+                # AIMD producer backoff hint from the adaptive overload
+                # controller rides the rej_overload wire row
+                if getattr(e, "backoff_ms", None) is not None:
+                    resp["backoff_ms"] = e.backoff_ms
+                # binary producers resume from buf[admitted*FRAME_SIZE:]
+                if getattr(e, "admitted", None) is not None:
+                    resp["admitted"] = e.admitted
+            except BrokerError as e:
+                resp = {"ok": False, "error": str(e)}
+            except (KeyError, ValueError, TypeError) as e:
+                resp = {"ok": False, "error": f"bad request: {e}"}
+            if faults.should("tcp.disconnect"):
+                return      # drop the connection without replying
+            blob = (json.dumps(resp, separators=(",", ":")) + "\n").encode()
+            blob += tail
+            if faults.should("tcp.partial"):
+                try:
+                    self.wfile.write(blob[:max(1, len(blob) // 2)])
+                    self.wfile.flush()
+                except (BrokenPipeError, ConnectionResetError):
+                    pass
+                return      # partial frame, then drop the connection
+            try:
+                self.wfile.write(blob)
+            except (BrokenPipeError, ConnectionResetError):
+                return
+
+    def _dispatch(self, broker: InProcessBroker,
+                  raw: bytes) -> Tuple[dict, bytes]:
+        """One JSON request -> (reply dict, binary tail). Broker/protocol
+        exceptions propagate to handle()'s shared error mapping."""
+        tail = b""
+        req = json.loads(raw)
+        op = req.get("op")
+        if op == "create_topic":
+            created = broker.create_topic(
+                req["topic"], int(req.get("partitions", 1)))
+            resp = {"ok": True, "created": created}
+        elif op == "topics":
+            resp = {"ok": True, "topics": broker.topics()}
+        elif op == "produce":
+            off = broker.produce(req["topic"], req.get("key"),
+                                 req["value"],
+                                 epoch=req.get("epoch"),
+                                 out_seq=req.get("out_seq"),
+                                 ats=req.get("ats"),
+                                 tid=req.get("tid"))
+            resp = {"ok": True, "offset": off}
+        elif op == "produce_batch":
+            # one round trip for a whole record batch — the bulk
+            # seeding path (kme-loadgen)
+            off = -1
+            for rec in req["records"]:
+                off = broker.produce(
+                    req["topic"], rec[0], rec[1],
+                    epoch=rec[2] if len(rec) > 2 else None,
+                    out_seq=rec[3] if len(rec) > 3 else None)
+            resp = {"ok": True, "last_offset": off}
+        elif op == "fetch":
+            recs = broker.fetch(
+                req["topic"], int(req["offset"]),
+                int(req.get("max", 1024)),
+                float(req.get("timeout_ms", 0)) / 1e3)
+            # rows: [o,k,v] bare, [o,k,v,epoch,out_seq] stamped,
+            # [o,k,v,epoch,out_seq,ats] with an admission stamp
+            resp = {"ok": True, "records": [_row(r) for r in recs]}
+        elif op == "fetch_bin":
+            recs = broker.fetch(
+                req["topic"], int(req["offset"]),
+                int(req.get("max", 1024)),
+                float(req.get("timeout_ms", 0)) / 1e3)
+            parts = []
+            for r in recs:
+                kb = b"" if r.key is None else r.key.encode()
+                vb = r.value.encode()
+                parts.append(
+                    _REC_HDR.pack(r.offset, _opt(r.epoch),
+                                  _opt(r.out_seq),
+                                  _opt(getattr(r, "ats", None)),
+                                  _opt(getattr(r, "tid", None)))
+                    + bytes([255 if r.key is None else len(kb)]) + kb
+                    + struct.pack("<I", len(vb)) + vb)
+            tail = b"".join(parts)
+            resp = {"ok": True, "n": len(recs), "nbytes": len(tail)}
+        elif op == "fence":
+            broker.fence(int(req["epoch"]))
+            resp = {"ok": True}
+        elif op == "end_offset":
+            resp = {"ok": True,
+                    "offset": broker.end_offset(req["topic"])}
+        elif op == "commit":
+            broker.commit(req["topic"], int(req["offset"]))
+            resp = {"ok": True}
+        elif op == "sync":
+            broker.sync()
+            resp = {"ok": True}
+        else:
+            resp = {"ok": False, "error": f"unknown op {op!r}"}
+        return resp, tail
+
+
+class _Server(socketserver.ThreadingTCPServer):
+    allow_reuse_address = True
+    daemon_threads = True
+
+
+def serve_broker(host: str = "127.0.0.1", port: int = 9092,
+                 broker: Optional[InProcessBroker] = None):
+    """Start serving `broker` on (host, port) in a daemon thread.
+    Returns (server, broker); server.shutdown() stops it. port=0 picks a
+    free port (server.server_address has the real one)."""
+    broker = broker or InProcessBroker()
+    srv = _Server((host, port), _Handler)
+    srv.broker = broker  # type: ignore
+    t = threading.Thread(target=srv.serve_forever, daemon=True)
+    t.start()
+    return srv, broker
+
+
+class TcpBroker:
+    """Client with the InProcessBroker API over the line protocol.
+
+    The request/response framing is only sound while requests and
+    replies stay in lockstep, so any socket timeout or partial read
+    poisons the stream (a late reply would be read as the answer to the
+    NEXT request). The client therefore invalidates the connection on
+    any transport fault and transparently reconnects on the next call;
+    blocking fetches extend the socket read deadline by their own
+    server-side wait (`timeout_ms`) so a long poll is never misread as
+    a transport fault."""
+
+    def __init__(self, host: str, port: int, timeout: float = 30.0,
+                 clock=None) -> None:
+        from kme_tpu_torch.bridge.clock import WALL
+
+        # the clock seam (bridge/clock.py): admission re-stamping of
+        # retried produces reads this object, never the wall directly
+        self._clock = clock or WALL
+        self._addr = (host, port)
+        self._timeout = timeout
+        self._lock = threading.Lock()
+        self._sock = None
+        self._rfile = None
+        # (fingerprint, ats) of the last produce that died on a transport
+        # fault: a retry of the SAME record reuses its original admission
+        # stamp, so the reconnect delay lands inside the latency
+        # histogram instead of restarting the clock (coordinated
+        # omission). Cleared on success, overload, and fence — those are
+        # broker verdicts, not transport faults.
+        self._pending: Optional[Tuple[tuple, int]] = None
+        self._connect()
+
+    def _connect(self) -> None:
+        self._sock = socket.create_connection(self._addr,
+                                              timeout=self._timeout)
+        self._rfile = self._sock.makefile("rb")
+
+    def _invalidate(self) -> None:
+        try:
+            self.close()
+        except OSError:
+            pass
+        self._sock = self._rfile = None
+
+    def close(self) -> None:
+        if self._sock is None:
+            return
+        try:
+            self._rfile.close()
+        finally:
+            self._sock.close()
+
+    def _roundtrip(self, payload: bytes,
+                   extra_wait: float = 0.0) -> Tuple[dict, bytes]:
+        """Send one request frame (JSON line or binary envelope), read
+        the JSON reply line plus any binary tail the reply announces via
+        "nbytes". Returns (reply, tail)."""
+        with self._lock:
+            try:
+                if self._sock is None:
+                    self._connect()
+                # read deadline covers the server's own blocking time
+                self._sock.settimeout(self._timeout + extra_wait)
+                self._sock.sendall(payload)
+                raw = self._rfile.readline()
+            except (socket.timeout, OSError) as e:
+                self._invalidate()
+                raise BrokerError(
+                    f"broker call failed ({e}); connection closed") from e
+            if not raw:
+                self._invalidate()
+                raise BrokerError("broker connection closed")
+            if not raw.endswith(b"\n"):
+                self._invalidate()
+                raise BrokerError("partial broker reply; connection closed")
+            resp = json.loads(raw)
+            body = b""
+            nbytes = resp.get("nbytes")
+            if resp.get("ok") and nbytes:
+                try:
+                    body = self._rfile.read(int(nbytes))
+                except (socket.timeout, OSError) as e:
+                    self._invalidate()
+                    raise BrokerError(
+                        f"broker call failed ({e}); connection closed") from e
+                if len(body) != int(nbytes):
+                    self._invalidate()
+                    raise BrokerError(
+                        "partial broker reply; connection closed")
+        if not resp.get("ok"):
+            err = resp.get("error", "unknown broker error")
+            if resp.get("code") == BrokerOverload.code:
+                exc = BrokerOverload(err)
+                if resp.get("backoff_ms") is not None:
+                    exc.backoff_ms = int(resp["backoff_ms"])
+                if resp.get("admitted") is not None:
+                    exc.admitted = int(resp["admitted"])
+                raise exc
+            if resp.get("code") == BrokerFenced.code:
+                raise BrokerFenced(err)
+            if resp.get("code") == "rej_malformed":
+                raise ValueError(err)
+            raise BrokerError(err)
+        return resp, body
+
+    def _call(self, req: dict, extra_wait: float = 0.0) -> dict:
+        payload = (json.dumps(req, separators=(",", ":")) + "\n").encode()
+        return self._roundtrip(payload, extra_wait)[0]
+
+    def _ats_for(self, fp: tuple) -> int:
+        """Admission stamp for a produce attempt: reuse the stamp of a
+        transport-faulted attempt at the SAME record, else stamp now."""
+        pend = self._pending
+        if pend is not None and pend[0] == fp:
+            return pend[1]
+        return self._clock.time_us()
+
+    def create_topic(self, name: str, partitions: int = 1) -> bool:
+        return self._call({"op": "create_topic", "topic": name,
+                           "partitions": partitions})["created"]
+
+    def topics(self) -> dict:
+        return self._call({"op": "topics"})["topics"]
+
+    def produce(self, topic: str, key: Optional[str], value: str,
+                epoch: Optional[int] = None,
+                out_seq: Optional[int] = None,
+                tid: Optional[int] = None) -> int:
+        fp = ("produce", topic, key, value, epoch, out_seq)
+        ats = self._ats_for(fp)
+        req = {"op": "produce", "topic": topic, "key": key, "value": value,
+               "ats": ats}
+        if epoch is not None:
+            req["epoch"] = epoch
+        if out_seq is not None:
+            req["out_seq"] = out_seq
+        if tid is not None:
+            req["tid"] = tid
+        try:
+            off = self._call(req)["offset"]
+        except (BrokerOverload, BrokerFenced):
+            self._pending = None    # broker verdict, stamp expires
+            raise
+        except BrokerError:
+            self._pending = (fp, ats)   # transport fault: keep the stamp
+            raise
+        self._pending = None
+        return off
+
+    def produce_frames(self, topic: str, key: Optional[str], buf: bytes,
+                       epoch: Optional[int] = None,
+                       seq0: Optional[int] = None) -> Tuple[int, int]:
+        """Append a buffer of 72-byte binary order frames in one round
+        trip — no per-record dicts on either side. Returns (n appended,
+        last offset). On BrokerOverload the exception's `.admitted`
+        counts the prefix kept; resume from buf[admitted*FRAME_SIZE:]."""
+        fp = ("frames", topic, key, buf, epoch, seq0)
+        ats = self._ats_for(fp)
+        tb = topic.encode()
+        kb = b"" if key is None else key.encode()
+        body = (struct.pack("<H", len(tb)) + tb
+                + bytes([255 if key is None else len(kb)]) + kb
+                + _ENV_META.pack(_opt(epoch), _opt(seq0), ats) + buf)
+        payload = _ENV_HDR.pack(WIRE_MAGIC, WIRE_VERSION, FRAME_PRODUCE,
+                                0, len(body)) + body
+        try:
+            resp, _ = self._roundtrip(payload)
+        except (BrokerOverload, BrokerFenced):
+            self._pending = None    # broker verdict, stamp expires
+            raise
+        except BrokerError:
+            self._pending = (fp, ats)   # transport fault: keep the stamp
+            raise
+        self._pending = None
+        return resp["n"], resp["last_offset"]
+
+    def produce_batch(self, topic: str, records) -> int:
+        """Append [(key, value), ...] in one round trip; returns the last
+        offset (-1 for an empty batch)."""
+        return self._call({"op": "produce_batch", "topic": topic,
+                           "records": list(records)})["last_offset"]
+
+    def fetch(self, topic: str, offset: int, max_records: int = 1024,
+              timeout: float = 0.0) -> List[Record]:
+        resp = self._call({"op": "fetch", "topic": topic, "offset": offset,
+                           "max": max_records, "timeout_ms": timeout * 1e3},
+                          extra_wait=timeout)
+        return [Record(row[0], row[1], row[2],
+                       row[3] if len(row) > 3 else None,
+                       row[4] if len(row) > 4 else None,
+                       row[5] if len(row) > 5 else None,
+                       row[6] if len(row) > 6 else None)
+                for row in resp["records"]]
+
+    def fetch_bin(self, topic: str, offset: int, max_records: int = 1024,
+                  timeout: float = 0.0) -> List[Record]:
+        """fetch() over the binary reply tail: one JSON header line, then
+        fixed-width rows — stamps and ats decode straight from bytes."""
+        resp, body = self._roundtrip(
+            (json.dumps({"op": "fetch_bin", "topic": topic,
+                         "offset": offset, "max": max_records,
+                         "timeout_ms": timeout * 1e3},
+                        separators=(",", ":")) + "\n").encode(),
+            extra_wait=timeout)
+        recs: List[Record] = []
+        off = 0
+        for _ in range(int(resp["n"])):
+            o, epoch, out_seq, ats, tid = _REC_HDR.unpack_from(body, off)
+            off += _REC_HDR.size
+            klen = body[off]
+            off += 1
+            key = None
+            if klen != 255:
+                key = body[off:off + klen].decode()
+                off += klen
+            (vlen,) = struct.unpack_from("<I", body, off)
+            off += 4
+            value = body[off:off + vlen].decode()
+            off += vlen
+            recs.append(Record(o, key, value, _unopt(epoch),
+                               _unopt(out_seq), _unopt(ats),
+                               _unopt(tid)))
+        return recs
+
+    def end_offset(self, topic: str) -> int:
+        return self._call({"op": "end_offset", "topic": topic})["offset"]
+
+    def commit(self, topic: str, offset: int) -> None:
+        """Advance the consumer watermark that arms the broker's
+        bounded-ingress `max_lag` check (see InProcessBroker.commit)."""
+        self._call({"op": "commit", "topic": topic, "offset": offset})
+
+    def sync(self) -> None:
+        """fsync the broker's topic logs (see InProcessBroker.sync)."""
+        self._call({"op": "sync"})
+
+    def fence(self, epoch: int) -> None:
+        """Fence every producer epoch below `epoch` (see
+        InProcessBroker.fence)."""
+        self._call({"op": "fence", "epoch": int(epoch)})
+
+
+def parse_addr(addr: str) -> tuple:
+    """'host:port' -> (host, port) (the broker address CLI flag)."""
+    host, _, port = addr.rpartition(":")
+    return host or "127.0.0.1", int(port)

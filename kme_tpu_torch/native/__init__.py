@@ -1,12 +1,14 @@
 """Build and bind the port's native code: the host runtime and the CUDA
 kernels.
 
-The host runtime is `kme_router.cpp`, `kme_host.cpp` and `kme_wire.cpp`
-in this directory (copies of the JAX package's, byte for byte): the seq
-router, the lanes scheduler, the batch plan and pack, the wire parser and
-the MatchOut reconstructor. `load_library` compiles them at first use
-with `g++` into one shared object under `kme_tpu_torch/_build/`, named by
-the sources' content hash, and binds every entry with ctypes. A failed
+The host runtime is `kme_router.cpp`, `kme_host.cpp`, `kme_wire.cpp` and
+`kme_oracle.cpp` in this directory (copies of the JAX package's, byte for
+byte): the seq router, the lanes scheduler, the batch plan and pack, the
+wire parser and binary frames, the MatchOut reconstructor, and the
+quirk-exact host engine behind `--engine native` (`native/oracle.py`).
+`load_library` compiles them at first use with `g++` into one shared
+object under `kme_tpu_torch/_build/`, named by the sources' content
+hash, and binds every entry with ctypes. A failed
 build or load raises; `KME_NATIVE=0` is the one way to run without it
 (`load_library` then returns None and callers take their Python paths),
 and `KME_NATIVE_SO` names a prebuilt library to load instead.
@@ -47,7 +49,8 @@ build_logs: dict = {}
 # the host runtime (g++)
 
 HOST_SRCS = tuple(os.path.join(_HERE, f) for f in
-                  ("kme_host.cpp", "kme_wire.cpp", "kme_router.cpp"))
+                  ("kme_host.cpp", "kme_oracle.cpp", "kme_wire.cpp",
+                   "kme_router.cpp"))
 HOST_CXX = "g++"
 HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
@@ -176,6 +179,21 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "kme_sched_import_accounts": ([c.c_void_p, c.c_int64, P64, P32], None),
         "kme_sched_import_symbols": ([c.c_void_p, c.c_int64, P64, P32], None),
         "kme_sched_import_routes": ([c.c_void_p, c.c_int64, P64, P64], None),
+        # native quirk-exact engine (kme_oracle.cpp)
+        "kme_oracle_new": ([c.c_int32, c.c_int32, c.c_int64, c.c_int32,
+                            c.c_int64], c.c_void_p),
+        "kme_oracle_free": ([c.c_void_p], None),
+        "kme_oracle_process": ([c.c_void_p, c.c_int64] + [P64] * 6
+                               + [P64, c.POINTER(c.c_uint8),
+                                  P64, c.POINTER(c.c_uint8)], c.c_int32),
+        "kme_oracle_err_index": ([c.c_void_p], c.c_int64),
+        "kme_oracle_err_msg": ([c.c_void_p], c.c_char_p),
+        "kme_oracle_out_buf": ([c.c_void_p], c.c_void_p),
+        "kme_oracle_out_len": ([c.c_void_p], c.c_int64),
+        "kme_oracle_line_counts": ([c.c_void_p], P64),
+        "kme_oracle_n_processed": ([c.c_void_p], c.c_int64),
+        "kme_oracle_dump_state": ([c.c_void_p], c.c_char_p),
+        "kme_oracle_load_state": ([c.c_void_p, c.c_char_p], c.c_int32),
         # native seq router (kme_router.cpp)
         "kme_router_new": ([c.c_int64, c.c_int64], c.c_void_p),
         "kme_router_free": ([c.c_void_p], None),

@@ -1,0 +1,437 @@
+"""Java-mode seq checkpoints: canonical snapshot form + cross-engine
+conversion (seq-java device state <-> the native C++ engine's stores).
+
+The java-mode device state (engine/seq.py compat='java') is a
+128-bit-key tombstoned position hash (real (aid, sid) keys AND Q11
+garbage (amount, available) keys — both parity-relevant), direction-
+tagged merged books (Q1), and raw-id lookup tables. The canonical
+snapshot stores the SEMANTIC content, not the physical layout:
+
+- positions: flat (ka, kb) -> (amt, avail) arrays, garbage keys
+  included, sorted by key (hash slot placement and tombstones are
+  probe-path artifacts with no observable semantics — the reference's
+  store is a plain map — so re-import inserts fresh);
+- resting orders: (oid, aidx, is_buy, price, size, seq, lane) in
+  (lane, side, slot) order. Slot POSITIONS are not semantic (the kernel
+  orders by (price, seq)); within-bucket seq order is;
+- balances / book-exists / seq counters / router id maps.
+
+Cross-engine: `to_native_dump` emits the native engine's checkpoint
+text (kme_oracle.cpp dump_state grammar: B/P/K/U/O lines) with bucket
+chains rebuilt from (price, seq) order; `from_native_dump` parses one
+back. `prev` pointers are NORMALIZED (head: none; body: predecessor
+oid): the stored prev leaks onto the wire only at REST time (Q9), never
+from a restored resting order, so continuation streams are byte-
+identical either way (pinned by tests/test_checkpoint.py).
+
+A copy of `kme_tpu/runtime/javasnap.py` for the port's sessions: the
+state comes off the session's device once per export and goes back onto
+it through `engine/seq.state_from_numpy`. The canonical form is the
+JAX package's, array for array, so a seqjava snapshot written by either
+package restores into the other.
+
+Reference: the changelog-restore contract, KProcessor.java:30-49.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+
+from kme_tpu_torch.oracle import javalong as jl
+
+OP_BUY, OP_SELL = 2, 3   # wire opcodes (KProcessor.java:65-75)
+
+
+def _wrap32(x: int) -> int:
+    return ((int(x) + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _lo32(v: int) -> int:
+    return _wrap32(int(v) & 0xFFFFFFFF)
+
+
+def _hi32(v: int) -> int:
+    return _wrap32((int(v) >> 32) & 0xFFFFFFFF)
+
+
+def _jhome(ka: int, kb: int, tilemask: int) -> int:
+    """Host mirror of the kernel's 128-bit-key Fibonacci tile hash
+    (engine/seq.py jhome), int32 wrap arithmetic."""
+    h = (_wrap32(_lo32(ka) * -1640531527)
+         ^ _wrap32(_hi32(ka) * -2048144789)
+         ^ _wrap32(_lo32(kb) * -1028477387)
+         ^ _wrap32(_hi32(kb) * 69069))
+    return (_wrap32(h) >> 7) & tilemask
+
+
+# ---------------------------------------------------------------------------
+# canonical form <-> SeqSession (device)
+
+def export_seqjava(session) -> dict:
+    """SeqSession(compat='java') -> canonical snapshot dict (numpy
+    arrays + plain dicts; see module docstring)."""
+    from kme_tpu_torch.engine import seq as SQ
+
+    cfg = session.cfg
+    assert cfg.compat == "java"
+    j = SQ.export_java(cfg, session.state)
+    h = {k: session.state[k].cpu().numpy() for k in ("bq", "seqc")}
+    S, N, NR = cfg.lanes, cfg.slots, cfg.nr
+    slot_seq = (h["bq"].reshape(S, 2, NR * 128)[:, :, :N]).astype(np.int32)
+    keys = sorted(j["positions"])
+    AM = (1 << 30) - 1
+    # resting orders in (lane, side, slot) order: np.nonzero walks the
+    # (S, 2, N) planes in C order, the JAX package's nested loops' order
+    at = np.nonzero(j["slot_size"] > 0)
+    ba = j["slot_ba"][at]
+    rest = np.stack([j["slot_oid"][at], ba & AM, (ba >> 30) & 1,
+                     j["slot_price"][at], j["slot_size"][at],
+                     slot_seq[at], at[0]], axis=1).astype(np.int64)
+    r = session.router
+    return {
+        "pos_ka": np.array([k[0] for k in keys], np.int64),
+        "pos_kb": np.array([k[1] for k in keys], np.int64),
+        "pos_amt": np.array([j["positions"][k][0] for k in keys],
+                            np.int64),
+        "pos_av": np.array([j["positions"][k][1] for k in keys],
+                           np.int64),
+        "rest": rest.reshape(-1, 7),
+        "seqc": h["seqc"].reshape(-1)[:S].astype(np.int32),
+        "book_exists": j["book_exists"].astype(np.int32),
+        "bal": np.asarray(j["bal"], np.int64),
+        "bal_used": j["bal_used"].astype(np.int32),
+        "err": np.int32(j["err"]),
+        "aid_idx": dict(r.aid_idx),
+        "sid_lane": dict(r.sid_lane),
+        "oid_sid": dict(r.oid_sid),
+    }
+
+
+def import_seqjava(cfg, snap, device="cuda") -> "SeqSession":
+    """Canonical java snapshot -> a live SeqSession(compat='java') on
+    `device`. The position hash is re-inserted fresh (no tombstones)
+    with the kernel's probe bound enforced; slot planes pack from slot
+    0."""
+    from kme_tpu_torch.engine import seq as SQ
+    from kme_tpu_torch.runtime.seqsession import SeqSession
+
+    assert cfg.compat == "java"
+    S, N, A, NR = cfg.lanes, cfg.slots, cfg.accounts, cfg.nr
+    LN = 128
+    rest = np.asarray(snap["rest"]).reshape(-1, 7)
+    sid_lane = {int(k): int(v) for k, v in snap["sid_lane"].items()}
+    aid_idx = {int(k): int(v) for k, v in snap["aid_idx"].items()}
+    lane_sid = {v: k for k, v in sid_lane.items()}
+    if len(aid_idx) > A:
+        raise ValueError(f"snapshot has {len(aid_idx)} accounts; "
+                         f"cfg.accounts={A} cannot hold them")
+    if sid_lane and max(sid_lane.values()) >= S:
+        raise ValueError(f"snapshot lanes exceed cfg.lanes={S}")
+
+    slot = {f: np.zeros((S, 2, NR * LN), np.int64)
+            for f in ("oid", "ba", "price", "size", "seq")}
+    fill_ptr = np.zeros((S, 2), np.int64)
+    for oid, aidx, isbuy, price, size, seq, lane in rest.tolist():
+        if int(lane) not in lane_sid:
+            raise ValueError(
+                f"snapshot rest entry references lane {lane} absent "
+                f"from sid_lane — inconsistent snapshot")
+        sid = lane_sid[int(lane)]
+        side = 0 if sid == 0 else (0 if isbuy else 1)
+        p = int(fill_ptr[lane, side])
+        if p >= N:
+            raise ValueError(
+                f"lane {lane} side {side} holds {p + 1}+ resting "
+                f"orders; cfg.slots={N} cannot hold them")
+        fill_ptr[lane, side] = p + 1
+        slot["oid"][lane, side, p] = oid
+        slot["ba"][lane, side, p] = aidx | (isbuy << 30)
+        slot["price"][lane, side, p] = price
+        slot["size"][lane, side, p] = size
+        slot["seq"][lane, side, p] = seq
+
+    def planes(v, split=False):
+        flat = v.reshape(2 * S * NR, LN)
+        if split:
+            lo = (flat & 0xFFFFFFFF).astype(np.uint32).astype(np.int32)
+            return lo, (flat >> 32).astype(np.int32)
+        return flat.astype(np.int32)
+
+    def padplane(v, rows):
+        a = np.zeros(rows * LN, np.int32)
+        a[:len(v)] = v
+        return a.reshape(rows, LN)
+
+    # position hash: fresh insertion, kernel-identical home tile and
+    # probe bound (entries past the bound would be device-invisible)
+    capr = cfg.caprows
+    tilemask = capr - 1
+    probe_lim = min(cfg.probe_max, capr)
+    ka = np.asarray(snap["pos_ka"], np.int64)
+    kb = np.asarray(snap["pos_kb"], np.int64)
+    if len(ka) > cfg.pos_cap // 2:
+        raise ValueError(f"{len(ka)} positions exceed half the hash "
+                         f"capacity {cfg.pos_cap} — raise pos_cap")
+    hp = {f: np.zeros(cfg.pos_cap, np.int32)
+          for f in ("ka_lo", "ka_hi", "kb_lo", "kb_hi", "state",
+                    "a_lo", "a_hi", "v_lo", "v_hi")}
+    amt = np.asarray(snap["pos_amt"], np.int64)
+    av = np.asarray(snap["pos_av"], np.int64)
+    for i in range(len(ka)):
+        t = _jhome(int(ka[i]), int(kb[i]), tilemask)
+        placed = False
+        for p in range(probe_lim):
+            base = ((t + p) & tilemask) * LN
+            row = hp["state"][base:base + LN]
+            empt = np.nonzero(row == 0)[0]
+            if len(empt):
+                s = base + empt[0]
+                hp["state"][s] = 1
+                hp["ka_lo"][s] = _lo32(ka[i])
+                hp["ka_hi"][s] = _hi32(ka[i])
+                hp["kb_lo"][s] = _lo32(kb[i])
+                hp["kb_hi"][s] = _hi32(kb[i])
+                hp["a_lo"][s] = _lo32(amt[i])
+                hp["a_hi"][s] = _hi32(amt[i])
+                hp["v_lo"][s] = _lo32(av[i])
+                hp["v_hi"][s] = _hi32(av[i])
+                placed = True
+                break
+        if not placed:
+            raise ValueError(
+                "position hash import overflow: entry unreachable "
+                "within probe_max tiles — raise pos_cap or probe_max")
+
+    araw_lo = np.zeros(cfg.arows * LN, np.int32)
+    araw_hi = np.zeros(cfg.arows * LN, np.int32)
+    for raw, idx in aid_idx.items():
+        araw_lo[idx] = _lo32(raw)
+        araw_hi[idx] = _hi32(raw)
+    sraw_lo = np.zeros(cfg.srows * LN, np.int32)
+    sraw_hi = np.zeros(cfg.srows * LN, np.int32)
+    for raw, lane in sid_lane.items():
+        sraw_lo[lane] = _lo32(raw)
+        sraw_hi[lane] = _hi32(raw)
+
+    bal = np.zeros(A, np.int64)
+    bal[:len(snap["bal"])] = np.asarray(snap["bal"], np.int64)
+    bal_u = np.zeros(A, np.int32)
+    bal_u[:len(snap["bal_used"])] = np.asarray(snap["bal_used"],
+                                               np.int32)
+    bex = np.zeros(S, np.int32)
+    bex[:len(snap["book_exists"])] = np.asarray(snap["book_exists"],
+                                                np.int32)
+    seqc = np.zeros(S, np.int32)
+    seqc[:len(snap["seqc"])] = np.asarray(snap["seqc"], np.int32)
+
+    lo, hi = planes(slot["oid"], split=True)
+    state = {
+        "bo_lo": lo, "bo_hi": hi,
+        "ba": planes(slot["ba"]),
+        "bp": planes(slot["price"]),
+        "bs": planes(slot["size"]),
+        "bq": planes(slot["seq"]),
+        "seqc": padplane(seqc, cfg.srows),
+        "bex": padplane(bex, cfg.srows),
+        "bal_lo": padplane(
+            (bal & 0xFFFFFFFF).astype(np.uint32).astype(np.int32),
+            cfg.arows),
+        "bal_hi": padplane((bal >> 32).astype(np.int32), cfg.arows),
+        "bal_u": padplane(bal_u, cfg.arows),
+        "hka_lo": hp["ka_lo"].reshape(capr, LN),
+        "hka_hi": hp["ka_hi"].reshape(capr, LN),
+        "hkb_lo": hp["kb_lo"].reshape(capr, LN),
+        "hkb_hi": hp["kb_hi"].reshape(capr, LN),
+        "hstate": hp["state"].reshape(capr, LN),
+        "ha_lo": hp["a_lo"].reshape(capr, LN),
+        "ha_hi": hp["a_hi"].reshape(capr, LN),
+        "hv_lo": hp["v_lo"].reshape(capr, LN),
+        "hv_hi": hp["v_hi"].reshape(capr, LN),
+        "araw_lo": araw_lo.reshape(cfg.arows, LN),
+        "araw_hi": araw_hi.reshape(cfg.arows, LN),
+        "sraw_lo": sraw_lo.reshape(cfg.srows, LN),
+        "sraw_hi": sraw_hi.reshape(cfg.srows, LN),
+        "err": padplane(np.array([int(snap.get("err", 0))], np.int32), 1),
+    }
+    ses = SeqSession(cfg, device=device)
+    ses.state = SQ.state_from_numpy(cfg, state, ses.device)
+    r = ses.router
+    r.aid_idx = aid_idx
+    r.sid_lane = sid_lane
+    r.oid_sid = {int(k): int(v) for k, v in snap["oid_sid"].items()}
+    return ses
+
+
+# ---------------------------------------------------------------------------
+# canonical form <-> the native engine's dump grammar
+
+def _book_key(sid: int, is_buy: bool) -> int:
+    return jl.jmul(sid, 1 if is_buy else -1)
+
+
+def _bucket_key(book_key: int, price: int) -> int:
+    return jl.jor(jl.jshl(book_key, 8), jl.jlong(price))
+
+
+def to_native_dump(snap) -> str:
+    """Canonical java snapshot -> the native engine's checkpoint text
+    (kme_oracle.cpp dump_state grammar). Bucket chains rebuild from
+    (price, seq); prev pointers normalize (see module docstring);
+    position seq numbers synthesize in key order (iteration order is
+    not observable — credits commute)."""
+    lines: List[str] = []
+    idx_aid = {v: k for k, v in snap["aid_idx"].items()}
+    lane_sid = {v: k for k, v in snap["sid_lane"].items()}
+    bal = np.asarray(snap["bal"], np.int64)
+    for raw, idx in sorted(snap["aid_idx"].items(), key=lambda kv: kv[1]):
+        if snap["bal_used"][idx]:
+            lines.append(f"B {raw} {int(bal[idx])}")
+    for i in range(len(snap["pos_ka"])):
+        lines.append(f"P {int(snap['pos_ka'][i])} {int(snap['pos_kb'][i])} "
+                     f"{int(snap['pos_amt'][i])} {int(snap['pos_av'][i])} "
+                     f"{i + 1}")
+    # books: every existing book gets its key pair (sid 0 merges, Q1).
+    # Bitmap halves split at bit 63 — `price < 63 -> lsb bit price,
+    # else msb bit price-63` (the reference's Q7/Q8 codec,
+    # kme_oracle.cpp with_bit_set / ops/bits.py)
+    books: Dict[int, List[int]] = {}   # key -> [msb, lsb]
+    for lane in range(len(snap["book_exists"])):
+        if snap["book_exists"][lane] and lane in lane_sid:
+            sid = lane_sid[lane]
+            books.setdefault(_book_key(sid, True), [0, 0])
+            books.setdefault(_book_key(sid, False), [0, 0])
+    buckets: Dict[int, List[Tuple]] = {}
+    rest = np.asarray(snap["rest"]).reshape(-1, 7)
+    for oid, aidx, isbuy, price, size, seq, lane in rest.tolist():
+        sid = lane_sid[int(lane)]
+        bk = _book_key(sid, bool(isbuy))
+        bm = books.setdefault(bk, [0, 0])
+        if price < 63:
+            bm[1] |= 1 << int(price)
+        else:
+            bm[0] |= 1 << (int(price) - 63)
+        buckets.setdefault(_bucket_key(bk, int(price)), []).append(
+            (int(seq), int(oid), int(idx_aid[int(aidx)]), sid,
+             int(price), int(size), bool(isbuy)))
+    for bk, (msb, lsb) in sorted(books.items()):
+        lines.append(f"K {bk} {jl.jlong(msb)} {jl.jlong(lsb)}")
+    order_lines = []
+    for bkt, entries in sorted(buckets.items()):
+        entries.sort()
+        lines.append(f"U {bkt} {entries[0][1]} {entries[-1][1]}")
+        for i, (seq, oid, aid, sid, price, size, isbuy) in \
+                enumerate(entries):
+            nxt = entries[i + 1][1] if i + 1 < len(entries) else 0
+            nh = 1 if i + 1 < len(entries) else 0
+            prv = entries[i - 1][1] if i > 0 else 0
+            ph = 1 if i > 0 else 0
+            act = OP_BUY if isbuy else OP_SELL
+            order_lines.append(
+                f"O {oid} {act} {aid} {sid} {price} {size} "
+                f"{nh} {nxt} {ph} {prv}")
+    lines += order_lines
+    return "\n".join(lines) + ("\n" if lines else "")
+
+
+def from_native_dump(text: str) -> dict:
+    """Native checkpoint text -> canonical java snapshot. Router maps
+    rebuild deterministically (dense ids in key-sorted order — the id
+    assignment is internal; any bijection yields the same wire). The
+    device seq numbers renumber per lane in bucket-chain order, which
+    preserves the only observable ordering (within-bucket FIFO)."""
+    balances: Dict[int, int] = {}
+    positions: List[Tuple[int, int, int, int]] = []
+    books: Dict[int, Tuple[int, int]] = {}
+    buckets: Dict[int, Tuple[int, int]] = {}
+    orders: Dict[int, tuple] = {}
+    for line in text.splitlines():
+        if not line:
+            continue
+        f = line.split()
+        if f[0] == "B":
+            balances[int(f[1])] = int(f[2])
+        elif f[0] == "P":
+            positions.append((int(f[1]), int(f[2]), int(f[3]),
+                              int(f[4])))
+        elif f[0] == "K":
+            books[int(f[1])] = (int(f[2]), int(f[3]))
+        elif f[0] == "U":
+            buckets[int(f[1])] = (int(f[2]), int(f[3]))
+        elif f[0] == "O":
+            orders[int(f[1])] = (int(f[2]), int(f[3]), int(f[4]),
+                                 int(f[5]), int(f[6]), int(f[7]) != 0,
+                                 int(f[8]))
+        else:
+            raise ValueError(f"unknown dump line {line!r}")
+    # id maps: dense ids in sorted-key order (deterministic)
+    sids = sorted({abs(k) for k in books}
+                  | {o[2] for o in orders.values()})
+    sid_lane = {s: i for i, s in enumerate(sids)}
+    aids = sorted(balances)
+    aid_idx = {a: i for i, a in enumerate(aids)}
+    positions.sort()
+    rest = []
+    seqc = {}
+    for bkt, (first, last) in sorted(buckets.items()):
+        ptr, guard = first, 0
+        while True:
+            act, aid, sid, price, size, nh, nxt = orders[ptr]
+            if sid < 0:
+                raise ValueError(
+                    f"resting order with negative sid {sid} — the ±sid "
+                    f"book coupling is outside the seq device surface; "
+                    f"this state must stay on the native engine "
+                    f"(COMPAT.md)")
+            if not (0 <= price < 126):
+                raise ValueError(
+                    f"resting price {price} outside the seq device "
+                    f"domain [0,126) — this stream needs the native "
+                    f"engine (COMPAT.md)")
+            lane = sid_lane[abs(sid)]
+            seq = seqc.get(lane, 0)
+            seqc[lane] = seq + 1
+            if aid not in aid_idx:
+                aid_idx[aid] = len(aid_idx)
+            rest.append((ptr, aid_idx[aid], 1 if act == OP_BUY else 0,
+                         price, size, seq, lane))
+            guard += 1
+            if guard > len(orders):
+                raise ValueError("cyclic bucket chain in dump")
+            if not nh or ptr == last:
+                break
+            ptr = nxt
+    S = max(sid_lane.values()) + 1 if sid_lane else 0
+    book_exists = np.zeros(max(S, 1), np.int32)
+    for k in books:
+        s = abs(k)
+        if s in sid_lane:
+            book_exists[sid_lane[s]] = 1
+    A = len(aid_idx)
+    bal = np.zeros(max(A, 1), np.int64)
+    bal_used = np.zeros(max(A, 1), np.int32)
+    for a, v in balances.items():
+        bal[aid_idx[a]] = v
+        bal_used[aid_idx[a]] = 1
+    seqc_arr = np.zeros(max(S, 1), np.int32)
+    for lane, c in seqc.items():
+        seqc_arr[lane] = c
+    lane_sid = {v: k for k, v in sid_lane.items()}
+    return {
+        "pos_ka": np.array([p[0] for p in positions], np.int64),
+        "pos_kb": np.array([p[1] for p in positions], np.int64),
+        "pos_amt": np.array([p[2] for p in positions], np.int64),
+        "pos_av": np.array([p[3] for p in positions], np.int64),
+        "rest": np.array(rest, np.int64).reshape(-1, 7),
+        "seqc": seqc_arr,
+        "book_exists": book_exists,
+        "bal": bal,
+        "bal_used": bal_used,
+        "err": np.int32(0),
+        "aid_idx": aid_idx,
+        "sid_lane": sid_lane,
+        # resting oids route to their symbol; non-resting oids need no
+        # route (a device REJECT and a host REJECT are the same bytes)
+        "oid_sid": {int(r[0]): int(lane_sid[int(r[6])]) for r in rest},
+    }

@@ -28,7 +28,6 @@ waits on batch N's event alone).
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import dataclasses
 import time
@@ -45,6 +44,7 @@ from kme_tpu_torch.native.sched import (_arr, export_map, import_map,
                                         plan_batch, recon_batch)
 from kme_tpu_torch.runtime.sequencer import CapacityError, EnvelopeError
 from kme_tpu_torch.runtime.session import LaneEngineError
+from kme_tpu_torch.telemetry import PhaseTimer, Registry
 from kme_tpu_torch.utils import jlong, pow2_bucket
 from kme_tpu_torch.wire import (OrderMsg, OutRecord, WireBatch, order_json,
                                 reject_reason_codes)
@@ -451,9 +451,15 @@ class SeqSession:
         self.router = make_seq_router(cfg.lanes, cfg.accounts, cfg.compat)
         self._metrics = np.zeros(SQ.N_METRICS, np.int64)
         self._hist = np.zeros((SQ.N_HIST, SQ.N_HIST_BUCKETS), np.int64)
-        # CUMULATIVE wall seconds per phase across every batch
-        self.phases = {"plan_s": 0.0, "stage_s": 0.0, "dispatch_s": 0.0,
-                       "fetch_s": 0.0, "recon_s": 0.0}
+        # the metrics surface the service shares (counters, gauges and
+        # histograms under the JAX package's names)
+        self.telemetry = Registry()
+        self.timer = PhaseTimer(track="seq")
+        # CUMULATIVE wall seconds per phase across every batch (the
+        # timer's totals dict IS this attribute)
+        self.phases = self.timer.totals
+        self.phases.update({"plan_s": 0.0, "stage_s": 0.0, "dispatch_s": 0.0,
+                            "fetch_s": 0.0, "recon_s": 0.0})
         self.dispatches = 0
         # second-round fetches of calls whose fills overflowed the hint
         self.overflow_fetches = 0
@@ -485,14 +491,6 @@ class SeqSession:
         self.router.aid_idx = dict(aid_idx)
         self.router.sid_lane = dict(sid_lane)
         self.router.oid_sid = dict(oid_sid)
-
-    @contextlib.contextmanager
-    def _phase(self, name: str):
-        t = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.phases[name] += time.perf_counter() - t
 
     # ------------------------------------------------------------------
 
@@ -543,11 +541,11 @@ class SeqSession:
         on the card, enqueue the early copy of the headers plus the
         hint's fill prefix into pinned memory behind an event. Nothing
         here waits for the card."""
-        with self._phase("plan_s"):
+        with self.timer.phase("plan_s"):
             cols, host_rejects, stacked, cnts, K = self._plan(msgs)
         fields = SQ.msg_fields(self.cfg)
         t = time.perf_counter()
-        with self._phase("stage_s"):
+        with self.timer.phase("stage_s"):
             if self._staging is None:
                 dev = {f: torch.from_numpy(np.ascontiguousarray(stacked[f]))
                        for f in fields}
@@ -556,7 +554,7 @@ class SeqSession:
                     [stacked[f] for f in fields],
                     self._n_submit - self._n_collect)))
         stage_s = time.perf_counter() - t
-        with self._phase("dispatch_s"):
+        with self.timer.phase("dispatch_s"):
             outp = SQ.seq_scan(self.cfg, self.state, dev)
             self.dispatches += 1
             ghint = self._hint()
@@ -630,7 +628,7 @@ class SeqSession:
         """One batch serially: dispatch, then fetch.
         -> (cols, host_rejects, host dict, fills (4, F))."""
         p = self._dispatch(msgs)
-        with self._phase("fetch_s"):
+        with self.timer.phase("fetch_s"):
             host, fills = self._fetch(p)
         return p.cols, p.host_rejects, host, fills
 
@@ -657,6 +655,11 @@ class SeqSession:
         self._h2d_total_s += p.stage_s
         if self._n_submit > self._n_collect:
             self._h2d_overlap_s += p.stage_s
+        # advisory gauges: cumulative host cost of staging and the share
+        # of it hidden under in-flight device compute
+        self.telemetry.publish_gauges(
+            {"h2d_stage_s": round(self.phases.get("stage_s", 0.0), 6),
+             "h2d_overlap_frac": self.h2d_overlap_frac})
         self.windows.append(("submit", self._n_submit, t0,
                              time.perf_counter()))
         self._n_submit += 1
@@ -681,9 +684,9 @@ class SeqSession:
                 f"collect out of submit order: batch {handle.seq} while "
                 f"batch {self._n_collect} is next")
         t0 = time.perf_counter()
-        with self._phase("fetch_s"):
+        with self.timer.phase("fetch_s"):
             host, fills = self._fetch(handle)
-        with self._phase("recon_s"):
+        with self.timer.phase("recon_s"):
             r = self._recon_buffer(handle.msgs, handle.cols,
                                    handle.host_rejects, host, fills)
         self.windows.append(("collect", self._n_collect, t0,
@@ -714,7 +717,7 @@ class SeqSession:
             except OverflowError:
                 return None  # beyond-int64 ids ride the Python path
         cols, host_rejects, host, fills = self._run(batch)
-        with self._phase("recon_s"):
+        with self.timer.phase("recon_s"):
             return self._recon_buffer(batch, cols, host_rejects, host, fills)
 
     def _recon_luts(self):
@@ -920,14 +923,25 @@ class SeqSession:
             "positions": positions,
             "max_book_depth": int(depth.max()) if depth.size else 0,
         })
+        self._publish(counters)
         return counters
 
     def histograms(self) -> Dict[str, list]:
         """Device-accumulated distribution histograms (HIST_NAMES -> 16
-        power-of-two bucket counts). book_depth stays empty in java mode
-        (Q1 merged books have no per-lane occupancy plane)."""
-        return {name: self._hist[i].tolist()
-                for i, name in enumerate(SQ.HIST_NAMES)}
+        power-of-two bucket counts); published into the registry.
+        book_depth stays empty in java mode (Q1 merged books have no
+        per-lane occupancy plane)."""
+        h = {name: self._hist[i].tolist()
+             for i, name in enumerate(SQ.HIST_NAMES)}
+        self.telemetry.publish_histograms(h)
+        return h
+
+    def _publish(self, counters: Dict[str, int]) -> None:
+        self.telemetry.publish_counters(
+            {k: counters[k] for k in SQ.METRIC_NAMES})
+        self.telemetry.publish_gauges(
+            {k: v for k, v in counters.items()
+             if k not in SQ.METRIC_NAMES})
 
     def export_state(self) -> Dict[str, dict]:
         """Oracle-comparable host dict view. In fixed mode its Python loop

@@ -41,6 +41,7 @@ from kme_tpu_torch import wire as W
 from kme_tpu_torch.engine import lanes as L
 from kme_tpu_torch.ops import rowdma
 from kme_tpu_torch.runtime.sequencer import Schedule, make_scheduler
+from kme_tpu_torch.telemetry import Registry
 from kme_tpu_torch.utils import jlong, pow2_bucket
 from kme_tpu_torch.wire import OrderMsg, OutRecord, order_json
 
@@ -117,6 +118,7 @@ class LaneSession:
         # at most one message per lane per step can ever be scheduled, so
         # wider-than-S slots would be permanently dead padding
         Wd = max(min(Wd, cfg.lanes), 0)
+        self.shards = 1
         self.cfg = cfg = dataclasses.replace(cfg, width=0, pos_dma=False)
         # compaction reserves the last device lane as the padding scrap
         # lane; positions become planar int32 rows moved by the row-copy
@@ -142,6 +144,9 @@ class LaneSession:
         self._settle = L.build_barrier_ops(self.dev_cfg)
         self._gauges = L.build_gauges(self.dev_cfg)
         self.scheduler = make_scheduler(cfg.lanes, cfg.accounts, width=Wd)
+        # the metrics surface the service shares (counters, gauges and
+        # histograms under the JAX package's names)
+        self.telemetry = Registry()
         # CUMULATIVE wall seconds per phase across every batch
         self.phases = {"plan_s": 0.0, "dispatch_s": 0.0, "fetch_s": 0.0,
                        "recon_s": 0.0}
@@ -227,7 +232,11 @@ class LaneSession:
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         before = dict(rowdma.CAPTURED)
         t0 = time.perf_counter()
-        with torch.cuda.graph(graph, pool=self._pool):
+        # thread_local: the serving stack's TCP and heartbeat threads run
+        # beside the capture; they issue no CUDA work, and their other
+        # API calls must not invalidate it
+        with torch.cuda.graph(graph, pool=self._pool,
+                              capture_error_mode="thread_local"):
             step(self.state, self._io)
         t1 = time.perf_counter()
         graph.instantiate()
@@ -523,11 +532,19 @@ class LaneSession:
                                        for v in g.values()])]).tolist()
         out = dict(zip(L.METRIC_NAMES, vals[:L.N_METRICS]))
         out.update(zip(g, vals[L.N_METRICS:]))
+        self.telemetry.publish_counters(
+            {k: out[k] for k in L.METRIC_NAMES})
+        self.telemetry.publish_gauges(
+            {k: v for k, v in out.items() if k not in L.METRIC_NAMES})
         return out
 
     def histograms(self) -> Dict[str, list]:
+        """In-kernel distribution histograms (power-of-two buckets),
+        read back in one copy; published into the registry."""
         rows = self.state["hist"].cpu().numpy()
-        return {name: rows[i].tolist() for i, name in enumerate(L.HIST_NAMES)}
+        out = {name: rows[i].tolist() for i, name in enumerate(L.HIST_NAMES)}
+        self.telemetry.publish_histograms(out)
+        return out
 
     def export_state(self) -> Dict[str, dict]:
         """Host dict view comparable to the oracle's stores (fixed

@@ -1,0 +1,362 @@
+"""Metric registry: Counter / Gauge / Histogram with Prometheus text
+exposition and JSON export.
+
+One Registry instance is owned by each session (LaneSession,
+SeqSession, SeqMeshSession) and shared with the serving layer —
+`MatchService` publishes its per-batch counters into the same registry
+the engine projects its on-device counters into, so a single
+`/metrics` scrape (telemetry/httpd.py) sees both.
+
+Histograms use the engine's power-of-two bucket layout (16 buckets,
+engine/lanes.py): bucket 0 holds values <= 0, bucket i (1..14) holds
+values in [2^(i-1), 2^i - 1], bucket 15 holds values >= 2^14. The
+Prometheus exposition therefore uses cumulative upper bounds
+le="0","1","3","7",...,"16383","+Inf". Device-filled histograms carry
+no true sum (the kernel only accumulates bucket counts); `sum` is
+exact only for host-side `observe()` use.
+"""
+
+from __future__ import annotations
+
+import bisect
+import json
+import threading
+
+N_BUCKETS = 16
+
+# upper bound of bucket i: 0 for i=0, 2^i - 1 for 1..14, +Inf for 15
+BUCKET_LE = tuple(
+    ["0"] + [str((1 << i) - 1) for i in range(1, N_BUCKETS - 1)] + ["+Inf"])
+
+
+def bucket_index(v: int) -> int:
+    """Host-side mirror of the kernel bucketing: #{k in 0..14 : v >= 2^k}."""
+    b = 0
+    for k in range(N_BUCKETS - 1):
+        if v >= (1 << k):
+            b += 1
+    return b
+
+
+class Counter:
+    """Monotonic counter. Sessions project absolute on-device totals via
+    set(); host-side producers use inc()."""
+
+    kind = "counter"
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self.value = 0
+
+    def inc(self, delta: int = 1) -> None:
+        self.value += delta
+
+    def set(self, value: int) -> None:
+        self.value = int(value)
+
+
+class Gauge:
+    """Point-in-time value (may go down)."""
+
+    kind = "gauge"
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self.value = 0
+
+    def set(self, value) -> None:
+        self.value = value
+
+    def inc(self, delta=1) -> None:
+        self.value += delta
+
+
+class Histogram:
+    """Power-of-two bucket histogram (engine layout, N_BUCKETS buckets).
+
+    Two fill modes: host-side observe(v) (tracks an exact sum), or
+    set_buckets(counts) projecting device-accumulated bucket counts
+    (sum stays whatever was last set via set_sum, default 0)."""
+
+    kind = "histogram"
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self.buckets = [0] * N_BUCKETS
+        self.sum = 0
+
+    def observe(self, value: int) -> None:
+        self.buckets[bucket_index(value)] += 1
+        self.sum += value
+
+    def set_buckets(self, counts) -> None:
+        counts = [int(c) for c in counts]
+        if len(counts) != N_BUCKETS:
+            raise ValueError(
+                f"{self.name}: expected {N_BUCKETS} buckets, "
+                f"got {len(counts)}")
+        self.buckets = counts
+
+    def set_sum(self, value) -> None:
+        self.sum = value
+
+    @property
+    def count(self) -> int:
+        return sum(self.buckets)
+
+
+# -- streaming latency quantiles --------------------------------------------
+#
+# Fixed log-spaced buckets: 1 µs doubling up to ~67 s, one overflow
+# bucket. 27 boundaries + overflow = 28 counts; a full histogram is a
+# few hundred bytes, so every stage of the serving pipeline can afford
+# one that is ALWAYS on (the bench's sort-all-samples percentiles need
+# the whole sample vector; this needs O(1) memory and O(1) observe).
+
+LAT_N_BUCKETS = 28
+LAT_BOUNDS = tuple(1e-6 * (1 << i) for i in range(LAT_N_BUCKETS - 1))
+
+
+class LatencyHistogram:
+    """Streaming quantile estimator over log-spaced duration buckets.
+
+    Values are SECONDS. `observe(v, n)` records the same duration for n
+    orders at once — batch-granular stages (plan, device, produce)
+    charge the batch's wall time to every order in it, so the quantiles
+    reflect per-order experience, not per-batch. Callers must pass
+    intended-start-based durations (arrival stamps, not dequeue times)
+    to stay coordinated-omission-safe.
+
+    Thread-safe: observe() and the snapshot/quantile readers take the
+    instance lock, so an HTTP scrape mid-batch sees a consistent
+    (count, sum, buckets) triple."""
+
+    kind = "latency"
+
+    def __init__(self, name: str, help: str = ""):
+        self.name = name
+        self.help = help
+        self._lock = threading.Lock()
+        self._counts = [0] * LAT_N_BUCKETS
+        self._count = 0
+        self._sum = 0.0
+
+    def observe(self, seconds: float, n: int = 1) -> None:
+        if n <= 0:
+            return
+        i = bisect.bisect_left(LAT_BOUNDS, seconds)
+        with self._lock:
+            self._counts[i] += n
+            self._count += n
+            self._sum += seconds * n
+
+    # -- readers (each takes one consistent view under the lock) -------
+
+    def state(self) -> tuple:
+        """(count, sum, bucket-counts copy) — one atomic view."""
+        with self._lock:
+            return self._count, self._sum, list(self._counts)
+
+    @property
+    def count(self) -> int:
+        with self._lock:
+            return self._count
+
+    @property
+    def sum(self) -> float:
+        with self._lock:
+            return self._sum
+
+    @staticmethod
+    def _quantile_from(counts, total, q: float) -> float:
+        if total <= 0:
+            return 0.0
+        target = q * total
+        cum = 0
+        for i, c in enumerate(counts):
+            if c == 0:
+                continue
+            if cum + c >= target:
+                lo = 0.0 if i == 0 else LAT_BOUNDS[i - 1]
+                hi = (LAT_BOUNDS[i] if i < len(LAT_BOUNDS)
+                      else 2 * LAT_BOUNDS[-1])
+                frac = (target - cum) / c
+                return lo + (hi - lo) * frac
+            cum += c
+        return 2 * LAT_BOUNDS[-1]
+
+    def quantile(self, q: float) -> float:
+        count, _s, counts = self.state()
+        return self._quantile_from(counts, count, q)
+
+    def quantiles(self) -> dict:
+        """{0.5: s, 0.9: s, 0.99: s, 0.999: s} from ONE atomic view."""
+        count, _s, counts = self.state()
+        return {q: self._quantile_from(counts, count, q)
+                for q in (0.5, 0.9, 0.99, 0.999)}
+
+    def count_over(self, threshold_s: float) -> int:
+        """Observations in buckets wholly above `threshold_s` — the
+        SLO module's bad-event counter (bucket-conservative: the
+        threshold's own bucket counts as good)."""
+        i = bisect.bisect_left(LAT_BOUNDS, threshold_s)
+        with self._lock:
+            return sum(self._counts[i + 1:])
+
+
+def _sanitize(name: str) -> str:
+    out = []
+    for i, ch in enumerate(name):
+        ok = ch.isalpha() or ch == "_" or ch == ":" or (ch.isdigit() and i)
+        out.append(ch if ok else "_")
+    return "".join(out)
+
+
+class Registry:
+    """Thread-safe metric registry.
+
+    Writers (the session main thread, MatchService.step) mutate under
+    the lock via counter()/gauge()/histogram() handles; readers (the
+    heartbeat thread, the /metrics HTTP handler) take consistent
+    snapshots via prometheus_text()/to_json()/snapshot()."""
+
+    def __init__(self, namespace: str = ""):
+        self.namespace = namespace
+        self._lock = threading.Lock()
+        self._metrics: dict = {}  # insertion-ordered
+        # p99 exemplars: slowest recent orders as {tid, off, oid, aid,
+        # e2e_us} dicts (deterministic trace ids — telemetry/dtrace.py)
+        # so a cluster-level quantile outlier resolves to a waterfall
+        self._exemplars: list = []
+
+    def _get(self, cls, name: str, help: str):
+        with self._lock:
+            m = self._metrics.get(name)
+            if m is None:
+                m = cls(name, help)
+                self._metrics[name] = m
+            elif not isinstance(m, cls):
+                raise TypeError(
+                    f"metric {name!r} already registered as {m.kind}")
+            return m
+
+    def counter(self, name: str, help: str = "") -> Counter:
+        return self._get(Counter, name, help)
+
+    def gauge(self, name: str, help: str = "") -> Gauge:
+        return self._get(Gauge, name, help)
+
+    def histogram(self, name: str, help: str = "") -> Histogram:
+        return self._get(Histogram, name, help)
+
+    def latency(self, name: str, help: str = "") -> LatencyHistogram:
+        return self._get(LatencyHistogram, name, help)
+
+    def set_exemplars(self, exemplars) -> None:
+        """Replace the slow-order exemplar list exported in snapshot()
+        (bounded upstream; the registry stores what it is given)."""
+        with self._lock:
+            self._exemplars = list(exemplars)
+
+    def exemplars(self) -> list:
+        with self._lock:
+            return list(self._exemplars)
+
+    # -- bulk publication (the session metrics()/histograms() projection)
+
+    def publish_counters(self, counters: dict) -> None:
+        for k, v in counters.items():
+            self.counter(k).set(v)
+
+    def publish_gauges(self, gauges: dict) -> None:
+        for k, v in gauges.items():
+            self.gauge(k).set(v)
+
+    def publish_histograms(self, hists: dict) -> None:
+        for k, buckets in hists.items():
+            self.histogram(k).set_buckets(buckets)
+
+    # -- export
+
+    def _qualified(self, name: str) -> str:
+        base = _sanitize(name)
+        return f"{self.namespace}_{base}" if self.namespace else base
+
+    def prometheus_text(self) -> str:
+        """Prometheus text exposition format 0.0.4."""
+        with self._lock:
+            items = list(self._metrics.items())
+        lines = []
+        for name, m in items:
+            q = self._qualified(name)
+            if m.help:
+                lines.append(f"# HELP {q} {m.help}")
+            # latency histograms expose as Prometheus summaries
+            # (pre-computed quantiles, no bucket series)
+            lines.append(f"# TYPE {q} "
+                         f"{'summary' if m.kind == 'latency' else m.kind}")
+            if m.kind == "histogram":
+                cum = 0
+                for le, c in zip(BUCKET_LE, m.buckets):
+                    cum += c
+                    lines.append(f'{q}_bucket{{le="{le}"}} {cum}')
+                lines.append(f"{q}_sum {m.sum}")
+                lines.append(f"{q}_count {cum}")
+            elif m.kind == "latency":
+                # summary exposition: one atomic state() view feeds
+                # every quantile line plus sum/count
+                count, total, counts = m.state()
+                for qq in (0.5, 0.9, 0.99, 0.999):
+                    v = m._quantile_from(counts, count, qq)
+                    lines.append(f'{q}{{quantile="{qq}"}} {v:.6g}')
+                lines.append(f"{q}_sum {total:.6g}")
+                lines.append(f"{q}_count {count}")
+            else:
+                lines.append(f"{q} {m.value}")
+        return "\n".join(lines) + "\n"
+
+    def to_json(self) -> str:
+        return json.dumps(self.snapshot(), sort_keys=True)
+
+    def snapshot(self) -> dict:
+        """Plain-dict view: {"counters": {...}, "gauges": {...},
+        "histograms": {name: {"buckets", "sum", "count"}}}."""
+        with self._lock:
+            out = {"counters": {}, "gauges": {}, "histograms": {},
+                   "latencies": {}}
+            if self._exemplars:
+                out["exemplars"] = list(self._exemplars)
+            for name, m in self._metrics.items():
+                if m.kind == "counter":
+                    out["counters"][name] = m.value
+                elif m.kind == "gauge":
+                    out["gauges"][name] = m.value
+                elif m.kind == "latency":
+                    count, total, counts = m.state()
+                    out["latencies"][name] = {
+                        "count": count,
+                        "sum_s": round(total, 6),
+                        "p50_ms": round(m._quantile_from(
+                            counts, count, 0.5) * 1e3, 3),
+                        "p90_ms": round(m._quantile_from(
+                            counts, count, 0.9) * 1e3, 3),
+                        "p99_ms": round(m._quantile_from(
+                            counts, count, 0.99) * 1e3, 3),
+                        "p999_ms": round(m._quantile_from(
+                            counts, count, 0.999) * 1e3, 3),
+                        # raw bucket counts (LAT_BOUNDS layout): the
+                        # cluster aggregator (kme-agg) sums these across
+                        # scrapes, so merged quantiles are EXACT — not a
+                        # quantile-of-quantiles estimate
+                        "buckets": counts,
+                    }
+                else:
+                    out["histograms"][name] = {
+                        "buckets": list(m.buckets),
+                        "sum": m.sum,
+                        "count": m.count,
+                    }
+            return out

@@ -1,0 +1,160 @@
+"""Phase timing spans + Chrome trace-event export.
+
+PhaseTimer replaces the per-session `time.perf_counter()` blocks that
+were triplicated across runtime/session.py, runtime/seqsession.py, and
+parallel/seqmesh.py. Its `totals` dict IS the session's `phases`
+attribute (same object, assigned once), and — unlike the old code —
+totals ACCUMULATE across batches; callers snapshot/reset explicitly.
+
+When a TraceRecorder is installed (module-global via install(), as
+`kme-serve --trace-out` and `bench --trace-out` do), every phase span
+is also emitted as a Chrome trace event; save() writes the standard
+{"traceEvents": [...]} JSON that chrome://tracing / Perfetto load
+directly.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+from contextlib import contextmanager
+
+
+class TraceRecorder:
+    """Collects Chrome trace-event "X" (complete) events.
+
+    Timestamps are microseconds relative to recorder creation; `tid`
+    groups events into named rows (one per session/component)."""
+
+    def __init__(self):
+        self._t0 = time.perf_counter()
+        self._lock = threading.Lock()
+        self._events = []
+        self._tids: dict = {}
+
+    def _tid(self, track: str) -> int:
+        t = self._tids.get(track)
+        if t is None:
+            t = len(self._tids)
+            self._tids[track] = t
+        return t
+
+    def add(self, name: str, start_s: float, dur_s: float,
+            track: str = "main", args: dict | None = None) -> None:
+        ev = {
+            "name": name,
+            "ph": "X",
+            "ts": (start_s - self._t0) * 1e6,
+            "dur": dur_s * 1e6,
+            "pid": os.getpid(),
+        }
+        with self._lock:
+            ev["tid"] = self._tid(track)
+            if args:
+                ev["args"] = args
+            self._events.append(ev)
+
+    def flow(self, name: str, phase: str, flow_id: int,
+             track: str = "main", at_s: float | None = None) -> None:
+        """Chrome trace FLOW event: ph "s" starts arrow `flow_id`, ph
+        "f" finishes it — the renderer draws a causality arrow from the
+        span enclosing the start to the span enclosing the finish
+        (bp="e": bind to the enclosing slice). Links an order batch's
+        submit/engine span to its produce span across tracks."""
+        if phase not in ("s", "f"):
+            raise ValueError(f"flow phase must be 's' or 'f', "
+                             f"got {phase!r}")
+        t = at_s if at_s is not None else time.perf_counter()
+        ev = {
+            "name": name,
+            "ph": phase,
+            "cat": "flow",
+            "id": int(flow_id),
+            "ts": (t - self._t0) * 1e6,
+            "pid": os.getpid(),
+        }
+        if phase == "f":
+            ev["bp"] = "e"
+        with self._lock:
+            ev["tid"] = self._tid(track)
+            self._events.append(ev)
+
+    def instant(self, name: str, track: str = "main",
+                args: dict | None = None) -> None:
+        ev = {
+            "name": name,
+            "ph": "i",
+            "ts": (time.perf_counter() - self._t0) * 1e6,
+            "pid": os.getpid(),
+            "s": "t",
+        }
+        with self._lock:
+            ev["tid"] = self._tid(track)
+            if args:
+                ev["args"] = args
+            self._events.append(ev)
+
+    def trace_events(self) -> list:
+        with self._lock:
+            meta = [
+                {"name": "thread_name", "ph": "M", "pid": os.getpid(),
+                 "tid": tid, "args": {"name": track}}
+                for track, tid in self._tids.items()
+            ]
+            return meta + list(self._events)
+
+    def save(self, path: str) -> None:
+        doc = {"traceEvents": self.trace_events(),
+               "displayTimeUnit": "ms"}
+        tmp = path + ".tmp"
+        with open(tmp, "w", encoding="utf-8") as f:
+            json.dump(doc, f)
+        os.replace(tmp, path)
+
+
+# module-global recorder: CLI entry points install one so every
+# PhaseTimer in the process emits trace events without plumbing
+_tracer: TraceRecorder | None = None
+
+
+def install(recorder: TraceRecorder | None) -> None:
+    global _tracer
+    _tracer = recorder
+
+
+def get_tracer() -> TraceRecorder | None:
+    return _tracer
+
+
+class PhaseTimer:
+    """Accumulating span timer.
+
+    `totals` maps phase name -> cumulative seconds across every span
+    since the last reset(). Sessions expose it directly as
+    `self.phases`."""
+
+    def __init__(self, track: str = "main"):
+        self.totals: dict = {}
+        self.track = track
+
+    @contextmanager
+    def phase(self, name: str, **args):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            dt = time.perf_counter() - t0
+            self.totals[name] = self.totals.get(name, 0.0) + dt
+            tr = _tracer
+            if tr is not None:
+                tr.add(name, t0, dt, track=self.track,
+                       args=args or None)
+
+    def add(self, name: str, seconds: float) -> None:
+        """Fold an externally-timed duration into the totals."""
+        self.totals[name] = self.totals.get(name, 0.0) + seconds
+
+    def reset(self) -> None:
+        self.totals.clear()

@@ -7,9 +7,12 @@ plane, and both position planes joined to int64) against theirs; the
 seq and lanes sessions on the card against the same sessions on the
 CPU; and the lanes session's step graph against the eager chunk
 function from the same pre-state, across state swaps, with its launches
-counted per replay; and the seq session's pipelined serving on the card
+counted per replay; the seq session's pipelined serving on the card
 (submit/collect at depths 2 and 3, the pinned staging ring wrapping, the
-second-round output copy) against its serial path and the CPU session.
+second-round output copy) against its serial path and the CPU session;
+and the service (seq pipelined, seq java, lanes) on the card against the
+same service on the CPU, with snapshots restored from the card onto the
+CPU and back.
 
 Every test here carries the `cuda` marker and skips where
 `torch.cuda.is_available()` is false (a CUDA kernel has no CPU mode).
@@ -503,3 +506,92 @@ def test_forced_hint_runs_the_overflow_copy(cuda_device, monkeypatch):
     monkeypatch.setattr(ses, "_hint", lambda: 1)
     assert _pipelined(ses, parts, 2) == want
     assert ses.overflow_fetches > 0 and cpu.overflow_fetches == 0
+
+
+# ---------------------------------------------------------------------------
+# the serving stack and checkpoints on the card
+
+SERVICE_MODES = {
+    "seq_pipeline2": dict(engine="seq", compat="fixed", pipeline=2),
+    "seq_java": dict(engine="seq", compat="java", slots=256, max_fills=64),
+    "lanes": dict(engine="lanes", compat="fixed", width=8, slots=64),
+}
+
+
+def _serve(values, device, **kw):
+    from kme_tpu_torch.bridge.broker import InProcessBroker
+    from kme_tpu_torch.bridge.provision import provision
+    from kme_tpu_torch.bridge.service import TOPIC_IN, TOPIC_OUT, MatchService
+
+    b = InProcessBroker()
+    provision(b)
+    for v in values:
+        b.produce(TOPIC_IN, None, v)
+    svc = MatchService(b, device=device, **dict(
+        dict(batch=128, symbols=8, accounts=128, slots=128, max_fills=32),
+        **kw))
+    assert svc.run(max_messages=len(values), poll_timeout=0.05) == \
+        len(values)
+    svc.close()
+    return [f"{r.key} {r.value}" for r in b.fetch(TOPIC_OUT, 0, 1 << 30)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(SERVICE_MODES))
+def test_card_service_equals_cpu_service(cuda_device, mode):
+    from kme_tpu_torch.wire import dumps_order
+
+    kw = SERVICE_MODES[mode]
+    if kw["compat"] == "java":
+        msgs = harness_stream(1200, seed=5)
+    else:
+        msgs = harness_stream(1200, seed=3, num_symbols=4, num_accounts=8,
+                              payout_opcode_bug=False, validate=True)
+    values = [dumps_order(m) for m in msgs]
+    assert _serve(values, "cuda", **kw) == _serve(values, "cpu", **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fixed", "java", "lanes"])
+def test_card_snapshot_restores_on_cpu_and_back(cuda_device, kind, tmp_path):
+    """A card session's snapshot restores into a CPU session and a CPU
+    session's into the card; every continuation equals an uninterrupted
+    card run, and card and CPU snapshots of one prefix carry one
+    digest."""
+    from kme_tpu_torch.runtime import checkpoint as ck
+
+    if kind == "lanes":
+        cfg = L.LaneConfig(lanes=8, slots=64, accounts=64, max_fills=32)
+        msgs = zipf_symbol_stream(800, num_symbols=8, num_accounts=24,
+                                  seed=21)
+
+        def make(dev):
+            return LaneSession(cfg, width=8, device=dev)
+
+        save, load = ck.save_session, ck.load_session
+    else:
+        cfg = SQ.SeqConfig(**(JAVA_KW if kind == "java" else KW))
+        msgs = (harness_stream(800, seed=7) if kind == "java" else
+                zipf_symbol_stream(800, num_symbols=7, num_accounts=60,
+                                   seed=2, payout_per_mille=8))
+
+        def make(dev):
+            return SeqSession(cfg, device=dev)
+
+        save = ck.save_seq_session
+
+        def load(d, device):
+            return ck.load_seq_session(d, cfg, device=device)
+    cut = 400
+    want = make("cuda").process_wire(msgs)
+    digests = []
+    for src, dst in (("cuda", "cpu"), ("cpu", "cuda")):
+        head = make(src)
+        assert head.process_wire(msgs[:cut]) == want[:cut]
+        d = str(tmp_path / src)
+        path = save(d, head, cut)
+        digests.append(bytes(np.load(path)["digest"]).decode())
+        tail, off = load(d, device=dst)
+        assert off == cut and tail.device.type == dst
+        assert tail.process_wire(msgs[cut:]) == want[cut:]
+    assert digests[0] == digests[1]

@@ -53,7 +53,7 @@ def _sha(path):
 
 
 @pytest.mark.parametrize("name", ["kme_router.cpp", "kme_host.cpp",
-                                  "kme_wire.cpp"])
+                                  "kme_wire.cpp", "kme_oracle.cpp"])
 def test_copied_sources_are_byte_identical(name):
     assert _sha(os.path.join(ROOT, "kme_tpu_torch", "native", name)) == \
         _sha(os.path.join(ROOT, "kme_tpu", "native", name))

@@ -80,7 +80,19 @@ def test_port_imports_without_jax_or_kme_tpu():
               "kme_tpu_torch.opcodes",
               "kme_tpu_torch.engine.lanes", "kme_tpu_torch.ops.rowdma",
               "kme_tpu_torch.runtime.session",
-              "kme_tpu_torch.runtime.sequencer"):
+              "kme_tpu_torch.runtime.sequencer",
+              "kme_tpu_torch.runtime.checkpoint",
+              "kme_tpu_torch.runtime.javasnap", "kme_tpu_torch.faults",
+              "kme_tpu_torch.oracle", "kme_tpu_torch.oracle.engine",
+              "kme_tpu_torch.oracle.javalong",
+              "kme_tpu_torch.native.oracle", "kme_tpu_torch.telemetry",
+              "kme_tpu_torch.telemetry.registry",
+              "kme_tpu_torch.telemetry.trace", "kme_tpu_torch.bridge",
+              "kme_tpu_torch.bridge.broker", "kme_tpu_torch.bridge.clock",
+              "kme_tpu_torch.bridge.consume", "kme_tpu_torch.bridge.lease",
+              "kme_tpu_torch.bridge.provision",
+              "kme_tpu_torch.bridge.serve", "kme_tpu_torch.bridge.service",
+              "kme_tpu_torch.bridge.tcp", "kme_tpu_torch.cli"):
         assert m in mods
 
 
