@@ -3,7 +3,8 @@
     python3 chip_smoke.py            # the whole run (one card)
 
 Drives the port's main paths — wire JSON -> a session -> the CUDA
-kernels -> MatchOut lines — at full width, and holds each kernel bit for
+kernels -> MatchOut lines — at full width (the seq fleet and the sharded
+lanes engine too, phase 11), and holds each kernel bit for
 bit against its plain PyTorch version. Four paths: three through
 SeqSession and the seq_step kernel, one per configuration, each three
 ways (process_wire's Python line builder; the native host path serially,
@@ -114,14 +115,36 @@ Phases, in order; any failure exits non-zero:
    serve` as a subprocess on the card, fed by the CLI's `loadgen`
    (a harness stream), consumed over TCP: equal to a `device="cpu"`
    service's MatchOut for the same stream;
-11. summary: one `kernels` JSON line, the card line, then the device line
+11. the seq fleet and the sharded lanes engine, at the serve defaults:
+   (a) `SeqMeshSession` over the zipf stream in WireBatches of 1024
+   through `process_wire_buffer`, at 4 shards async, 4 lockstep and 8
+   async, each with the launch counts set to 0 just before: B1's
+   MatchOut, launches = the fleet's dispatches on as many non-default
+   streams as shards (every shard launching), per-shard walls and
+   kernel time by CUDA events, `stall_stats`, `shard_stats` and phases
+   (`plan_s`, `rebalance_s`, `migrate_s`), and `export_canonical_global`
+   with the digest of a serial card session's `export_canonical` after
+   the same batches; (b) `zipf_hot_stream` (20,000 events, 1024
+   symbols, 4096 accounts) at 4 shards in slices of 1024: the serial
+   card session's MatchOut, with migrations; (c) a fresh 4-shard fleet
+   fed up to batch 12, where each shard's first segment is launched
+   from a copy of its state taken on its stream and replayed from that
+   copy through the plain version (state planes, header rows and used
+   fill prefix bit-equal); (d) `LaneSession(shards=4)` (full width, its
+   sharded step graph captured first) over the first 20,000 messages:
+   B1's lines for them, no row-copy launch, ms per padded step (a cut:
+   the whole stream runs at one shard in phase 7). The fleet's launches
+   are added to B1's on the kernels line;
+12. summary: one `kernels` JSON line, the card line, then the device line
    last.
 
 `plain_ms` in the kernels line is the plain version's time per call:
 host-clock time on the CPU for the seq kernel's entries (its plain
 version is a Python interpreter of the kernel), CUDA-event time on the
 card for the row copies and the rows-in-use kernel (whose plain versions
-are torch ops). `seq_rows_in_use` is the prologue of the deep-book
+are torch ops). `seq_step` (B1) counts the launches of phase 4's main
+path and of the fleet's runs (11a, 11b); its `max_abs_err` includes
+phase 11c's. `seq_rows_in_use` is the prologue of the deep-book
 configurations of the seq kernel; its `launches` are those of the B3 main
 path, its `max_abs_err` is over every state of phases 3b-3d that it was
 held against its plain version on, its times are phase 3d's. The
@@ -186,6 +209,14 @@ JAVA_CKPT_EVERY = 50_000
 LANES_PREFIX, LANES_CUT = 20_000, 10_240
 CLI_EVENTS = 10_000
 LANES_WIDTH = 8             # kme-serve --width default
+# phase 11: the fleet's runs (shards, dispatch) over the zipf stream, the
+# zipf-hot stream of 11b, the batch whose segments 11c replays, and the
+# sharded lanes run of 11d (its shards; the prefix is LANES_PREFIX)
+FLEET_RUNS = ((4, "async"), (4, "lockstep"), (8, "async"))
+HOT_STREAM = dict(num_events=20_000, num_symbols=1024, num_accounts=4096,
+                  seed=0)
+FLEET_CHECK_BATCH = 12
+FLEET_LANES_SHARDS = 4
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 ROW_BYTES = 128 * 4
 JAVA_HASH = ("hka_lo", "hka_hi", "hkb_lo", "hkb_hi", "hstate",
@@ -1613,6 +1644,316 @@ def serving_phase(SQ, rowdma, zipf, java_msgs, b1, card):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the seq fleet and the sharded lanes engine
+
+
+def canon_digest(canon) -> str:
+    """sha256 over a canonical state dict's arrays (name, dtype, shape,
+    bytes), in name order."""
+    import numpy as np
+
+    h = hashlib.sha256()
+    for k in sorted(canon):
+        if canon[k] is None:
+            continue
+        a = np.ascontiguousarray(np.asarray(canon[k]))
+        h.update(f"{k} {a.dtype} {a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def buffer_lines(parts, nmsgs):
+    """The MatchOut lines of the first `nmsgs` messages of
+    process_wire_buffer results."""
+    out = []
+    done = 0
+    for buf, off, msg_lines in parts:
+        li = 0
+        for nl in msg_lines.tolist():
+            if done == nmsgs:
+                return out
+            out.extend(buf[off[li + k]:off[li + k + 1]].decode()
+                       for k in range(nl))
+            li += nl
+            done += 1
+    return out
+
+
+@contextlib.contextmanager
+def stream_kernel_events(SQ):
+    """CUDA events around every seq_scan call, on the stream it launches
+    on; yields {stream handle: [(start, end), ...]}."""
+    import torch
+
+    orig, by_stream = SQ.seq_scan, collections.defaultdict(list)
+
+    def timed(*a, **kw):
+        stream = torch.cuda.current_stream()
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record(stream)
+        out = orig(*a, **kw)
+        ev[1].record(stream)
+        by_stream[stream.cuda_stream].append(ev)
+        return out
+
+    SQ.seq_scan = timed
+    try:
+        yield by_stream
+    finally:
+        SQ.seq_scan = orig
+
+
+def fleet_run(SQ, SM, cfg, shards, mode, batches, want, want_canon, label,
+              want_name="B1's"):
+    """One fleet run over `batches` (WireBatches) through
+    process_wire_buffer, the launch counts set to 0 just before and read
+    just after: MatchOut `want` (`want_name`'s), launches = the fleet's
+    dispatches with
+    every shard launching on its own (non-default) stream, and, when
+    `want_canon` is given, the stitched canonical state's digest. ->
+    (the session, its launches, its MatchOut parts, its wall s)."""
+    import torch
+
+    ses = SM.SeqMeshSession(cfg, shards, dispatch=mode)
+    zero_launches(SQ.LAUNCHES)
+    parts = []
+    with stream_kernel_events(SQ) as evs:
+        t = time.perf_counter()
+        for b in batches:
+            r = ses.process_wire_buffer(b)
+            if r is None:
+                fail(f"{label}: process_wire_buffer gave None")
+            parts.append(r)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    launches = dict(SQ.LAUNCHES)
+    nmsgs = sum(b.n for b in batches)
+    got = buffer_digest(parts)
+    if got != want:
+        fail(f"{label}: MatchOut {got[0]} lines sha256 {got[1]} != "
+             f"{want[0]} lines sha256 {want[1]}")
+    if (launches["fixed"] != ses.dispatches or ses.dispatches == 0
+            or launches["java"] or launches["rows_in_use"]):
+        fail(f"{label}: launches {launches} for {ses.dispatches} "
+             f"dispatches")
+    default = torch.cuda.default_stream().cuda_stream
+    if (len(evs) != shards or default in evs
+            or not (ses.shard_dispatches > 0).all()):
+        fail(f"{label}: launches on {len(evs)} streams (default stream "
+             f"among them: {default in evs}), per shard "
+             f"{ses.shard_dispatches.tolist()}")
+    kern = {h: sum(e0.elapsed_time(e1) for e0, e1 in pairs) / 1e3
+            for h, pairs in evs.items()}
+    kern_s = sorted(kern.values(), reverse=True)
+    stats = ses.stall_stats()
+    log(f"{label}: {nmsgs} messages in {wall:.3f} s = {nmsgs / wall:.0f} "
+        f"msg/s (host clock, synchronized); MatchOut == {want_name} "
+        f"({got[0]} "
+        f"lines, sha256 {got[1]}); {ses.dispatches} kernel launches on "
+        f"{len(evs)} shard streams (per shard "
+        f"{ses.shard_dispatches.tolist()})")
+    log(f"{label} per-shard walls (s, CUDA events, first submit to last "
+        f"segment's end, summed over batches): "
+        f"{[round(float(w), 4) for w in ses.walls_total]}; kernel time per "
+        f"shard stream (s, CUDA events around each seq_scan): "
+        f"{[round(k, 4) for k in kern_s]}, the busiest "
+        f"{kern_s[0] / wall:.1%} of the wall, all shards "
+        f"{sum(kern_s) / wall:.1%}")
+    log(f"{label} stall_stats {json.dumps(stats)}; shard_stats "
+        f"{json.dumps(ses.shard_stats())}")
+    log(f"{label} phases (s, host clock; dispatch_s holds slice_s, "
+        f"stage_s, launch_s, patch_s and merge_s; fetch_s includes waiting "
+        f"for the kernels; rebalance_s is plan_rebalance, migrate_s the "
+        f"migrations): "
+        + json.dumps({k: round(v, 4) for k, v in ses.phases.items()}))
+    if want_canon is not None:
+        t = time.perf_counter()
+        dig = canon_digest(ses.export_canonical_global())
+        if dig != want_canon:
+            fail(f"{label}: export_canonical_global digest {dig} != the "
+                 f"serial session's {want_canon}")
+        log(f"{label}: export_canonical_global == the serial card "
+            f"session's export_canonical (sha256 {dig}, "
+            f"{time.perf_counter() - t:.2f} s)")
+    return ses, launches["fixed"], parts, wall
+
+
+def fleet_segments_checked(SQ, SM, cfg, batches, label):
+    """11c: a fresh 4-shard async fleet fed the batches up to
+    FLEET_CHECK_BATCH; in that batch each shard's first segment is
+    launched from a copy of the shard's state taken on its stream just
+    before, and replayed from that copy through the plain version:
+    output planes (header rows and used fill prefix of every window) and
+    the state after must be bit-equal. -> max abs err."""
+    import torch
+
+    class Recorded(SM.SeqMeshSession):
+        recording = False
+
+        def _stage_and_dispatch(self, s, win_idx, seg):
+            if not self.recording or s in self.taken:
+                return super()._stage_and_dispatch(s, win_idx, seg)
+            with self._on(s):
+                pre = {k: v.clone() for k, v in self._shard_states[s].items()}
+            out = super()._stage_and_dispatch(s, win_idx, seg)
+            with self._on(s):
+                post = {k: v.clone()
+                        for k, v in self._shard_states[s].items()}
+            self.taken[s] = (dict(seg), pre, post, out)
+            return out
+
+    ses = Recorded(cfg, 4)
+    ses.taken = {}
+    for i, b in enumerate(batches[:FLEET_CHECK_BATCH + 1]):
+        ses.recording = i == FLEET_CHECK_BATCH
+        ses.process_wire_buffer(b)
+    torch.cuda.synchronize()
+    if sorted(ses.taken) != [0, 1, 2, 3]:
+        fail(f"{label}: batch {FLEET_CHECK_BATCH} launched on shards "
+             f"{sorted(ses.taken)} only")
+    lcfg, max_err, msgs, plain_s = ses.local_cfg, 0, 0, 0.0
+    for s, (seg, pre, post, out) in sorted(ses.taken.items()):
+        ref_state = {k: v.cpu() for k, v in pre.items()}
+        stacked = {f: torch.from_numpy(seg[f]) for f in SQ.MSG_FIELDS}
+        t = time.perf_counter()
+        ref_out = SQ.seq_scan_reference(lcfg, ref_state, stacked)
+        plain_s += time.perf_counter() - t
+        for i in range(ref_out.shape[0]):
+            err, bad = planes_equal(SQ, lcfg, post, ref_state, out.out[i],
+                                    ref_out[i])
+            max_err = max(max_err, err)
+            if bad:
+                fail(f"{label}: shard {s} window {seg_win(out, i)}: kernel "
+                     f"!= plain version in {bad} (max abs err {err})")
+        msgs += int((seg["act"] != 0).sum())
+        log(f"{label}: shard {s}'s first segment of batch "
+            f"{FLEET_CHECK_BATCH} ({len(out.win_idx)} windows, "
+            f"{int((seg['act'] != 0).sum())} messages, fill_total "
+            f"{[int(out.out[i][0, 1]) for i in range(len(out.win_idx))]}) "
+            f"== the plain version on a copy of its pre-state, bit for bit "
+            f"(state planes, header rows, used fill prefix)")
+    log(f"{label}: {msgs} messages over 4 shard segments, plain version "
+        f"{plain_s:.2f} s on the host CPU, max abs err {max_err}")
+    return max_err
+
+
+def seg_win(seg, i):
+    return seg.win_idx[i] if i < len(seg.win_idx) else f"pad {i}"
+
+
+def fleet_phase(SQ, SS, SM, L, LS, rowdma, zipf, batches, WireBatch,
+                zipf_hot_stream, card):
+    """Phase 11 (see the module docstring). -> (B1 launches of the fleet
+    runs, max abs err of 11c)."""
+    import torch
+
+    cfg = SQ.SeqConfig(**FULL)
+    want = B1_MATCHOUT
+    # the serial card session over the same batches: its canonical
+    # state, and B1's lines of the lanes prefix
+    t_phase = time.perf_counter()
+    serial = SS.SeqSession(cfg)
+    parts = [serial.process_wire_buffer(b) for b in batches]
+    if buffer_digest(parts) != want:
+        fail("fleet: the serial card session's MatchOut != B1's")
+    want_canon = canon_digest(SQ.export_canonical(cfg, serial.state))
+    prefix = buffer_lines(parts, LANES_PREFIX)
+    del serial, parts
+    log(f"fleet: the serial card session's export_canonical sha256 "
+        f"{want_canon}")
+
+    # ---- 11a. the fleet over the zipf stream
+    launches = 0
+    for shards, mode in FLEET_RUNS:
+        label = f"fleet {shards} {mode}"
+        ses, n, _, _ = fleet_run(SQ, SM, cfg, shards, mode, batches, want,
+                                 want_canon, label)
+        launches += n
+        del ses
+    log(f"phase 11a took {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 11b. zipf-hot: migrations, against the serial card session
+    t_phase = time.perf_counter()
+    hot = zipf_hot_stream(**HOT_STREAM)
+    hot_batches = [WireBatch.from_msgs(hot[lo:lo + cfg.batch])
+                   for lo in range(0, len(hot), cfg.batch)]
+    serial = SS.SeqSession(cfg)
+    hot_want = buffer_digest([serial.process_wire_buffer(b)
+                              for b in hot_batches])
+    del serial
+    ses, n, _, _ = fleet_run(SQ, SM, cfg, 4, "async", hot_batches, hot_want,
+                             None, "fleet zipf-hot 4 async",
+                             "the serial card session's")
+    launches += n
+    if ses.shard_stats()["migrations"] == 0:
+        fail("fleet zipf-hot: no migration")
+    log(f"fleet zipf-hot: {len(hot)} messages in slices of {cfg.batch}, "
+        f"MatchOut == the serial card session's ({hot_want[0]} lines, "
+        f"sha256 {hot_want[1]}); {ses.shard_stats()['migrations']} lanes "
+        f"migrated in {ses.shard_stats()['rebalances']} rebalances")
+    del ses
+    log(f"phase 11b took {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 11c. B1 on the fleet's streams against its plain version
+    t_phase = time.perf_counter()
+    max_err = fleet_segments_checked(SQ, SM, cfg, batches, "fleet check")
+    log(f"phase 11c took {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- 11d. the sharded lanes engine over the zipf prefix (a cut: the
+    # whole stream runs at one shard in phase 7)
+    t_phase = time.perf_counter()
+    P = LANES_PREFIX
+    ses = LS.LaneSession(L.LaneConfig(**LANES), shards=FLEET_LANES_SHARDS)
+    t = time.perf_counter()
+    ses.capture()             # set-up, like the kernels' build
+    capture_s = time.perf_counter() - t
+    zero_launches(rowdma.LAUNCHES)
+    spans = []
+    orig = ses._replay
+
+    def replay(T):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        orig(T)
+        ev[1].record()
+        spans.append(ev)
+
+    ses._replay = replay
+    lines = []
+    t = time.perf_counter()
+    for lo in range(0, P, cfg.batch):
+        for per in ses.process_wire(zipf[lo:min(lo + cfg.batch, P)]):
+            lines.extend(per)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if lines != prefix:
+        fail(f"sharded lanes: MatchOut of the first {P} messages != B1's")
+    if any(rowdma.LAUNCHES.values()):
+        fail(f"sharded lanes: row-copy launches {dict(rowdma.LAUNCHES)}")
+    st = ses.graph_stats
+    if st["captures"] != 1 or st["replays"] != ses.steps:
+        fail(f"sharded lanes: graph stats {st} for {ses.steps} steps")
+    dev_ms = sum(e0.elapsed_time(e1) for e0, e1 in spans)
+    log(f"sharded lanes {FLEET_LANES_SHARDS} shards: {P} messages in "
+        f"{wall:.3f} s = {P / wall:.0f} msg/s (host clock, synchronized); "
+        f"MatchOut == B1's for those messages ({len(lines)} lines); "
+        f"{ses.steps} padded steps, {wall * 1e3 / ses.steps:.4f} ms per "
+        f"padded step on the host clock, {dev_ms / ses.steps:.4f} ms per "
+        f"padded step between CUDA events around the replays; the sharded "
+        f"step graph captured once in {capture_s:.2f} s (capture "
+        f"{st['capture_s']:.3f} s, instantiate {st['instantiate_s']:.3f} "
+        f"s), {st['replay_s'] * 1e6 / max(st['replays'], 1):.1f} µs of host "
+        f"per replay; no row-copy launch")
+    log(f"sharded lanes phases (s, host clock): "
+        + json.dumps({k: round(v, 4) for k, v in ses.phases.items()}))
+    del ses
+    log(f"phase 11d took {time.perf_counter() - t_phase:.1f} s")
+    return launches, max_err
+
+
 def main() -> int:
     try:
         import torch
@@ -1630,7 +1971,9 @@ def main() -> int:
         from kme_tpu_torch.runtime import session as LS
         from kme_tpu_torch.runtime.seqsession import SeqRouter, SeqSession
         from kme_tpu_torch.wire import WireBatch, dumps_order, parse_order
+        from kme_tpu_torch.parallel import seqmesh as SM
         from kme_tpu_torch.workload import (deep_book_stream, harness_stream,
+                                            zipf_hot_stream,
                                             zipf_symbol_stream)
     except ImportError as e:
         fail(f"the port's package is not importable here ({e}); run from "
@@ -1862,7 +2205,20 @@ def main() -> int:
     # ---- 10. serving: the service over TCP, checkpoints, the CLI
     serving_phase(SQ, rowdma, zipf, java_msgs, (b1_lines, b1_sha), card)
 
-    # ---- 11. summary
+    # ---- 11. the seq fleet and the sharded lanes engine; the fleet's
+    # launches of B1 join the main path's
+    t = time.perf_counter()
+    fleet_launches, fleet_err = fleet_phase(
+        SQ, SS, SM, L, LS, rowdma, zipf, wbatches, WireBatch,
+        zipf_hot_stream, card)
+    b1_entry = kernels[0]
+    b1_entry["launches"] += fleet_launches
+    b1_entry["max_abs_err"] = max(b1_entry["max_abs_err"], fleet_err)
+    log(f"phase 11 took {time.perf_counter() - t:.1f} s; B1 launches on "
+        f"the main paths: {b1_entry['launches']} ({fleet_launches} by the "
+        f"fleet)")
+
+    # ---- 12. summary
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

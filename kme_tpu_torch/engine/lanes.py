@@ -348,16 +348,26 @@ def build_lane_step(cfg: LaneConfig, axis_name=None):
     nfill / cap_reject and (X, E) fill arrays at row io["t"] and
     advances it. Nothing in it waits for the card or depends on a host
     value, so LaneSession captures it once into a CUDA graph and replays
-    it T times per window; elsewhere it runs eagerly."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "the sharded (shard_map) lanes step comes with the seq-fleet "
-            "slice of the port")
+    it T times per window; elsewhere it runs eagerly.
+
+    With `axis_name` set, the step is ONE SHARD's block of the sharded
+    step (parallel/mesh.py; full width only): `state` holds the shard's
+    lane block and the shared `bal` / `bal_used`, which it only reads,
+    and the step writes what the JAX package merges across the mesh axis
+    into the shard's delta buffers (`make_shard_deltas`) instead of
+    applying it: the dense balance delta (summed), the created flags
+    (ORed), the metric deltas and the fills and depth histogram deltas
+    (summed), and its non-NOP count (summed BEFORE bucketing into the
+    occupancy row). It does not advance io["t"]: the sharded step merges
+    and advances after its shards are joined."""
     S, N, A, E = cfg.lanes, cfg.slots, cfg.accounts, cfg.max_fills
     compact = cfg.width > 0
     X = cfg.width if compact else S
+    sharded = axis_name is not None
     if cfg.pos_dma and not compact:
         raise ValueError("pos_dma requires active-lane compaction")
+    if sharded and compact:
+        raise ValueError("the sharded step is full width (width=0)")
     twoE = 2 * E
     # metric rows counted from boolean masks (the rest: FILLS, CONTRACTS
     # from sums; BARRIERS in the settle)
@@ -595,33 +605,48 @@ def build_lane_step(cfg: LaneConfig, axis_name=None):
             cancel_ok & (c_adj != 0)))[:, None])
 
         # ------------------------------------------- balance delta merge
-        st["bal"].index_add_(0, aid, size * transfer_ok
-                             + (credit - risk) * trade_acc
-                             + c_release * cancel_ok)
-        created = torch.zeros(A, dtype=_I32, device=act.device).index_add_(
-            0, aid, create_ok.to(_I32))
-        st["bal_used"].logical_or_(created > 0)
+        delta = (size * transfer_ok + (credit - risk) * trade_acc
+                 + c_release * cancel_ok)
+        if sharded:
+            st["d_bal"].zero_().index_add_(0, aid, delta)
+            st["d_created"].zero_().index_add_(0, aid, create_ok.to(_I32))
+        else:
+            st["bal"].index_add_(0, aid, delta)
+            created = torch.zeros(A, dtype=_I32,
+                                  device=act.device).index_add_(
+                0, aid, create_ok.to(_I32))
+            st["bal_used"].logical_or_(created > 0)
 
         # ------------------------------------------------ metrics delta
         not_nop = act != L_NOP
         ok = (trade_acc | cancel_ok | create_ok | transfer_ok | addsym_ok
               | ~not_nop)
         nfill_acc = nfill * trade_acc
-        st["metrics"].index_add_(0, c["met_bool"], torch.stack([
+        met = st["d_metrics"].zero_() if sharded else st["metrics"]
+        met.index_add_(0, c["met_bool"], torch.stack([
             not_nop, trade_acc, cap_reject, is_trade & ~trade_ok, do_rest,
             cancel_ok, is_cancel & ~cancel_ok, transfer_ok,
             (act >= L_CREATE) & ~ok]).sum(1))
-        st["metrics"][MET_FILLS:MET_CONTRACTS + 1] += torch.stack(
+        met[MET_FILLS:MET_CONTRACTS + 1] += torch.stack(
             [nfill_acc, filled_total.to(_I64) * trade_acc]).sum(1)
 
         # ---------------------------------------------- histogram deltas
         # fills per accepted trade; book depth AFTER each accepted
         # trade/cancel; non-NOP messages per step (when > 0)
         occ = not_nop.sum(0, keepdim=True)
-        v = torch.cat([nfill, slot_used.reshape(X, 2 * N).sum(1), occ])
-        st["hist"].view(-1).index_add_(
-            0, hist_bucket(v, c["thr"]) + c["hoff"],
-            torch.cat([trade_acc, trade_acc | cancel_ok, occ > 0]).to(_I64))
+        depth = slot_used.reshape(X, 2 * N).sum(1)
+        if sharded:
+            v = torch.cat([nfill, depth])
+            st["d_hist"].zero_().view(-1).index_add_(
+                0, hist_bucket(v, c["thr"]) + c["hoff"][:2 * X],
+                torch.cat([trade_acc, trade_acc | cancel_ok]).to(_I64))
+            st["d_occ"].copy_(occ)
+        else:
+            v = torch.cat([nfill, depth, occ])
+            st["hist"].view(-1).index_add_(
+                0, hist_bucket(v, c["thr"]) + c["hoff"],
+                torch.cat([trade_acc, trade_acc | cancel_ok,
+                           occ > 0]).to(_I64))
 
         if compact:
             # duplicate indices only occur on the scrap lane, whose rows
@@ -687,9 +712,25 @@ def build_lane_step(cfg: LaneConfig, axis_name=None):
             [outs[k].to(_I64) for k in _OUT_FIELDS])[None])
         io["fills"].index_copy_(0, t, torch.stack(
             [outs[k].to(_I64) for k in _FILL_FIELDS])[None])
-        t.add_(1)
+        if not sharded:
+            t.add_(1)
 
     return step
+
+
+def make_shard_deltas(cfg: LaneConfig, device) -> dict:
+    """One shard's delta buffers, which its sharded step writes (see
+    `build_lane_step`): "d_bal" (A,) int64, "d_created" (A,) int32,
+    "d_metrics" (12,) int64, "d_hist" (2, 16) int64 (fills, depth),
+    "d_occ" (1,) int64."""
+    dev = torch.device(device)
+    return {
+        "d_bal": torch.zeros(cfg.accounts, dtype=_I64, device=dev),
+        "d_created": torch.zeros(cfg.accounts, dtype=_I32, device=dev),
+        "d_metrics": torch.zeros(N_METRICS, dtype=_I64, device=dev),
+        "d_hist": torch.zeros((2, N_HIST_BUCKETS), dtype=_I64, device=dev),
+        "d_occ": torch.zeros(1, dtype=_I64, device=dev),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -847,10 +888,12 @@ def build_barrier_ops(cfg: LaneConfig, axis_name=None):
     whether the book exists) once per barrier and loops over those
     orders only. PAYOUT then credits `amount * size` per holder (YES) or
     just deletes positions (NO). mode: 0 = REMOVE_SYMBOL, 1 = PAYOUT
-    YES, 2 = PAYOUT NO."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "the sharded settle comes with the seq-fleet slice of the port")
+    YES, 2 = PAYOUT NO.
+
+    With `axis_name` set it is one shard's settle (parallel/mesh.py): the
+    shard's lane block and the shared balances and counters, `lane` the
+    LOCAL lane on the owning shard and -1 on the others, which leave the
+    state as it was (they contribute zero) and return False."""
     N, A = cfg.slots, cfg.accounts
 
     def _pos_row(st, key, lane):
@@ -869,6 +912,8 @@ def build_barrier_ops(cfg: LaneConfig, axis_name=None):
             st[key][lane * A:(lane + 1) * A] = row64
 
     def settle(state, lane: int, credit_size: int, mode: int) -> bool:
+        if axis_name is not None and lane < 0:
+            return False
         used = state["slot_used"][lane]                     # (2, N)
         n_used, do = torch.stack([
             used.sum(), state["book_exists"][lane].to(_I64)]).tolist()

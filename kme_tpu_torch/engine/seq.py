@@ -406,6 +406,45 @@ def export_java(cfg: SeqConfig, state) -> dict:
     }
 
 
+# the replicated balance planes (account a -> row a >> 7, lane a & 127):
+# the only cross-shard-coupled state that the fleet (parallel/seqmesh.py)
+# forwards point to point and select-merges at barriers
+BAL_KEYS = ("bal_lo", "bal_hi", "bal_u")
+
+
+def select_balances(planes_by_shard, sel) -> dict:
+    """Merge per-shard copies of the replicated balance planes by
+    per-account OWNER SELECTION: sel[a] names the shard whose copy of
+    account a is authoritative. Exact by construction — under the fleet's
+    window invariant an account's balance only ever advances on the shard
+    it is currently bound to, so a select needs no arithmetic merge (and
+    trivially preserves Java-long wrap).
+
+    planes_by_shard: per-shard dicts of BAL_KEYS -> (arows, 128) int32
+    numpy planes. sel: (arows*128,) int shard index per flat account
+    slot. Returns the merged (arows, 128) planes. The semantics
+    authority of `select_balances_t`."""
+    stacked = {k: np.stack([p[k] for p in planes_by_shard])
+               for k in BAL_KEYS}
+    arows, lanes = stacked[BAL_KEYS[0]].shape[1:]
+    idx = sel.reshape(arows, lanes)
+    r = np.arange(arows, dtype=np.int64)[:, None]
+    c = np.arange(lanes, dtype=np.int64)[None, :]
+    return {k: stacked[k][idx, r, c] for k in BAL_KEYS}
+
+
+def select_balances_t(planes_by_shard, sel: torch.Tensor) -> dict:
+    """`select_balances` on tensors, on their device: the planes are
+    stacked per key and each account's value gathered from its owner's
+    copy. sel: (arows*128,) int64 on the planes' device."""
+    out = {}
+    for k in BAL_KEYS:
+        st = torch.stack([p[k] for p in planes_by_shard])   # (S, arows, 128)
+        flat = st.reshape(st.shape[0], -1)
+        out[k] = flat.gather(0, sel.reshape(1, -1))[0].reshape(st.shape[1:])
+    return out
+
+
 def _wrap32(v: int) -> int:
     v &= 0xFFFFFFFF
     return v - (1 << 32) if v & 0x80000000 else v

@@ -24,7 +24,7 @@ from kme_tpu_torch.native import BoundaryError, check_buffer, load_library
 from kme_tpu_torch.runtime.sequencer import (Barrier, CapacityError,
                                              EnvelopeError, HostReject,
                                              Schedule)
-from kme_tpu_torch.utils import jlong
+from kme_tpu_torch.utils import jlong, pow2_bucket
 from kme_tpu_torch.wire import OrderMsg
 
 _ST_CAP_ACCOUNTS, _ST_CAP_SYMBOLS = 1, 2
@@ -194,6 +194,49 @@ class NativeScheduler:
 
     def sid_of_lane(self) -> Dict[int, int]:
         return {lane: sid for sid, lane in self.sid_lane.items()}
+
+
+def apply_placement(perm, lanes, s_local: int):
+    """Apply the fleet planner's elastic placement table to a routed lane
+    column in one vectorized pass: global lane -> global slot
+    (`perm[lane]`), then (shard, local_row) = divmod(slot, s_local).
+    Returns (slot, shard, local_row), each shaped like `lanes`."""
+    lanes64 = lanes.astype(np.int64, copy=False)
+    slot = perm[lanes64]
+    return slot, slot // s_local, slot % s_local
+
+
+def slice_windows(wins: dict, win_idx, shard: int, shards: int,
+                  bw: int) -> dict:
+    """Slice ONE shard's rows for a set of windows out of the stacked
+    (K, shards*bw) int32 scan-input planes into dense (kpad, bw) per-field
+    segment planes, zero-padded to a power-of-two window count (padding
+    rows are all-zero NOP windows, a no-op through the kernel): the
+    staging step of the fleet's per-shard submission queues. One native
+    call per field (kme_shard_slice); under KME_NATIVE=0 the numpy view
+    below, which gives the same bytes."""
+    n = len(win_idx)
+    kpad = pow2_bucket(max(n, 1), lo=1)
+    idx = np.fromiter(win_idx, np.int64, n)
+    out = {}
+    lib = load_library()
+    if lib is not None:
+        iptr = idx.ctypes.data_as(_P64)
+        for f, v in wins.items():
+            src = check_buffer(f"slice_windows.{f}", v.reshape(-1),
+                               np.int32, v.shape[0] * shards * bw)
+            dst = np.zeros((kpad, bw), np.int32)
+            lib.kme_shard_slice(
+                src.ctypes.data_as(_P32), v.shape[0], shards, bw,
+                shard, iptr, n, kpad, dst.ctypes.data_as(_P32))
+            out[f] = dst
+        return out
+    for f, v in wins.items():
+        dst = np.zeros((kpad, bw), np.int32)
+        if n:
+            dst[:n] = v.reshape(v.shape[0], shards, bw)[idx, shard]
+        out[f] = dst
+    return out
 
 
 # -- batch host-path entry points (one C++ call per stage) ----------------

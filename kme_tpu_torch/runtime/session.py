@@ -1,6 +1,6 @@
 """LaneSession: the host half of the sweep (lanes) engine.
 
-The port of `kme_tpu/runtime/session.py`, single device. Plans a message
+The port of `kme_tpu/runtime/session.py`. Plans a message
 batch (runtime/sequencer.py), packs each scan window into COMPACT (M,)
 message vectors with (t, lane) schedule coordinates, dispatches the
 windows and barrier settles, then fetches the compacted outputs once
@@ -21,7 +21,9 @@ the session's static window buffers and its state tensors, and captured
 again whenever a state tensor is replaced (`load_numpy`,
 `import_canonical`, or assigning `state`): the JAX package jits the
 window's `lax.scan` instead. A failed capture or replay raises. On the
-CPU the same step runs eagerly.
+CPU the same step runs eagerly. With `shards > 1` the step is the
+sharded one (parallel/mesh.py: full width, each shard's lane block on
+its own stream, merged after the join), captured into the graph whole.
 
 Also the port's copy of `LaneEngineError` and its name table, with the
 seq kernel's codes.
@@ -40,6 +42,7 @@ from kme_tpu_torch import opcodes as op
 from kme_tpu_torch import wire as W
 from kme_tpu_torch.engine import lanes as L
 from kme_tpu_torch.ops import rowdma
+from kme_tpu_torch.parallel import mesh
 from kme_tpu_torch.runtime.sequencer import Schedule, make_scheduler
 from kme_tpu_torch.telemetry import Registry
 from kme_tpu_torch.utils import jlong, pow2_bucket
@@ -99,26 +102,28 @@ class _WindowRun:
 
 
 class LaneSession:
-    """Fixed-mode engine over the sweep step, on one device.
+    """Fixed-mode engine over the sweep step.
 
     The state lives on `device` (default the card; `device="cpu"` runs
-    the row-copy kernels' plain versions)."""
+    the row-copy kernels' plain versions). With shards > 1 the lane axis
+    is split into `shards` blocks, each stepped on its own stream
+    (parallel/mesh.py); the output stream is bit-identical for any shard
+    count."""
 
     def __init__(self, cfg: L.LaneConfig, shards: int = 1,
                  width: int = 16, device="cuda") -> None:
         """width > 0 enables active-lane compaction: the scheduler caps
         each scan step at `width` messages and the device computes
         (T, width) message slots instead of (T, S) lanes. cfg.width, if
-        set, wins over the argument."""
-        if shards > 1:
-            raise NotImplementedError(
-                "the sharded lanes engine (shards > 1) comes with the "
-                "seq-fleet slice of the port")
+        set, wins over the argument; the sharded path is always full
+        width."""
         Wd = cfg.width if cfg.width > 0 else width
         # at most one message per lane per step can ever be scheduled, so
         # wider-than-S slots would be permanently dead padding
         Wd = max(min(Wd, cfg.lanes), 0)
-        self.shards = 1
+        if shards > 1:
+            Wd = 0
+        self.shards = shards
         self.cfg = cfg = dataclasses.replace(cfg, width=0, pos_dma=False)
         # compaction reserves the last device lane as the padding scrap
         # lane; positions become planar int32 rows moved by the row-copy
@@ -141,7 +146,12 @@ class LaneSession:
         self.graph_stats = {"captures": 0, "capture_s": 0.0,
                             "instantiate_s": 0.0, "replays": 0,
                             "replay_s": 0.0}
-        self._settle = L.build_barrier_ops(self.dev_cfg)
+        if shards > 1:
+            self._step = mesh.ShardedStep(self.dev_cfg, shards, self.device)
+            self._settle = mesh.build_sharded_settle(self.dev_cfg, shards)
+        else:
+            self._step = L.build_lane_step(self.dev_cfg)
+            self._settle = L.build_barrier_ops(self.dev_cfg)
         self._gauges = L.build_gauges(self.dev_cfg)
         self.scheduler = make_scheduler(cfg.lanes, cfg.accounts, width=Wd)
         # the metrics surface the service shares (counters, gauges and
@@ -217,7 +227,7 @@ class LaneSession:
         if key == self._graph_key:
             return
         self._graph = self._graph_key = None
-        step = L.build_lane_step(self.dev_cfg)
+        step = self._step
         # warm up on a side stream (loads the kernels) with every slot a
         # NOP, which leaves the state as it was
         L.idle_step_io(self.dev_cfg, self._io)
@@ -271,7 +281,10 @@ class LaneSession:
             run = self._replay
         dev = src.to(self.device, non_blocking=True)
         cbt = dict(zip(CB_FIELDS, dev.unbind(0)))
-        chunk = L.build_lane_chunk(self.dev_cfg, T, M)
+        if self.shards > 1:
+            chunk = mesh.build_sharded_chunk(self.dev_cfg, T, M, self._step)
+        else:
+            chunk = L.build_lane_chunk(self.dev_cfg, T, M)
         self.state, outs = chunk(self.state, cbt, io=self._io, run=run)
         self.steps += T
         return outs

@@ -1,8 +1,9 @@
 """Workload generation — a seeded port of the reference's e2e load
 generator (exchange_test.js).
 
-The port's own copy of `WorkloadGen`, `harness_stream` and
-`zipf_symbol_stream` from `kme_tpu/workload.py`: for a seed they yield
+The port's own copy of `WorkloadGen`, `harness_stream`,
+`zipf_symbol_stream`, `zipf_hot_stream` and `payout_storm_stream` from
+`kme_tpu/workload.py`: for a seed they yield
 the same streams (tests/test_torch_port.py holds them equal), so the
 port's smoke run and benchmarks need no `kme_tpu` import.
 
@@ -176,6 +177,44 @@ def harness_stream(num_events: int = 100_000, seed: int = 0,
     return list(gen.stream(num_events))
 
 
+def _funded(gen: WorkloadGen, num_accounts: int, num_symbols: int,
+            deposit: int) -> List[OrderMsg]:
+    """The scale profiles' preamble: every account created and funded
+    with `deposit`, then every symbol added."""
+    msgs: List[OrderMsg] = []
+    for aid in range(num_accounts):
+        msgs.append(gen.create_account(aid))
+        msgs.append(gen.create_transfer(aid, deposit))
+    for sid in range(num_symbols):
+        msgs.append(gen.create_symbol(sid))
+    return msgs
+
+
+def _zipf_cdf(n: int, zipf_a: float) -> List[float]:
+    """Cumulative Zipf weights over ranks 0..n-1."""
+    weights = [1.0 / (r + 1) ** zipf_a for r in range(n)]
+    total = sum(weights)
+    cdf = []
+    acc = 0.0
+    for w in weights:
+        acc += w / total
+        cdf.append(acc)
+    return cdf
+
+
+def _trade_or_cancel(gen: WorkloadGen, aid: int, sid: int,
+                     e: int) -> OrderMsg:
+    """The scale profiles' event mix per mille `e`: 450 buys, 450 sells,
+    100 cancels."""
+    if e < 450:
+        return gen.create_buy(aid, sid, gen._normal_param(50, 10),
+                              gen._normal_param(50, 10))
+    if e < 900:
+        return gen.create_sell(aid, sid, gen._normal_param(50, 10),
+                               gen._normal_param(50, 10))
+    return gen.create_cancel()
+
+
 def zipf_symbol_stream(num_events: int, num_symbols: int, num_accounts: int,
                        seed: int = 0, zipf_a: float = 1.2,
                        deposit: int = 10_000_000,
@@ -186,20 +225,9 @@ def zipf_symbol_stream(num_events: int, num_symbols: int, num_accounts: int,
     of the settled symbol so its lane stays live)."""
     gen = WorkloadGen(num_accounts, num_symbols, seed=seed, validate=True,
                       payout_opcode_bug=False)
-    msgs: List[OrderMsg] = []
-    for aid in range(num_accounts):
-        msgs.append(gen.create_account(aid))
-        msgs.append(gen.create_transfer(aid, deposit))
-    for sid in range(num_symbols):
-        msgs.append(gen.create_symbol(sid))
+    msgs = _funded(gen, num_accounts, num_symbols, deposit)
     # Zipf ranks over symbols, uniform accounts
-    weights = [1.0 / (r + 1) ** zipf_a for r in range(num_symbols)]
-    total = sum(weights)
-    cdf = []
-    acc = 0.0
-    for w in weights:
-        acc += w / total
-        cdf.append(acc)
+    cdf = _zipf_cdf(num_symbols, zipf_a)
     for _ in range(num_events):
         u = gen.rng.random()
         sid = bisect.bisect_left(cdf, u)
@@ -208,14 +236,66 @@ def zipf_symbol_stream(num_events: int, num_symbols: int, num_accounts: int,
         if e < payout_per_mille:
             msgs.append(gen.create_payout(sid, gen.rng.random() < 0.5))
             msgs.append(gen.create_symbol(sid))
-        elif e < 450:
-            msgs.append(gen.create_buy(aid, sid, gen._normal_param(50, 10),
-                                       gen._normal_param(50, 10)))
-        elif e < 900:
-            msgs.append(gen.create_sell(aid, sid, gen._normal_param(50, 10),
-                                        gen._normal_param(50, 10)))
         else:
-            msgs.append(gen.create_cancel())
+            msgs.append(_trade_or_cancel(gen, aid, sid, e))
+    return msgs
+
+
+def zipf_hot_stream(num_events: int, num_symbols: int, num_accounts: int,
+                    seed: int = 0, hot_frac: float = 0.7,
+                    zipf_a: float = 1.2,
+                    deposit: int = 10_000_000) -> List[OrderMsg]:
+    """Adversarial profile for static sharding: ONE hot book. Symbol 0
+    takes `hot_frac` of all events outright; the remainder is
+    Zipf-distributed over symbols 1..n-1, so there is a distinctly WARM
+    second-ranked book — the shape that defeats `lane % shards`
+    placement twice over (the hot symbol saturates its shard AND the
+    static hash co-locates the warm book with it, which an elastic
+    planner migrates away). Seed-deterministic."""
+    if num_symbols < 2:
+        raise ValueError("zipf-hot needs >= 2 symbols (hot + cold set)")
+    gen = WorkloadGen(num_accounts, num_symbols, seed=seed, validate=True,
+                      payout_opcode_bug=False)
+    msgs = _funded(gen, num_accounts, num_symbols, deposit)
+    cdf = _zipf_cdf(num_symbols - 1, zipf_a)
+    for _ in range(num_events):
+        if gen.rng.random() < hot_frac:
+            sid = 0
+        else:
+            sid = 1 + bisect.bisect_left(cdf, gen.rng.random())
+        aid = gen._uniform(num_accounts)
+        msgs.append(_trade_or_cancel(gen, aid, sid, gen._uniform(1000)))
+    return msgs
+
+
+def payout_storm_stream(num_events: int, num_symbols: int,
+                        num_accounts: int, seed: int = 0,
+                        storms: int = 3,
+                        deposit: int = 10_000_000) -> List[OrderMsg]:
+    """Mass-settlement burst profile: steady Zipf trading punctuated by
+    `storms` evenly-spaced bursts in which EVERY symbol is paid out
+    (real PAYOUT opcode) and immediately re-ADDed. Each payout is a
+    barrier window in the fleet's planner, so the profile stresses the
+    flush/rebind path and collapses then rebuilds every book at once.
+    Seed-deterministic."""
+    if storms < 1:
+        raise ValueError("payout-storm needs storms >= 1")
+    gen = WorkloadGen(num_accounts, num_symbols, seed=seed, validate=True,
+                      payout_opcode_bug=False)
+    msgs = _funded(gen, num_accounts, num_symbols, deposit)
+    cdf = _zipf_cdf(num_symbols, 1.2)
+    storm_at = {max(1, (i + 1) * num_events // (storms + 1))
+                for i in range(storms)}
+    for k in range(num_events):
+        if k in storm_at:
+            for sid in range(num_symbols):
+                msgs.append(gen.create_payout(sid,
+                                              gen.rng.random() < 0.5))
+                msgs.append(gen.create_symbol(sid))
+            continue
+        sid = bisect.bisect_left(cdf, gen.rng.random())
+        aid = gen._uniform(num_accounts)
+        msgs.append(_trade_or_cancel(gen, aid, sid, gen._uniform(1000)))
     return msgs
 
 

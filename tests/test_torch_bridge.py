@@ -50,6 +50,8 @@ MODES = {
     "seq_serial": SEQ_KW,
     "seq_pipeline2": dict(SEQ_KW, pipeline=2),
     "lanes": dict(SEQ_KW, engine="lanes", slots=64, accounts=64, width=8),
+    "lanes_shards2": dict(SEQ_KW, engine="lanes", slots=64, accounts=64,
+                          width=8, shards=2),
     "seq_java": JAVA_KW,
     "oracle_fixed": dict(HOST_KW, engine="oracle", compat="fixed"),
     "native_fixed": dict(HOST_KW, engine="native", compat="fixed"),
@@ -285,8 +287,10 @@ def test_unported_options_raise(tmp_path):
                      ("watch", ["balance[1]<0"]), ("trace_spans", True)):
         with pytest.raises(NotImplementedError, match="Queue A item 6"):
             SV.MatchService(b, engine="oracle", **{opt: val})
-    with pytest.raises(NotImplementedError, match="shards"):
-        SV.MatchService(b, engine="lanes", shards=2, device="cpu")
+    # the sharded lanes engine is ported: the service builds it
+    svc = SV.MatchService(b, engine="lanes", shards=2, symbols=8,
+                          accounts=128, device="cpu")
+    assert svc._session.shards == 2 and svc._session.dev_cfg.width == 0
     from kme_tpu_torch.bridge import serve
 
     for argv in (["--kafka", "k:1"], ["--group", "0/2"],

@@ -12,7 +12,10 @@ counted per replay; the seq session's pipelined serving on the card
 second-round output copy) against its serial path and the CPU session;
 and the service (seq pipelined, seq java, lanes) on the card against the
 same service on the CPU, with snapshots restored from the card onto the
-CPU and back.
+CPU and back; the seq fleet (its shards on their own CUDA streams) in
+both dispatch modes against the same fleet on the CPU, with a race probe
+that patches accounts across shards in every window; and the sharded
+lanes engine's captured step against the CPU.
 
 Every test here carries the `cuda` marker and skips where
 `torch.cuda.is_available()` is false (a CUDA kernel has no CPU mode).
@@ -595,3 +598,122 @@ def test_card_snapshot_restores_on_cpu_and_back(cuda_device, kind, tmp_path):
         assert off == cut and tail.device.type == dst
         assert tail.process_wire(msgs[cut:]) == want[cut:]
     assert digests[0] == digests[1]
+
+
+# ---------------------------------------------------------------------------
+# the seq fleet and the sharded lanes engine on the card
+
+FLEET_CFG = dict(lanes=8, slots=128, accounts=128, max_fills=16,
+                 pos_cap=1 << 10, probe_max=8)
+
+
+def _fleet(device, shards=4, **kw):
+    from kme_tpu_torch.parallel.seqmesh import SeqMeshSession
+
+    return SeqMeshSession(SQ.SeqConfig(**FLEET_CFG), shards, device=device,
+                          **kw)
+
+
+def _sliced(ses, msgs, n=300):
+    out = []
+    for lo in range(0, len(msgs), n):
+        out.extend(ses.process_wire(msgs[lo:lo + n]))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", ["async", "lockstep"])
+def test_fleet_on_card_matches_cpu(cuda_device, dispatch):
+    """The fleet at 4 shards on the card == on the CPU == one CPU
+    SeqSession, over zipf-hot in slices (migrations between slices) and a
+    zipf stream with PAYOUT barriers; every shard launches the kernel."""
+    from kme_tpu_torch.workload import zipf_hot_stream
+
+    for msgs in (zipf_hot_stream(1200, num_symbols=8, num_accounts=24,
+                                 seed=7),
+                 zipf_symbol_stream(900, num_symbols=8, num_accounts=24,
+                                    seed=11, zipf_a=1.0,
+                                    payout_per_mille=5)):
+        gpu, cpu = _fleet("cuda", dispatch=dispatch), _fleet(
+            "cpu", dispatch=dispatch)
+        single = SeqSession(SQ.SeqConfig(**FLEET_CFG), device="cpu")
+        before = SQ.LAUNCHES["fixed"]
+        got = _sliced(gpu, msgs)
+        assert got == _sliced(cpu, msgs) == single.process_wire(msgs)
+        assert SQ.LAUNCHES["fixed"] > before
+        assert gpu.export_state() == cpu.export_state() == \
+            single.export_state()
+        assert gpu.shard_stats() == cpu.shard_stats()
+        assert gpu.metrics() == cpu.metrics()
+        for k, v in cpu.gather_state().items():
+            assert np.array_equal(gpu.gather_state()[k], v), k
+    assert gpu.shard_stats()["migrations"] >= 0
+
+
+def _race_probe_stream(accounts=16, symbols=8, rounds=12):
+    """Every account trades on a different symbol each round, so its
+    shard changes between windows: every window after the preamble
+    takes point-to-point balance patches."""
+    from kme_tpu_torch import opcodes as op
+    from kme_tpu_torch.wire import OrderMsg
+
+    msgs = []
+    for a in range(accounts):
+        msgs.append(OrderMsg(action=op.CREATE_BALANCE, aid=a))
+        msgs.append(OrderMsg(action=op.TRANSFER, aid=a, size=1_000_000))
+    for sid in range(symbols):
+        msgs.append(OrderMsg(action=op.ADD_SYMBOL, sid=sid))
+    oid = 1
+    for i in range(rounds):
+        for a in range(accounts):
+            buy = (a + i // 2) % 2 == 0
+            msgs.append(OrderMsg(action=op.BUY if buy else op.SELL, oid=oid,
+                                 aid=a, sid=(a + i) % symbols,
+                                 price=48 + (a * 7 + i) % 5,
+                                 size=1 + (a + 3 * i) % 5))
+            oid += 1
+    return msgs
+
+
+@pytest.mark.cuda
+def test_fleet_race_probe_patch_every_window(cuda_device):
+    """Async at 4 shards with a dependency patch in every window: the
+    source's planes must be read as of the window before, on its own
+    stream — a read of its live planes from another stream would race."""
+    msgs = _race_probe_stream()
+    plan = _fleet("cpu", rebalance=False)
+    cols, _ = plan.router.route(msgs)
+    _, placements, _, _ = plan.plan_windows(cols)
+    d = plan.plan_dispatch(cols, placements)
+    assert {w for w, _ in d["deps"]} == set(range(1, d["W"]))
+    for _ in range(3):
+        gpu = _fleet("cuda", rebalance=False)
+        cpu = _fleet("cpu", rebalance=False)
+        assert gpu.process_wire(msgs) == cpu.process_wire(msgs)
+        assert gpu.export_state() == cpu.export_state()
+        assert gpu.metrics()["fills"] == cpu.metrics()["fills"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shards", [2, 4])
+def test_sharded_lane_session_on_card_matches_cpu(cuda_device, shards):
+    """The sharded step (each lane block on its stream, then the merge)
+    replayed from one captured graph == the CPU's eager blocks; it
+    launches no row-copy kernel."""
+    cfg = L.LaneConfig(lanes=8, slots=128, accounts=64, max_fills=16,
+                       steps=32)
+    msgs = zipf_symbol_stream(1500, num_symbols=7, num_accounts=60, seed=4,
+                              payout_per_mille=6)
+    gpu = LaneSession(cfg, shards=shards)
+    cpu = LaneSession(cfg, shards=shards, device="cpu")
+    gpu.capture()
+    before = dict(rowdma.LAUNCHES)
+    for lo in range(0, len(msgs), 700):
+        assert gpu.process_wire(msgs[lo:lo + 700]) == \
+            cpu.process_wire(msgs[lo:lo + 700])
+    assert gpu.graph_stats["captures"] == 1
+    assert gpu.graph_stats["replays"] == gpu.steps
+    assert dict(rowdma.LAUNCHES) == before
+    assert gpu.export_state() == cpu.export_state()
+    assert gpu.metrics() == cpu.metrics()
+    assert gpu.histograms() == cpu.histograms()

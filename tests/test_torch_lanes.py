@@ -334,11 +334,17 @@ def test_chunk_matches_jax_on_carried_state(variant):
 
 
 def test_step_refuses_the_sharded_path_and_wide_compaction():
+    """The sharded step and session exist now (tests/test_torch_shard_
+    lanes.py); what stays refused: a sharded step under compaction, a
+    lane count the shards do not divide, pos_dma at full width, and a
+    chunk wider than the fill log's slack."""
     cfg = L.LaneConfig(**CFG)
-    with pytest.raises(NotImplementedError, match="seq-fleet"):
-        L.build_lane_step(cfg, "shards")
-    with pytest.raises(NotImplementedError, match="seq-fleet"):
-        LaneSession(cfg, shards=2, device="cpu")
+    with pytest.raises(ValueError, match="full width"):
+        L.build_lane_step(dataclasses.replace(cfg, width=8), "shards")
+    with pytest.raises(ValueError, match="divisible"):
+        LaneSession(cfg, shards=3, device="cpu")
+    ses = LaneSession(cfg, shards=2, width=16, device="cpu")
+    assert ses.shards == 2 and ses.dev_cfg == cfg
     with pytest.raises(ValueError, match="pos_dma"):
         L.build_lane_step(dataclasses.replace(cfg, pos_dma=True))
     with pytest.raises(ValueError, match="slack"):

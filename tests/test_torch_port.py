@@ -83,6 +83,8 @@ def test_port_imports_without_jax_or_kme_tpu():
               "kme_tpu_torch.runtime.sequencer",
               "kme_tpu_torch.runtime.checkpoint",
               "kme_tpu_torch.runtime.javasnap", "kme_tpu_torch.faults",
+              "kme_tpu_torch.parallel", "kme_tpu_torch.parallel.seqmesh",
+              "kme_tpu_torch.parallel.mesh",
               "kme_tpu_torch.oracle", "kme_tpu_torch.oracle.engine",
               "kme_tpu_torch.oracle.javalong",
               "kme_tpu_torch.native.oracle", "kme_tpu_torch.telemetry",
@@ -129,6 +131,13 @@ def test_no_silent_cpu_fallback():
     with pytest.raises(RuntimeError, match="CUDA"):
         LaneSession(lcfg)
     with pytest.raises(RuntimeError, match="CUDA"):
+        LaneSession(lcfg, shards=2)
+    # the seq fleet
+    from kme_tpu_torch.parallel.seqmesh import SeqMeshSession
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SeqMeshSession(cfg, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
         L.make_lane_state(lcfg)
     with pytest.raises(RuntimeError, match="CUDA"):
         L.import_canonical(lcfg, L.export_canonical(
@@ -174,9 +183,15 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 
 
 @pytest.mark.parametrize("kind", ["zipf", "zipf_payout", "harness",
-                                  "harness_valid"])
+                                  "harness_valid", "zipf_hot",
+                                  "payout_storm"])
 def test_copied_workload_streams_equal(kind):
-    if kind.startswith("zipf"):
+    if kind in ("zipf_hot", "payout_storm"):
+        name = f"{kind}_stream"
+        kw = dict(num_symbols=9, num_accounts=30, seed=4)
+        a = getattr(JWL, name)(800, **kw)
+        b = getattr(WL, name)(800, **kw)
+    elif kind.startswith("zipf"):
         kw = dict(num_symbols=9, num_accounts=30, seed=4,
                   payout_per_mille=5 if kind == "zipf_payout" else 0)
         a = JWL.zipf_symbol_stream(800, **kw)
