@@ -4,7 +4,8 @@
 
 Drives the port's main paths — wire JSON -> a session -> the CUDA
 kernels -> MatchOut lines — at full width (the seq fleet and the sharded
-lanes engine too, phase 11), and holds each kernel bit for
+lanes engine too, phase 11; the service with its observability on, phase
+12), and holds each kernel bit for
 bit against its plain PyTorch version. Four paths: three through
 SeqSession and the seq_step kernel, one per configuration, each three
 ways (process_wire's Python line builder; the native host path serially,
@@ -135,7 +136,28 @@ Phases, in order; any failure exits non-zero:
    B1's lines for them, no row-copy launch, ms per padded step (a cut:
    the whole stream runs at one shard in phase 7). The fleet's launches
    are added to B1's on the kernels line;
-12. summary: one `kernels` JSON line, the card line, then the device line
+12. the service's observability, at the serve defaults: (a) phase 10a's
+   service over TCP with every option on — a binary journal, the
+   auditor, trace spans, an SLO, the TSDB (heartbeat every 0.5 s), the
+   host profiler, the device plane into a transfer artifact that already
+   holds another backend's entry, trigger captures (each with a 0.5 s
+   torch.profiler window on the card), two watchpoints, /metrics scraped over HTTP every 0.5 s
+   during the run, exactly-once output and checkpoints every 32,768
+   messages: B1's MatchOut, launches = dispatches, no audit violation
+   and `check_engine` [] against the card's state at each of 3 or more
+   checkpoints, the journal's canonical events and the watch hit set
+   equal to what CPU runs of both packages give (OBSERVED_CANON,
+   OBSERVED_HITS), the TSDB and the event log verified, the artifact's
+   `cuda` entry (B1's CUDA-event ms and bytes per dispatch) beside the
+   untouched other entry, seq_scan_kernel slices in the capture's
+   profiler trace; its wall beside 10a's, by span and part; (b) on the
+   first 20,000 messages, the `fill_qty` drill: the auditor trips and
+   `replay_repro` of its dump re-finds it; (c) the `journal_fill_qty@K`
+   drill over a persisted broker log: `xray.bisect` pins batch K and its
+   repro replays; (d) the lanes service (B4/B5) journaled and audited
+   over the same 20,000 messages: B1's lines, `check_engine` [] at its
+   checkpoint and at the end. Its launches join the kernels line;
+13. summary: one `kernels` JSON line, the card line, then the device line
    last.
 
 `plain_ms` in the kernels line is the plain version's time per call:
@@ -143,15 +165,16 @@ host-clock time on the CPU for the seq kernel's entries (its plain
 version is a Python interpreter of the kernel), CUDA-event time on the
 card for the row copies and the rows-in-use kernel (whose plain versions
 are torch ops). `seq_step` (B1) counts the launches of phase 4's main
-path and of the fleet's runs (11a, 11b); its `max_abs_err` includes
-phase 11c's. `seq_rows_in_use` is the prologue of the deep-book
+path, of the fleet's runs (11a, 11b) and of phase 12 (a-c); its
+`max_abs_err` includes phase 11c's. `seq_rows_in_use` is the prologue of the deep-book
 configurations of the seq kernel; its `launches` are those of the B3 main
 path, its `max_abs_err` is over every state of phases 3b-3d that it was
 held against its plain version on, its times are phase 3d's. The
 `rowdma_*` entries are the (2, joined) instantiations, the ones the
 lanes path launches (back-to-back times; library call: two
 `index_select` / `index_copy_`, one per plane); the (1, planar) ones are
-checked and timed in phases 6 and 8 but not on the main path.
+checked and timed in phases 6 and 8 but not on the main path. Their
+`launches` include phase 12d's.
 
 Imports nothing of JAX and nothing of the JAX package.
 """
@@ -217,10 +240,24 @@ HOT_STREAM = dict(num_events=20_000, num_symbols=1024, num_accounts=4096,
                   seed=0)
 FLEET_CHECK_BATCH = 12
 FLEET_LANES_SHARDS = 4
+# phase 12: the watch predicates of the observed service; what a CPU run
+# of both packages gives for the zipf stream at the serve defaults (the
+# card machine has no JAX; tests/test_torch_observe_stream.py recomputes
+# them): the journal's canonical lifecycle events (count, sha256 of the
+# canonical lines each followed by a newline) and the watch hit set over
+# 1024-message barriers (count, sha256 of the JSON list of [offset,
+# predicate, value]); the journal_fill_qty drill's batch (the stream's
+# first 9 batches open and fund the accounts: batch 9 holds its first
+# fill); the drills' and the lanes service's cut
+OBSERVED_WATCH = ("depth[0]>=64", "depth[1]>=32")
+OBSERVED_CANON = (
+    342_267, "26c8c1c8b7acb5663f9308f972daa242233bef96e6c9370625e067612534a019")
+OBSERVED_HITS = (
+    36, "0870e6d24253c5b430695758baeb773b3670e6d52d44d4ddcf161abb20f47f06")
+OBSERVED_SLO_MS = 5.0
+TAMPER_BATCH = 12
+DRILL_PREFIX = 20_000
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
-ROW_BYTES = 128 * 4
-JAVA_HASH = ("hka_lo", "hka_hi", "hkb_lo", "hkb_hi", "hstate",
-             "ha_lo", "ha_hi", "hv_lo", "hv_hi")
 
 
 def fail(msg: str) -> None:
@@ -262,122 +299,6 @@ def planes_equal(SQ, cfg, a: dict, b: dict, out_a, out_b):
         bad.append("out")
         err = max(err, d, 1)
     return err, bad
-
-
-def java_home(cfg, kal, kah, kbl, kbh):
-    """The java hash's home tile of 128-bit keys (4 int32 word arrays)."""
-    import numpy as np
-
-    def mul(v, c):
-        return (v.astype(np.int64) * c) & 0xFFFFFFFF
-
-    h = (mul(kal, 0x9E3779B9) ^ mul(kah, 0x85EBCA6B) ^ mul(kbl, 0xC2B2AE35)
-         ^ mul(kbh, 69069))
-    return (h.astype(np.uint32).view(np.int32) >> 7) & (cfg.caprows - 1)
-
-
-def batch_bytes(SQ, cfg, cols: dict, out, pre: dict, post: dict,
-                barriers: int) -> int:
-    """Least bytes one dispatch must move, counted from this batch: its
-    message columns read once; each state row its messages must read,
-    once per plane (of each book-touching lane, all 2*NR `bs` rows, which
-    the free-slot search and the sweep scan whole, and of the other book
-    planes only what live orders need: the `bo`/`bp`/`bq` rows that hold
-    a live order before the batch, and the `ba` rows of the makers
-    filled (Q2 ghosts included), of the orders cancelled and of the
-    orders a barrier settles; the lane rows, the balance rows of takers,
-    makers and credited accounts, the hash rows at the home tiles of the
-    takers' and makers' position keys — in java mode the 9 hash planes
-    at the home tiles of the real 128-bit keys and the raw-aid rows of
-    the makers — and for an executed PAYOUT the whole key plane plus the
-    amount rows where the lane's keys sit, from the pre-batch hash);
-    each state row it changed, written once (java's (amount, available)
-    keys are counted there); the output's used rows."""
-    import numpy as np
-    import torch
-
-    B, NR, A = cfg.batch, cfg.nr, cfg.accounts
-    java = cfg.compat == "java"
-    act, lane, aid = cols["act"], cols["lane"], cols["aid"]
-    res = SQ.unpack_out(cfg, out.cpu().numpy(), B)
-    f_aid = res["fills"][1].astype(np.int64)
-    f_lane = np.repeat(lane.astype(np.int64), res["nfill"])
-    dev = act != SQ.L_NOP
-    read = {}
-    book = np.isin(act, [SQ.L_BUY, SQ.L_SELL, SQ.L_CANCEL, SQ.L_PAYOUT_YES,
-                         SQ.L_PAYOUT_NO, SQ.L_REMOVE_SYMBOL])
-    blk = (np.unique(lane[book]).astype(np.int64)[:, None] * 2 * NR
-           + np.arange(2 * NR)).ravel()
-    read["bs"] = [blk]
-    # the live orders before the batch, by (lane, oid) -> row
-    at = torch.nonzero(pre["bs"] > 0)
-    rows = at[:, 0].cpu().numpy().astype(np.int64)
-    oids = ((pre["bo_lo"][at[:, 0], at[:, 1]].cpu().numpy().astype(np.int64)
-             & 0xFFFFFFFF)
-            | (pre["bo_hi"][at[:, 0], at[:, 1]].cpu().numpy()
-               .astype(np.int64) << 32))
-    del at
-    live = np.intersect1d(rows, blk)
-    for k in ("bo_lo", "bo_hi", "bp", "bq"):
-        read[k] = [live]
-    where = dict(zip(zip((rows // (2 * NR)).tolist(), oids.tolist()),
-                     rows.tolist()))
-    cancel = act == SQ.L_CANCEL
-    c_oid = ((cols["oid_lo"][cancel].astype(np.int64) & 0xFFFFFFFF)
-             | (cols["oid_hi"][cancel].astype(np.int64) << 32))
-    wanted = (list(zip(f_lane.tolist(), res["fills"][0].tolist()))
-              + list(zip(lane[cancel].tolist(), c_oid.tolist())))
-    ba = [where[k] for k in wanted if k in where]
-    settle = np.unique(lane[np.isin(act, [SQ.L_PAYOUT_YES, SQ.L_PAYOUT_NO,
-                                          SQ.L_REMOVE_SYMBOL])])
-    ba.extend(rows[np.isin(rows // (2 * NR), settle)].tolist())
-    read["ba"] = [np.asarray(ba, np.int64)]
-    for k in ("seqc", "bex") + (() if java else ("dep",)):
-        read[k] = [lane[dev] >> 7]
-    accs = [aid[dev].astype(np.int64), f_aid]
-    trade = np.isin(act, [SQ.L_BUY, SQ.L_SELL, SQ.L_CANCEL])
-    if java:
-        def word(plane, idx):
-            return post[plane].reshape(-1).cpu().numpy()[idx]
-
-        nf = res["nfill"]
-        keys = [np.concatenate([cols["aidr_lo"][trade], word("araw_lo", f_aid)]),
-                np.concatenate([cols["aidr_hi"][trade], word("araw_hi", f_aid)]),
-                np.concatenate([cols["sidr_lo"][trade],
-                                np.repeat(cols["sidr_lo"], nf)]),
-                np.concatenate([cols["sidr_hi"][trade],
-                                np.repeat(cols["sidr_hi"], nf)])]
-        tiles = java_home(cfg, *keys)
-        for k in JAVA_HASH:
-            read[k] = [tiles]
-        read["araw_lo"] = read["araw_hi"] = [f_aid >> 7]
-    else:
-        keys = np.concatenate([lane[trade].astype(np.int64) * A + aid[trade]
-                               + 1, f_lane * A + f_aid + 1])
-        h = ((keys * -1640531527) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
-        tiles = (h >> 7) & (cfg.caprows - 1)
-        for k in ("hk", "ha_lo", "ha_hi", "hv_lo", "hv_hi"):
-            read[k] = [tiles]
-    pays = np.flatnonzero(np.isin(act, [SQ.L_PAYOUT_YES, SQ.L_PAYOUT_NO]))
-    if barriers and len(pays):
-        hk = pre["hk"].cpu().numpy()
-        read["hk"].append(np.arange(cfg.caprows))
-        for i in pays[act[pays] == SQ.L_PAYOUT_YES]:
-            klo = int(lane[i]) * A + 1
-            mine = (hk >= klo) & (hk < klo + A)
-            r = np.flatnonzero(mine.any(axis=1))
-            read["ha_lo"].append(r)
-            read["ha_hi"].append(r)
-            accs.append(hk[mine].astype(np.int64) - klo)
-    acc_rows = np.concatenate(accs) >> 7
-    for k in ("bal_lo", "bal_hi", "bal_u"):
-        read[k] = [acc_rows]
-    nread = sum(len(np.unique(np.concatenate(v))) for v in read.values())
-    changed = sum(int((pre[k] != post[k]).any(dim=1).sum())
-                  for k in SQ.state_keys(cfg))
-    ft = int(out[0, 1])
-    return (len(SQ.msg_fields(cfg)) * 4 * B + (nread + changed) * ROW_BYTES
-            + SQ.used_rows(cfg, ft) * ROW_BYTES)
 
 
 def route_chunks(SQ, SeqRouter, cfg, msgs):
@@ -658,8 +579,8 @@ def timed_replay(SQ, cfg, chunks, nmsgs, wall, card, label):
         e0.record()
         out = SQ.seq_step(cfg, state, c)
         e1.record()
-        bytes_per.append(batch_bytes(SQ, cfg, hc, out, pre, state,
-                                     int(out[0, 2 + MET_BARRIERS])))
+        bytes_per.append(SQ.dispatch_bytes(cfg, hc, out, pre, state,
+                                           int(out[0, 2 + MET_BARRIERS])))
         del pre
         # rows in use, after the dispatch, of the book sides it touched
         book = c["lane"][(c["act"] >= SQ.L_BUY) & (c["act"] <= SQ.L_CANCEL)]
@@ -1366,7 +1287,8 @@ def crash_and_resume(SQ, values, root, kw, crash_at, label,
 
 def serving_phase(SQ, rowdma, zipf, java_msgs, b1, card):
     """Phase 10: the serving stack on the card (see the module
-    docstring); `b1` = (MatchOut lines, sha256) of phase 4."""
+    docstring); `b1` = (MatchOut lines, sha256) of phase 4. -> 10a's
+    wall, spans, dispatches and kernel seconds."""
     import shutil
     import tempfile
     import threading
@@ -1445,6 +1367,8 @@ def serving_phase(SQ, rowdma, zipf, java_msgs, b1, card):
             f", the rest (broker fetch, JSON join and parse, counters, "
             f"metrics refresh) {rest:.4f}")
         per_msg = per_message(lines)
+        unobserved = {"wall": wall, "spans": spans,
+                      "dispatches": dispatches, "kern_s": kern_s}
         del svc, broker, lines
         log(f"phase 10a took {time.perf_counter() - t_phase:.1f} s")
 
@@ -1640,6 +1564,7 @@ def serving_phase(SQ, rowdma, zipf, java_msgs, b1, card):
             f"sha256 {stream_digest(want)[1]}); serve said "
             f"{[e for e in errs if 'processed' in e]}")
         log(f"phase 10f took {time.perf_counter() - t_phase:.1f} s")
+        return unobserved
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1954,6 +1879,419 @@ def fleet_phase(SQ, SS, SM, L, LS, rowdma, zipf, batches, WireBatch,
     return launches, max_err
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the service's observability
+
+
+def hits_digest(hits):
+    """(count, sha256 of the JSON list of [offset, predicate, value]) of
+    a watch hit set."""
+    doc = json.dumps([list(h) for h in hits])
+    return len(hits), hashlib.sha256(doc.encode()).hexdigest()
+
+
+def http_get(port, path):
+    from urllib.request import urlopen
+
+    with urlopen(f"http://127.0.0.1:{port}{path}", timeout=10) as r:
+        return r.read().decode()
+
+
+def timed_method(obj, name, secs):
+    """Add the wall of every call of `obj.name` to `secs[name]`."""
+    orig = getattr(obj, name)
+    secs[name] = 0.0
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        try:
+            return orig(*a, **kw)
+        finally:
+            secs[name] += time.perf_counter() - t
+
+    setattr(obj, name, timed)
+
+
+def trace_kernels(path):
+    """Kernel slices in a torch.profiler Chrome trace: (all, seq_scan's)."""
+    with open(path) as f:
+        evs = json.load(f).get("traceEvents", [])
+    kern = [e for e in evs if e.get("cat") == "kernel"]
+    return len(kern), sum("seq_scan_kernel" in e.get("name", "")
+                          for e in kern)
+
+
+def drill_run(SQ, values, root, tamper, label, **kw):
+    """`values` into a persisted broker log and through a journaled,
+    audited seq service (pipeline 2, the serve defaults) with
+    KME_AUDIT_TAMPER=`tamper`, launches checked. -> (the closed service,
+    journal path, broker log dir)."""
+    from kme_tpu_torch.bridge.broker import InProcessBroker
+    from kme_tpu_torch.bridge.provision import provision
+    from kme_tpu_torch.bridge.service import TOPIC_IN, MatchService
+
+    log_dir = os.path.join(root, "log")
+    jp = os.path.join(root, "journal.bin")
+    b = InProcessBroker(persist_dir=log_dir)
+    provision(b)
+    for v in values:
+        b.produce(TOPIC_IN, None, v)
+    os.environ["KME_AUDIT_TAMPER"] = tamper
+    try:
+        svc = MatchService(b, engine="seq", compat="fixed", pipeline=2,
+                           journal=jp, audit=True,
+                           audit_repro_dir=os.path.join(root, "repro"),
+                           **SERVE, **kw)
+    finally:
+        del os.environ["KME_AUDIT_TAMPER"]
+    zero_launches(SQ.LAUNCHES)
+    svc.run(max_messages=len(values), poll_timeout=0.05)
+    d = seq_launches_checked(SQ, svc, label)
+    svc.close()
+    return svc, jp, log_dir, d
+
+
+def observed_phase(SQ, rowdma, zipf, b1, card, unobserved):
+    """Phase 12: the serving stack with every observability option on (see
+    the module docstring); `unobserved` is phase 10a's run. -> (B1
+    launches, B4 launches, B5 launches) of this phase's checked runs."""
+    import shutil
+    import tempfile
+    import threading
+
+    import torch
+    from kme_tpu_torch.bridge.broker import InProcessBroker
+    from kme_tpu_torch.bridge.consume import consume_lines
+    from kme_tpu_torch.bridge.provision import provision
+    from kme_tpu_torch.bridge.service import TOPIC_IN, TOPIC_OUT, MatchService
+    from kme_tpu_torch.bridge.tcp import TcpBroker, serve_broker
+    from kme_tpu_torch.telemetry import (canonical_lines, read_events,
+                                         read_transfer_artifact,
+                                         replay_repro, start_metrics_server)
+    from kme_tpu_torch.telemetry import events as cpevents
+    from kme_tpu_torch.telemetry import tsdb as tsdbm
+    from kme_tpu_torch.telemetry import xray
+    from kme_tpu_torch.telemetry.profiler import list_captures
+    from kme_tpu_torch.wire import dumps_order
+
+    root = tempfile.mkdtemp(prefix="kme_observed_")
+    values = [dumps_order(m) for m in zipf]
+    try:
+        # ---- (a) the pipelined seq service over TCP, every option on
+        t_phase = time.perf_counter()
+        a = os.path.join(root, "a")
+        os.makedirs(a)
+        art = os.path.join(a, "transfer.json")
+        # an entry another backend wrote: the card's must leave it as is
+        seed = {"cpu": {"probe_bytes": 8 << 20, "recorded_at": 0.0}}
+        with open(art, "w") as f:
+            json.dump(seed, f)
+        jp = os.path.join(a, "journal.bin")
+        ck_dir = os.path.join(a, "ck")
+        srv, broker = serve_broker("127.0.0.1", 0, InProcessBroker())
+        host, port = srv.server_address[:2]
+        client = TcpBroker(host, port)
+        scrapes = []
+        try:
+            provision(client)
+            for lo in range(0, len(values), 4096):
+                client.produce_batch(TOPIC_IN, [(None, v) for v in
+                                                values[lo:lo + 4096]])
+            t = time.perf_counter()
+            svc = MatchService(
+                broker, engine="seq", compat="fixed", pipeline=2,
+                checkpoint_dir=ck_dir, checkpoint_every=SERVE_CKPT_EVERY,
+                exactly_once=True, journal=jp, audit=True,
+                audit_repro_dir=os.path.join(a, "repro"), trace_spans=True,
+                slo={"p99_ms": OBSERVED_SLO_MS}, tsdb=os.path.join(a, "tsdb"),
+                profile=True, profile_artifact=art,
+                capture_dir=os.path.join(a, "cap"),
+                capture_p99_us=int(OBSERVED_SLO_MS * 1e3),
+                watch=list(OBSERVED_WATCH), **SERVE)
+            init_s = time.perf_counter() - t
+            if svc.pipeline != 2:
+                fail("serve-observed: the service did not take the pipeline")
+            window_s = svc.capture.window_s
+            if not window_s > 0:
+                fail("serve-observed: a capture on the card records no "
+                     "torch.profiler window")
+            msrv = start_metrics_server(svc.telemetry, 0, host="127.0.0.1")
+            mport = msrv.server_address[1]
+            save_s = []
+            timed_checkpoints(svc, save_s)
+            # the rest of the wall, in parts: the per-batch counters and
+            # the rate-limited refresh (metrics, SLO, profiler, capture
+            # triggers), the captures with their profiler windows, and
+            # the device plane's byte probes (inside serve_engine)
+            parts = {}
+            timed_method(svc, "_publish_batch", parts)
+            timed_method(svc.capture, "maybe_fire", parts)
+            timed_method(svc._session, "_count_bytes", parts)
+            stop = threading.Event()
+
+            def scraper():
+                while not stop.wait(0.5):
+                    try:
+                        scrapes.append(len(http_get(mport,
+                                                    "/metrics.json")))
+                    except OSError as e:
+                        scrapes.append(repr(e))
+
+            th = threading.Thread(target=scraper, daemon=True)
+            zero_launches(SQ.LAUNCHES)
+            th.start()
+            t = time.perf_counter()
+            n = svc.run(max_messages=len(values), poll_timeout=0.05,
+                        health_file=os.path.join(a, "health.json"),
+                        health_every=0.5)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t
+            stop.set()
+            th.join()
+            dispatches = seq_launches_checked(SQ, svc, "serve-observed")
+            prom = http_get(mport, "/metrics")
+            spans = dict(svc._ptimer.totals)
+            timing = svc._session.device_timing()
+            slo_reason = svc._slo_reason
+            prof_g = {k: v for k, v in
+                      svc.telemetry.snapshot()["gauges"].items()
+                      if k.startswith("prof_")}
+            t = time.perf_counter()
+            svc.close()
+            close_s = time.perf_counter() - t
+            msrv.shutdown()
+            msrv.server_close()
+            lines = list(consume_lines(client, follow=False))
+        finally:
+            client.close()
+            srv.shutdown()
+            srv.server_close()
+        got = stream_digest(lines)
+        if n != len(values) or got != b1:
+            fail(f"serve-observed: {n} messages served, MatchOut {got[0]} "
+                 f"lines sha256 {got[1]}; B1 gives {b1[0]} lines sha256 "
+                 f"{b1[1]}")
+        prefix = [ln for m in per_message(lines)[:DRILL_PREFIX] for ln in m]
+        del lines
+        aud = svc.auditor
+        if aud.violations or svc.degraded:
+            fail(f"serve-observed: audit violations {aud.violations[:3]}")
+        checks = svc.engine_checks
+        if len(checks) < 3 or any(v for _off, v in checks):
+            fail(f"serve-observed: check_engine at the checkpoints gave "
+                 f"{checks} (need 3 or more, each with no violation)")
+        evs = read_events(jp)
+        canon = stream_digest(canonical_lines(evs))
+        if canon != OBSERVED_CANON:
+            fail(f"serve-observed: canonical journal events {canon}; the "
+                 f"CPU runs of both packages give {OBSERVED_CANON}")
+        kinds = collections.Counter(ev["e"] for ev in evs)
+        if kinds["lat"] != len(values) or kinds["span"] != 4 * len(values):
+            fail(f"serve-observed: {kinds['lat']} lat and {kinds['span']} "
+                 f"span events for {len(values)} messages")
+        del evs
+        hits = hits_digest(svc.watch.hits)
+        if hits != OBSERVED_HITS:
+            fail(f"serve-observed: watch hit set {hits}; the CPU runs of "
+                 f"both packages give {OBSERVED_HITS}")
+        rep = tsdbm.verify_store(os.path.join(a, "tsdb"))
+        samples = sum(1 for _ in tsdbm.read_samples(os.path.join(a, "tsdb")))
+        if rep["mismatched"] or not samples:
+            fail(f"serve-observed: TSDB {rep}, {samples} samples")
+        erep = cpevents.verify_log(cpevents.log_path(ck_dir, "serve"))
+        if not erep["ok"] or erep["seq_gaps"] or not erep["events"]:
+            fail(f"serve-observed: event log {erep}")
+        bad = [x for x in scrapes if isinstance(x, str)]
+        if bad or not scrapes or "audit_batches" not in prom \
+                or "lat_e2e" not in prom:
+            fail(f"serve-observed: /metrics scrapes {scrapes[:5]}, "
+                 f"{len(prom)} bytes of Prometheus text")
+        doc = read_transfer_artifact(art)
+        plane = doc.get("cuda") or {}
+        if doc.get("cpu") != seed["cpu"]:
+            fail(f"serve-observed: the artifact's cpu entry changed: {doc}")
+        if (plane.get("dispatches_timed") != dispatches
+                or not plane.get("kernel_ms_per_dispatch")
+                or not plane.get("bytes_per_batch")
+                or not plane.get("h2d_bytes_per_s")):
+            fail(f"serve-observed: device plane {plane}")
+        caps = list_captures(os.path.join(a, "cap"))
+        trig = []
+        for pth in caps:
+            with open(pth) as f:
+                cdoc = json.load(f)
+            if cdoc.get("device_trace"):
+                trig.append(cdoc)
+        if not trig or not os.path.exists(trig[0]["device_trace"]):
+            fail(f"serve-observed: no trigger capture with a device trace "
+                 f"({len(caps)} captures)")
+        nk, nseq = trace_kernels(trig[0]["device_trace"])
+        if nseq == 0:
+            fail(f"serve-observed: the capture's torch.profiler window "
+                 f"holds {nk} kernel slices, none of seq_scan_kernel")
+        ckpt_s = sum(save_s)
+        obs_s = spans.get("serve_observe", 0.0)
+        eng_s = spans.get("serve_engine", 0.0)
+        prod_s = spans.get("serve_produce", 0.0)
+        rest = wall - eng_s - prod_s - obs_s - ckpt_s
+        u = unobserved
+        log(f"serve-observed: {len(values)} messages served in {wall:.3f} s "
+            f"= {len(values) / wall:.0f} msg/s with journal (binary), audit, "
+            f"trace spans, SLO {OBSERVED_SLO_MS} ms, TSDB, host profiler, "
+            f"device plane, captures, {len(OBSERVED_WATCH)} watchpoints, "
+            f"/metrics, exactly-once and {len(save_s)} checkpoints; "
+            f"unobserved (serve-tcp, this process) {u['wall']:.3f} s: "
+            f"{wall / u['wall']:.2f}x (host clock, synchronized; "
+            f"{dispatches} dispatches = kernel launches); MatchOut == B1's "
+            f"({got[0]} lines, sha256 {got[1]}); card {card}")
+        log(f"serve-observed: service wall by span (s, host clock): "
+            f"serve_engine {eng_s:.4f}, serve_produce {prod_s:.4f}, "
+            f"serve_observe (journal + audit + stamps + spans + watch) "
+            f"{obs_s:.4f}, checkpoints (save + check_engine) {ckpt_s:.4f} "
+            f"({', '.join(f'{x:.3f}' for x in save_s)}), the rest {rest:.4f}; "
+            f"unobserved: serve_engine "
+            f"{u['spans'].get('serve_engine', 0):.4f}, serve_produce "
+            f"{u['spans'].get('serve_produce', 0):.4f}, the rest "
+            f"{u['wall'] - sum(u['spans'].values()):.4f}; construction "
+            f"{init_s:.3f} s, close {close_s:.3f} s")
+        log(f"serve-observed: parts (s, host clock): _publish_batch "
+            f"{parts['_publish_batch']:.4f} (of it the capture triggers and "
+            f"their torch.profiler windows {parts['maybe_fire']:.4f}); the "
+            f"device plane's byte probes {parts['_count_bytes']:.4f} (in "
+            f"serve_engine); host profiler {json.dumps(prof_g)}")
+        log(f"serve-observed: journal {os.path.getsize(jp)} bytes, "
+            f"{sum(kinds.values())} events ({json.dumps(dict(kinds))}); "
+            f"canonical lifecycle {canon[0]} events sha256 {canon[1]} == "
+            f"both packages' on the CPU; audit batches "
+            f"{aud.batches}, 0 violations; check_engine on the card's state "
+            f"at offsets {[o for o, _ in checks]}: [] each time")
+        log(f"serve-observed: watch {list(OBSERVED_WATCH)}: {hits[0]} hits "
+            f"sha256 {hits[1]} == both packages' on the CPU; TSDB {samples} "
+            f"samples ({rep['segments']} finalized segments, none "
+            f"mismatched); event log {erep['events']} events verified; "
+            f"{len(scrapes)} /metrics.json scrapes during the run, "
+            f"/metrics {len(prom)} bytes after it; SLO "
+            f"{slo_reason or 'held'}; {len(caps)} captures, the "
+            f"{trig[0]['trigger']} capture's torch.profiler window "
+            f"({window_s} s) {nk} kernel slices, {nseq} of "
+            f"seq_scan_kernel")
+        bound = plane["bytes_per_batch"] / HBM_BYTES_PER_S * 1e3
+        log(f"serve-observed: device plane (cuda): {plane['kernel']} "
+            f"{plane['kernel_ms_per_dispatch']:.4f} ms per dispatch (CUDA "
+            f"events, {plane['dispatches_timed']} dispatches), "
+            f"{plane['bytes_per_batch']} bytes per dispatch (dispatch_bytes, "
+            f"mean of {plane['dispatches_probed']} probed; byte bound "
+            f"{bound:.6f} ms at 3.35 TB/s), H2D "
+            f"{plane['h2d_bytes_per_s'] / 1e9:.2f} GB/s, "
+            f"transfer_s_per_batch {plane.get('transfer_s_per_batch')}, "
+            f"h2d_overlap_frac {plane.get('h2d_overlap_frac')}; the cpu "
+            f"entry untouched; session timing {json.dumps(timing)}")
+        del svc
+        log(f"phase 12a took {time.perf_counter() - t_phase:.1f} s")
+
+        # ---- (b) the fill_qty drill: the auditor trips, its dump replays
+        t_phase = time.perf_counter()
+        cut = values[:DRILL_PREFIX]
+        svc, _jp, _ld, d_b = drill_run(SQ, cut, os.path.join(root, "b"),
+                                       "fill_qty", "fill_qty drill")
+        found = svc.auditor.violations
+        if not found or not svc.auditor.dumps:
+            fail(f"fill_qty drill: {len(found)} violations, "
+                 f"{len(svc.auditor.dumps)} repro dumps")
+        again = replay_repro(svc.auditor.dumps[0])
+        kinds_b = sorted({v["kind"] for v in found})
+        if not again or not {v["kind"] for v in again} <= set(kinds_b):
+            fail(f"fill_qty drill: the dump replays to {again}, the service "
+                 f"found {found[:4]}")
+        log(f"fill_qty drill ({len(cut)} messages, {d_b} dispatches = "
+            f"launches): the auditor found {len(found)} violation(s) "
+            f"{kinds_b}; replay_repro of {os.path.basename(svc.auditor.dumps[0])} "
+            f"re-finds {sorted({v['kind'] for v in again})}")
+        del svc
+        log(f"phase 12b took {time.perf_counter() - t_phase:.1f} s")
+
+        # ---- (c) the journal_fill_qty@K drill, pinned by xray.bisect
+        t_phase = time.perf_counter()
+        c = os.path.join(root, "c")
+        svc, jp_c, log_c, d_c = drill_run(
+            SQ, cut, c, f"journal_fill_qty@{TAMPER_BATCH}",
+            "journal_fill_qty drill")
+        tampered = svc._tampered_batch
+        # cold replays: a seq snapshot restores each book in slot order,
+        # not time priority (in both packages), so it anchors no replay
+        t = time.perf_counter()
+        res = xray.bisect(jp_c, log_c, topic=TOPIC_IN,
+                          book_slots=SERVE["slots"],
+                          max_fills=SERVE["max_fills"])
+        bis_s = time.perf_counter() - t
+        if (tampered != TAMPER_BATCH or not res.get("divergent")
+                or res.get("batch") != TAMPER_BATCH):
+            fail(f"journal_fill_qty drill: tampered batch {tampered}, bisect "
+                 f"{ {k: res.get(k) for k in ('divergent', 'batch')} }; "
+                 f"want {TAMPER_BATCH}")
+        rr = xray.replay_bisect_repro(res["repro"])
+        if not rr["match"]:
+            fail(f"journal_fill_qty drill: the bisect repro does not replay "
+                 f"({rr})")
+        log(f"journal_fill_qty@{TAMPER_BATCH} drill ({len(cut)} messages, "
+            f"{d_c} dispatches = launches): xray.bisect pins batch "
+            f"{res['batch']} (offset {res['first_divergent_offset']}) in "
+            f"{res['replays']} oracle replays, {bis_s:.2f} s (host); diff "
+            f"{json.dumps(res['diff'])[:160]}; its repro replays; the "
+            f"auditor tripped too ({len(svc.auditor.violations)} "
+            f"violations)")
+        del svc
+        log(f"phase 12c took {time.perf_counter() - t_phase:.1f} s")
+
+        # ---- (d) the lanes service (B4/B5) journaled and audited
+        t_phase = time.perf_counter()
+        dd = os.path.join(root, "d")
+        b = InProcessBroker()
+        provision(b)
+        for v in cut:
+            b.produce(TOPIC_IN, None, v)
+        svc = MatchService(b, engine="lanes", width=LANES_WIDTH,
+                           checkpoint_dir=os.path.join(dd, "ck"),
+                           checkpoint_every=LANES_CUT,
+                           journal=os.path.join(dd, "journal.bin"),
+                           audit=True, **SERVE)
+        ses = svc._session
+        ses.capture()           # set-up: its warm-up step counts launches
+        zero_launches(rowdma.LAUNCHES)
+        t = time.perf_counter()
+        svc.run(max_messages=len(cut), poll_timeout=0.05)
+        torch.cuda.synchronize()
+        wall_d = time.perf_counter() - t
+        launches = dict(rowdma.LAUNCHES)
+        if any(launches[k] != ses.steps for k in ("gather_pos",
+                                                  "scatter_pos")):
+            fail(f"lanes observed: launches {launches} for {ses.steps} "
+                 f"padded steps")
+        final = svc.auditor.check_engine(ses.export_state(),
+                                         ses.histograms())
+        checks = svc.engine_checks
+        if (final or svc.auditor.violations or not checks
+                or any(v for _o, v in checks)):
+            fail(f"lanes observed: check_engine {checks} then {final}, "
+                 f"violations {svc.auditor.violations[:3]}")
+        if log_lines(b, TOPIC_OUT) != prefix:
+            fail(f"lanes observed: MatchOut of the first {len(cut)} "
+                 f"messages != B1's")
+        svc.close()
+        log(f"lanes observed: {len(cut)} messages in {wall_d:.3f} s = "
+            f"{len(cut) / wall_d:.0f} msg/s with journal and audit "
+            f"({ses.steps} padded steps = B4 = B5 launches); MatchOut == "
+            f"B1's; check_engine on the card's lanes state at offsets "
+            f"{[o for o, _ in checks]} and at the end: [] each time, "
+            f"{svc.auditor.batches} batches audited, 0 violations")
+        del svc, ses, b
+        log(f"phase 12d took {time.perf_counter() - t_phase:.1f} s")
+        return (dispatches + d_b + d_c, launches["gather_pos"],
+                launches["scatter_pos"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -2203,7 +2541,8 @@ def main() -> int:
     kernels.extend(time_rowdma(rowdma, rd_err, launches, card))
 
     # ---- 10. serving: the service over TCP, checkpoints, the CLI
-    serving_phase(SQ, rowdma, zipf, java_msgs, (b1_lines, b1_sha), card)
+    unobserved = serving_phase(SQ, rowdma, zipf, java_msgs,
+                               (b1_lines, b1_sha), card)
 
     # ---- 11. the seq fleet and the sharded lanes engine; the fleet's
     # launches of B1 join the main path's
@@ -2218,7 +2557,21 @@ def main() -> int:
         f"the main paths: {b1_entry['launches']} ({fleet_launches} by the "
         f"fleet)")
 
-    # ---- 12. summary
+    # ---- 12. the service's observability; its launches join the main
+    # paths'
+    t = time.perf_counter()
+    b1_obs, b4_obs, b5_obs = observed_phase(
+        SQ, rowdma, zipf, (b1_lines, b1_sha), card, unobserved)
+    b1_entry["launches"] += b1_obs
+    for e in kernels:
+        if e["name"] == "rowdma_gather":
+            e["launches"] += b4_obs
+        elif e["name"] == "rowdma_scatter":
+            e["launches"] += b5_obs
+    log(f"phase 12 took {time.perf_counter() - t:.1f} s; launches by it: "
+        f"B1 {b1_obs}, B4 {b4_obs}, B5 {b5_obs}")
+
+    # ---- 13. summary
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

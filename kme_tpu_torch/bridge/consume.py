@@ -118,13 +118,13 @@ def main(argv=None) -> int:
                    help="print a receipt-latency summary (produce "
                         "admission -> consumer delivery) on exit")
     p.add_argument("--tsdb-out", default=None, metavar="DIR",
-                   help="delivery history; needs the JAX package's "
-                        "telemetry/tsdb.py, not ported yet")
+                   help="append delivery counters (and, with "
+                        "--latency, receipt-latency quantiles) to the "
+                        "shared on-disk time-series store every second "
+                        "(source 'consume'; kme-torch-prof queries it)")
     args = p.parse_args(argv)
-    if args.tsdb_out is not None:
-        p.error("--tsdb-out needs the JAX package's telemetry/tsdb.py, "
-                "which kme_tpu_torch does not have yet (ROADMAP.md, "
-                "Queue A item 6)")
+    import time
+
     from kme_tpu_torch.bridge.tcp import TcpBroker, parse_addr
     from kme_tpu_torch.telemetry import LatencyHistogram
 
@@ -132,15 +132,56 @@ def main(argv=None) -> int:
     client = TcpBroker(host, port)
     ring = None if args.no_dedup else DedupRing()
     lat = LatencyHistogram("consume_receipt") if args.latency else None
+    tsdb = None
+    tsdb_seq = 0
+    if args.tsdb_out is not None:
+        from kme_tpu_torch.telemetry import TSDB
+
+        try:
+            tsdb = TSDB(args.tsdb_out, source="consume")
+            tsdb_seq = tsdb.next_seq()  # no durable cursor: adopt disk
+        except (OSError, ValueError) as e:
+            print(f"kme-consume: TSDB disabled: {e}", file=sys.stderr)
+    delivered = 0
+    last_sample = time.monotonic()
+
+    def _tsdb_sample():
+        nonlocal tsdb, tsdb_seq
+        if tsdb is None:
+            return
+        vals = {"consume_delivered_total": delivered,
+                "consume_dup_suppressed_total":
+                    ring.suppressed if ring is not None else 0}
+        if lat is not None and lat.count:
+            qs = lat.quantiles()
+            vals["consume_receipt.count"] = lat.count
+            vals["consume_receipt.p50_ms"] = qs[0.5] * 1e3
+            vals["consume_receipt.p99_ms"] = qs[0.99] * 1e3
+            vals["consume_receipt.p999_ms"] = qs[0.999] * 1e3
+        try:
+            tsdb.append_values(vals, tsdb_seq)
+            tsdb_seq += 1
+        except OSError:
+            tsdb = None         # history is best-effort
+
     try:
         for line in consume_lines(client, follow=not args.no_follow,
                                   idle_exit=args.idle_exit, dedup=ring,
                                   latency=lat):
             print(line, flush=True)
+            delivered += 1
+            now = time.monotonic()
+            if tsdb is not None and now - last_sample >= 1.0:
+                last_sample = now
+                _tsdb_sample()
     except KeyboardInterrupt:
         pass
     finally:
         client.close()
+        if delivered or lat is not None:
+            _tsdb_sample()      # final cumulative sample
+        if tsdb is not None:
+            tsdb.close()
         if ring is not None and ring.suppressed:
             print(f"kme-consume: suppressed {ring.suppressed} duplicate "
                   f"record(s)", file=sys.stderr)

@@ -8,8 +8,11 @@ load generator / consumer connect there) and runs the MatchService poll
 loop in the foreground. Use --auto-provision to create the topics at
 startup (else run kme-torch-provision first).
 
-The flags whose modules the port does not have yet (UNPORTED_FLAGS)
-exit with an error naming the module they wait for."""
+The observability flags (journal, audit, SLO, span tracing, TSDB,
+profiler and captures, watchpoints, /metrics) are served as in the JAX
+package. `--kafka` and `--group`, whose modules the port does not have
+yet (UNPORTED_FLAGS), exit with an error naming the module they wait
+for."""
 
 from __future__ import annotations
 
@@ -21,28 +24,6 @@ import sys
 UNPORTED_FLAGS = {
     "--kafka": ("kafka", None, "bridge/kafka.py"),
     "--group": ("group", None, "bridge/front.py (the multi-leader front)"),
-    "--journal-out": ("journal_out", None, "telemetry/journal.py"),
-    "--journal-rotate-mb": ("journal_rotate_mb", None,
-                            "telemetry/journal.py"),
-    "--journal-fsync": ("journal_fsync", "off", "telemetry/journal.py"),
-    "--journal-keep": ("journal_keep", None, "telemetry/journal.py"),
-    "--audit": ("audit", False, "telemetry/audit.py"),
-    "--audit-repro-dir": ("audit_repro_dir", None, "telemetry/audit.py"),
-    "--slo-p99-ms": ("slo_p99_ms", None, "telemetry/slo.py"),
-    "--slo-stage": ("slo_stage", "e2e", "telemetry/slo.py"),
-    "--slo-budget": ("slo_budget", 0.001, "telemetry/slo.py"),
-    "--slo-min-ops": ("slo_min_ops", 100, "telemetry/slo.py"),
-    "--slo-min-records-per-sec": ("slo_min_records_per_sec", 0.0,
-                                  "telemetry/slo.py"),
-    "--tsdb": ("tsdb", None, "telemetry/tsdb.py"),
-    "--profile": ("profile", False, "telemetry/profiler.py"),
-    "--profile-artifact": ("profile_artifact", None,
-                           "telemetry/profiler.py"),
-    "--capture-dir": ("capture_dir", None, "telemetry/profiler.py"),
-    "--capture-p99-us": ("capture_p99_us", None, "telemetry/profiler.py"),
-    "--watch": ("watch", None, "telemetry/xray.py"),
-    "--trace-spans": ("trace_spans", False, "telemetry/dtrace.py"),
-    "--metrics-port": ("metrics_port", None, "telemetry/httpd.py"),
 }
 
 
@@ -251,14 +232,16 @@ def main(argv=None) -> int:
                         "prof_stage_frac_* gauges")
     p.add_argument("--profile-artifact", default=None, metavar="PATH",
                    help="on close, write the per-backend transfer-vs-"
-                        "compute JSON artifact (XLA cost_analysis + "
-                        "measured H2D bandwidth) merged in place by "
-                        "backend key")
+                        "compute JSON artifact merged in place by "
+                        "backend key: on the card the seq kernel's "
+                        "CUDA-event ms and bytes per dispatch and the "
+                        "measured H2D bandwidth")
     p.add_argument("--capture-dir", default=None, metavar="DIR",
                    help="trigger-based capture: on SLO burn or a p99 "
                         "exemplar past --capture-p99-us, record a "
                         "bounded profile window to DIR (span ids "
-                        "resolve through kme-trace)")
+                        "resolve through kme-trace; on the card also "
+                        "a torch.profiler trace of the next 0.5 s)")
     p.add_argument("--capture-p99-us", type=int, default=None,
                    metavar="US", help="exemplar e2e threshold that "
                         "fires a capture even without SLO burn")
@@ -284,6 +267,17 @@ def main(argv=None) -> int:
                 f"item 6)")
 
     import os
+
+    if args.watch:
+        # fail fast on grammar errors instead of a mid-run warning
+        from kme_tpu_torch.telemetry.xray import XrayError, parse_watch
+
+        try:
+            for expr in args.watch:
+                parse_watch(expr)
+        except XrayError as e:
+            print(f"kme-serve: {e}", file=sys.stderr)
+            return 2
 
     from kme_tpu_torch.bridge.broker import BrokerFenced, InProcessBroker
     from kme_tpu_torch.bridge.provision import provision
@@ -331,20 +325,46 @@ def main(argv=None) -> int:
 
         tracer = TraceRecorder()
         install(tracer)   # PhaseTimers pick it up process-wide
-    svc = None
+    svc = msrv = None
     rc = 0
     try:
-        svc = MatchService(broker, engine=args.engine, compat=args.compat,
-                           batch=args.batch, symbols=args.symbols,
-                           accounts=args.accounts, slots=args.slots,
-                           max_fills=args.max_fills, width=args.width,
-                           shards=args.shards, strict=args.strict,
-                           checkpoint_dir=args.checkpoint_dir,
-                           checkpoint_every=args.checkpoint_every,
-                           checkpoint_keep=args.checkpoint_keep,
-                           annotate_rejects=args.annotate_rejects,
-                           exactly_once=exactly_once,
-                           pipeline=args.pipeline, device=args.device)
+        svc = MatchService(
+            broker, engine=args.engine, compat=args.compat,
+            batch=args.batch, symbols=args.symbols,
+            accounts=args.accounts, slots=args.slots,
+            max_fills=args.max_fills, width=args.width,
+            shards=args.shards, strict=args.strict,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_every=args.checkpoint_every,
+            checkpoint_keep=args.checkpoint_keep,
+            journal=args.journal_out,
+            journal_rotate_mb=args.journal_rotate_mb,
+            journal_fsync=args.journal_fsync,
+            journal_keep=args.journal_keep,
+            audit=args.audit, audit_repro_dir=args.audit_repro_dir,
+            annotate_rejects=args.annotate_rejects,
+            exactly_once=exactly_once, pipeline=args.pipeline,
+            trace_spans=args.trace_spans, tsdb=args.tsdb,
+            profile=args.profile,
+            profile_artifact=args.profile_artifact,
+            capture_dir=args.capture_dir,
+            capture_p99_us=args.capture_p99_us,
+            watch=args.watch,
+            slo=(None if args.slo_p99_ms is None else {
+                "stage": args.slo_stage,
+                "p99_ms": args.slo_p99_ms,
+                "budget": args.slo_budget,
+                "min_ops": args.slo_min_ops,
+                "min_records_per_s": args.slo_min_records_per_sec}),
+            device=args.device)
+        if args.metrics_port is not None:
+            from kme_tpu_torch.telemetry import start_metrics_server
+
+            msrv = start_metrics_server(svc.telemetry, args.metrics_port)
+            print(f"kme-serve: metrics on "
+                  f"http://{msrv.server_address[0]}:"
+                  f"{msrv.server_address[1]}/metrics", file=sys.stderr,
+                  flush=True)
         seen = svc.run(max_messages=args.max_messages,
                        idle_exit=args.idle_exit,
                        health_file=args.health_file,
@@ -368,7 +388,14 @@ def main(argv=None) -> int:
         pass
     finally:
         if svc is not None:
-            svc.close()     # finish the in-flight batches
+            svc.close()     # finish the in-flight batches, flush + close
+            if args.journal_out is not None and os.path.exists(
+                    args.journal_out):
+                print(f"kme-serve: journal written to {args.journal_out}",
+                      file=sys.stderr)
+        if msrv is not None:
+            msrv.shutdown()
+            msrv.server_close()
         if tracer is not None:
             tracer.save(args.trace_out)
             print(f"kme-serve: trace written to {args.trace_out}",

@@ -39,35 +39,36 @@ durable MatchOut log itself carries each record exactly once.
 discarded (but out_seq still counts them), checkpoints are skipped, and
 no lease is held.
 
-Not ported yet, and refused at construction: the flight-recorder
-journal, the invariant auditor, SLOs, span tracing, the metrics history
-(TSDB), the profiler and trigger captures, live watchpoints and the
-multi-leader groups. The control-plane event log is off.
+Observability, as in the JAX package: the flight-recorder journal
+(`journal=`), the invariant auditor over it (`audit=`; its
+`check_engine` reads the state the card's kernels left at every
+checkpoint), per-order latency stamps and trace spans, SLOs, the
+metrics history (`tsdb=`), the host profiler, the device plane
+(`profile_artifact=`: the seq kernel's CUDA-event time and bytes per
+dispatch), trigger captures with a torch.profiler window, live
+watchpoints and, with a checkpoint dir, the control-plane event log.
+The multi-leader groups (`group=`) are not ported yet and refused at
+construction.
 """
 
 from __future__ import annotations
 
+import heapq
 import sys
+from operator import itemgetter
 from typing import Optional
 
 from kme_tpu_torch import faults
 
 TOPIC_IN = "MatchIn"    # topic.js:17
 TOPIC_OUT = "MatchOut"  # topic.js:21
+# seconds of torch.profiler trace a capture records on a card session
+_CAPTURE_WINDOW_S = 0.5
 
 # MatchService options whose modules the port does not have yet:
 # option -> the JAX package's module it needs
 UNPORTED = {
-    "journal": "telemetry/journal.py",
-    "audit": "telemetry/audit.py",
     "group": "bridge/front.py (the multi-leader front)",
-    "slo": "telemetry/slo.py",
-    "trace_spans": "telemetry/dtrace.py",
-    "tsdb": "telemetry/tsdb.py",
-    "profile": "telemetry/profiler.py",
-    "profile_artifact": "telemetry/profiler.py",
-    "capture_dir": "telemetry/profiler.py",
-    "watch": "telemetry/xray.py",
 }
 
 
@@ -87,11 +88,24 @@ class MatchService:
                  checkpoint_dir: Optional[str] = None,
                  checkpoint_every: int = 4096,
                  checkpoint_keep: Optional[int] = None,
+                 journal=None, journal_rotate_mb: Optional[int] = None,
+                 journal_fsync: str = "off",
+                 journal_keep: Optional[int] = None,
+                 audit: bool = False,
+                 audit_repro_dir: Optional[str] = None,
                  annotate_rejects: bool = False,
                  exactly_once: bool = False,
                  follower: bool = False,
                  pipeline: int = 0,
-                 clock=None, device="cuda", **options) -> None:
+                 slo=None,
+                 trace_spans: bool = False,
+                 tsdb: Optional[str] = None,
+                 profile: bool = False,
+                 profile_artifact: Optional[str] = None,
+                 capture_dir: Optional[str] = None,
+                 capture_p99_us: Optional[int] = None,
+                 watch=None, clock=None, device="cuda",
+                 **options) -> None:
         for k, v in options.items():
             if k not in UNPORTED:
                 raise TypeError(f"MatchService got an unexpected keyword "
@@ -128,6 +142,12 @@ class MatchService:
         self._req_symbols, self._req_accounts = symbols, accounts
         self._req_slots, self._req_max_fills = slots, max_fills
         self._last_engine_pub = 0.0
+        self._journal_arg = journal
+        self._journal_rotate_mb = journal_rotate_mb
+        self._journal_fsync = journal_fsync
+        self._journal_keep = journal_keep
+        self._audit_arg = audit
+        self._audit_repro_dir = audit_repro_dir
         self.annotate_rejects = annotate_rejects
         self.exactly_once = exactly_once
         self.follower = follower
@@ -168,9 +188,33 @@ class MatchService:
             raise ValueError("exactly_once is incompatible with "
                              "annotate_rejects (REJ records interleave "
                              "at non-deterministic batch boundaries)")
+        self.degraded = None        # set by the invariant auditor
+        # distributed tracing (telemetry/dtrace.py): journal per-order
+        # "span" events keyed by local_tid(group, broker offset)
+        self.trace_spans = bool(trace_spans)
+        # continuous profiling & history: metrics history on disk at
+        # heartbeat cadence, the sampling host profiler, the
+        # per-backend transfer/compute artifact, trigger captures
+        self._tsdb_arg = tsdb
+        self._profile_arg = bool(profile)
+        self._profile_artifact = profile_artifact
+        self._capture_dir = capture_dir
+        self._capture_p99_us = capture_p99_us
+        self.tsdb = None
+        self.profiler = None
+        self.capture = None
+        # live watchpoints: deterministic predicates over the shadow
+        # ledger, evaluated at every batch barrier. Read-only: they
+        # never gate admission and never touch MatchOut bytes
+        self._watch_arg = list(watch or [])
+        self.watch = None
         # monotonic heartbeat-sample sequence, persisted across restart
-        # in the checkpoint's additive `extra` meta
+        # in the checkpoint's additive `extra` meta, so TSDB ingestion
+        # dedups replayed samples
         self.sample_seq = 0
+        self._slo_arg = slo         # dict of SLO kwargs, or None
+        self.slo = None
+        self._slo_reason = None
         # adaptive-shed annotations: controller sheds happen on the TCP
         # produce thread; queue the details and emit REJ rows (with
         # backlog/threshold/state) from the poll thread
@@ -183,6 +227,34 @@ class MatchService:
             q = collections.deque(maxlen=65536)
             self._shed_pending = q
             broker.shed_observer = lambda _topic, d: q.append(d)
+        # control-plane flight recorder (telemetry/events.py): the serve
+        # process's own durable event stream — lease grants, overload
+        # state transitions — next to the checkpoints, so kme-torch-events
+        # merges it with other processes' logs. The heartbeat exports
+        # its committed-bytes cursor (events_last_offset/lag_bytes)
+        self.events = None
+        if checkpoint_dir is not None:
+            from kme_tpu_torch.telemetry import events as cpevents
+
+            src = "follower" if self.follower else "serve"
+            try:
+                self.events = cpevents.open_log(
+                    checkpoint_dir, src, clock=self.clock.time)
+            except OSError:
+                self.events = None
+            ctl = getattr(broker, "overload", None)
+            if self.events is not None and ctl is not None:
+                ev = self.events
+                names = type(ctl).STATE_NAMES
+
+                def _overload_event(prev, new):
+                    ev.emit("overload.transition",
+                            severity="warn" if new else "info",
+                            group=None, from_state=names[prev],
+                            to_state=names[new],
+                            backoff_ms=ctl.backoff_ms)
+
+                ctl.on_transition = _overload_event
         resumed = False
         if checkpoint_dir is not None:
             resumed = self._try_resume(engine, compat, shards, width)
@@ -215,6 +287,7 @@ class MatchService:
             self._restore_sample_seq()
         self._init_exactly_once(resumed=resumed)
         self._init_telemetry()
+        self._init_observability(resumed=resumed)
         self._commit_watermark()
 
     def _restore_sample_seq(self) -> None:
@@ -264,7 +337,8 @@ class MatchService:
                   file=sys.stderr)
             self.exactly_once = False
             return
-        self.epoch = lease.acquire(self.checkpoint_dir)
+        self.epoch = lease.acquire(self.checkpoint_dir,
+                                   events=self.events)
         fence = getattr(self.broker, "fence", None)
         if fence is not None:
             fence(self.epoch)
@@ -285,10 +359,245 @@ class MatchService:
         except BrokerError:
             pass        # topic not provisioned yet / transport blip
 
+    def _init_observability(self, resumed: bool) -> None:
+        """Flight recorder + invariant auditor wiring. The journal
+        subscribes the auditor as an observer, so the shadow replay
+        sees exactly what lands in the journal file; on resume the
+        journal is rewound to the snapshot offset (the at-least-once
+        tail replay would otherwise journal twice) and the auditor is
+        seeded from the restored engine state."""
+        import os
+
+        from kme_tpu_torch.telemetry import InvariantAuditor, Journal
+
+        self.journal = None
+        self.auditor = None
+        # (offset, violations found) of each checkpoint's check_engine
+        self.engine_checks: list = []
+        j = self._journal_arg
+        if isinstance(j, str):
+            rb = (self._journal_rotate_mb * (1 << 20)
+                  if self._journal_rotate_mb else None)
+            guard = None
+            if self.checkpoint_dir is not None:
+                # retention coupling: rotated journal segments may only
+                # be pruned once every event in them is older than the
+                # oldest retained snapshot
+                ckpt_dir = self.checkpoint_dir
+
+                def guard():
+                    from kme_tpu_torch.runtime import checkpoint as ck
+
+                    return ck.oldest_retained_offset(ckpt_dir)
+            j = Journal(j, rotate_bytes=rb, fsync=self._journal_fsync,
+                        rotate_keep=self._journal_keep,
+                        retention_guard=guard)
+        self.journal = j
+        if j is not None and resumed:
+            j.rewind_to_offset(self.offset)
+        # journal-side corruption drill (KME_AUDIT_TAMPER=
+        # journal_fill_qty[@K]): one-shot, bumps the first journaled
+        # fill's taker quantity, from the K-th journaled batch on, in a
+        # COPY of the output line groups — the journal then LIES about a
+        # batch while MatchOut stays untouched, the divergence class
+        # `kme-torch-xray --bisect` must pin to a batch
+        self._journal_tamper = None
+        self._tampered_batch = None
+        tamper_env = os.environ.get("KME_AUDIT_TAMPER", "")
+        if j is not None and tamper_env.startswith("journal_fill_qty"):
+            import json as _json
+
+            from kme_tpu_torch import opcodes as op
+
+            _, _, at_s = tamper_env.partition("@")
+            arm_batch = int(at_s) if at_s.isdigit() else 0
+            done = []
+            seen = [0]     # record_batch calls == journal batch ids
+
+            def line_tamper(out):
+                b = seen[0]
+                seen[0] += 1
+                if done or b < arm_batch:
+                    return out
+                for gi, grp in enumerate(out):
+                    if len(grp) < 4:   # no fill pairs (IN + result echo)
+                        continue
+                    for k in range(1, len(grp) - 1, 2):
+                        key, _, val = grp[k + 1].partition(" ")
+                        try:
+                            tk = _json.loads(val)
+                        except ValueError:
+                            continue
+                        if tk.get("action") not in (op.BOUGHT, op.SOLD):
+                            continue   # not a fill-pair taker echo
+                        tk["size"] = int(tk["size"]) + 1
+                        new = list(grp)
+                        new[k + 1] = (f"{key} " + _json.dumps(
+                            tk, separators=(",", ":")))
+                        out = list(out)
+                        out[gi] = new
+                        done.append(True)
+                        self._tampered_batch = b
+                        return out
+                return out
+
+            self._journal_tamper = line_tamper
+        self._init_profiling(resumed)
+        self._init_watch(resumed)
+        if not self._audit_arg:
+            return
+        if self._compat != "fixed":
+            print("kme-serve: --audit needs fixed-mode money semantics; "
+                  "auditing disabled for compat=java", file=sys.stderr)
+            return
+        if j is None:
+            raise ValueError("--audit requires --journal-out (the "
+                             "auditor replays the journal stream)")
+
+        def on_violation(violations, dump):
+            self.degraded = violations[0]["kind"]
+            where = f" (repro: {dump})" if dump else ""
+            print(f"kme-serve: AUDIT VIOLATION {violations[0]}{where}",
+                  file=sys.stderr)
+
+        self.auditor = InvariantAuditor(
+            registry=self.telemetry, repro_dir=self._audit_repro_dir,
+            on_violation=on_violation,
+            checkpoint_ref=self.checkpoint_dir,
+            journal_ref=getattr(j, "path", None),
+            log_ref=getattr(self.broker, "_persist_dir", None))
+        if resumed and self._session is not None:
+            self.auditor.seed(self._session.export_state(),
+                              self._session.histograms())
+        # deliberate-corruption drill: KME_AUDIT_TAMPER=fill_qty bumps
+        # the first journaled fill's quantity by one, which must trip
+        # the auditor
+        if os.environ.get("KME_AUDIT_TAMPER") == "fill_qty":
+            done = []
+
+            def tamper(events):
+                if not done:
+                    for ev in events:
+                        if ev.get("e") == "fill":
+                            ev["qty"] += 1
+                            done.append(True)
+                            break
+                return events
+
+            self.auditor.tamper = tamper
+        j.observers.append(self.auditor.observe)
+
+    def _init_watch(self, resumed: bool) -> None:
+        """Live watchpoint wiring. Predicates evaluate inline at the
+        batch barrier — directly against the serving OracleEngine when
+        that IS the engine, else against an auditor-shaped shadow
+        ledger fed from the batch's own (untampered) output lines. Both
+        are pure functions of exported state, so two seeded runs fire
+        identical (offset, predicate) hit sets. Hits write bounded
+        captures into `capture_dir` carrying the offset, the batch's
+        slow-order trace exemplars and the `kme-torch-xray` line that
+        reproduces the hit offline."""
+        self.watch = None
+        if not self._watch_arg:
+            return
+        if self._compat != "fixed":
+            print("kme-serve: --watch needs fixed-mode money "
+                  "semantics; watchpoints disabled for compat=java",
+                  file=sys.stderr)
+            return
+        from kme_tpu_torch.telemetry.xray import WatchEngine
+
+        repro = {"log_dir": getattr(self.broker, "_persist_dir", None),
+                 "topic": self.topic_in,
+                 "checkpoint_dir": self.checkpoint_dir}
+        self.watch = WatchEngine(
+            self._watch_arg, out_dir=self._capture_dir,
+            registry=self.telemetry, repro=repro)
+        if resumed:
+            state = None
+            if self._session is not None:
+                state = self._session.export_state()
+            elif self._oracle is not None and not self._oracle.java:
+                state = self._oracle.export_state()
+            if state is not None:
+                self.watch.seed(state)
+            else:
+                print("kme-serve: --watch cannot seed its shadow from "
+                      "a resumed native engine; watchpoints disabled",
+                      file=sys.stderr)
+                self.watch = None
+
+    def _init_profiling(self, resumed: bool) -> None:
+        """Continuous profiling & history wiring: the TSDB heartbeat
+        feed, the sampling host profiler, the device plane and the
+        SLO/p99 trigger capture. All additive: a failure to open the
+        history store degrades the observability surface, never the
+        engine."""
+        if self._tsdb_arg is not None:
+            from kme_tpu_torch.telemetry.tsdb import TSDB
+
+            source = "follower" if self.follower else "serve"
+            try:
+                self.tsdb = TSDB(self._tsdb_arg, source=source)
+            except (OSError, ValueError) as e:
+                print(f"kme-serve: TSDB disabled ({e})", file=sys.stderr)
+            if self.tsdb is not None and not resumed:
+                # no checkpoint cursor to continue: adopt the store's
+                # high-water mark so a plain restart keeps appending
+                self.sample_seq = max(self.sample_seq,
+                                      self.tsdb.next_seq())
+        if self._profile_arg:
+            from kme_tpu_torch.telemetry.profiler import StageProfiler
+
+            self.profiler = StageProfiler(registry=self.telemetry)
+            self.profiler.start()
+        if (self._profile_artifact is not None
+                and getattr(self._session, "_staging", None) is not None):
+            # the seq session on the card times its dispatches with
+            # CUDA events and counts the bytes of a sample of them
+            self._session.enable_device_plane()
+        if self._capture_dir is not None:
+            import torch
+            from kme_tpu_torch.telemetry.profiler import TriggerCapture
+
+            # on the card a capture also records a torch.profiler
+            # window of the serving that follows it (the kernels' own
+            # timeline); a CPU session has no device activity to add
+            on_card = torch.device(self.device).type == "cuda"
+            self.capture = TriggerCapture(
+                self._capture_dir, p99_us=self._capture_p99_us,
+                window_s=_CAPTURE_WINDOW_S if on_card else 0.0,
+                registry=self.telemetry)
+
     def close(self) -> None:
-        """Finish the in-flight batches (serve shutdown path)."""
+        """Finish the in-flight batches, then flush + close the
+        observability surfaces (serve shutdown path)."""
         if getattr(self, "_pipe", None):
             self._drain_pipeline()
+        if getattr(self, "profiler", None) is not None:
+            self.profiler.stop()
+        if getattr(self, "capture", None) is not None:
+            self.capture.close()
+        if getattr(self, "_profile_artifact", None) is not None:
+            from kme_tpu_torch.telemetry.profiler import (
+                device_plane, write_transfer_artifact)
+
+            try:
+                # a session-less engine (oracle/native) records a host
+                # plane: backend "cpu"
+                plane = device_plane(session=self._session)
+                write_transfer_artifact(self._profile_artifact, plane)
+                print(f"kme-serve: transfer/compute artifact written to "
+                      f"{self._profile_artifact}", file=sys.stderr)
+            except (OSError, ValueError) as e:
+                print(f"kme-serve: transfer artifact failed ({e})",
+                      file=sys.stderr)
+        if getattr(self, "tsdb", None) is not None:
+            self.tsdb.close()
+        if getattr(self, "events", None) is not None:
+            self.events.close()
+        if getattr(self, "journal", None) is not None:
+            self.journal.close()
 
     def _init_telemetry(self) -> None:
         """The service's metrics surface. Session engines own a
@@ -350,6 +659,14 @@ class MatchService:
         self._ptimer = PhaseTimer(track="serve")
         self._batch_ordinal = 0
         self._last_produce_s = 0.0
+        # slowest recent orders, worst first: published as registry
+        # exemplars so a p99 outlier resolves to a concrete waterfall
+        # (kme-torch-trace --order)
+        self._slow: list = []
+        if self._slo_arg is not None:
+            from kme_tpu_torch.telemetry.slo import SLO
+
+            self.slo = SLO(t, **self._slo_arg)
         if getattr(self.broker, "deliver_observer", None) is None \
                 and hasattr(self.broker, "deliver_observer"):
             lat_consume = self._lat["consume"]
@@ -364,6 +681,72 @@ class MatchService:
                         lat_consume.observe(max(0, now_us - ats) * 1e-6)
 
             self.broker.deliver_observer = _on_deliver
+
+    _EXEMPLARS = 8
+
+    def _stamp_orders(self, offs, oids, aids, atss, fetch_us, done_us,
+                      plan_us, dev_us, prod_us, batch) -> None:
+        """Per-order stage attribution, shared by the serial and
+        pipelined collect paths: journal "lat" stamps, "span" events
+        when tracing is on (trace_spans), and the slow-order exemplar
+        surface. Span bounds are contiguous from the admission stamp —
+        the layout telemetry/dtrace.py synthesizes from "lat" events.
+        Span identity is local_tid(group, broker offset): durable
+        identity, so a crash-replay re-emits the SAME ids."""
+        n = len(offs)
+        if not n:
+            return
+        from kme_tpu_torch.telemetry.dtrace import local_tid
+
+        g = 0       # the single leader is group 0
+        if self.journal is not None:
+            self.journal.record_latency(
+                [{"off": offs[i], "oid": oids[i],
+                  "in_us": (max(0, fetch_us - atss[i])
+                            if atss[i] is not None else 0),
+                  "plan_us": plan_us, "dev_us": dev_us,
+                  "prod_us": prod_us,
+                  "e2e_us": (max(0, done_us - atss[i])
+                             if atss[i] is not None else 0)}
+                 for i in range(n)], batch=batch)
+            if self.trace_spans:
+                spans = []
+                for i in range(n):
+                    t = atss[i] if atss[i] is not None else fetch_us
+                    tid = local_tid(g, offs[i])
+                    for kind, dur in (
+                            ("ingress", (max(0, fetch_us - atss[i])
+                                         if atss[i] is not None
+                                         else 0)),
+                            ("plan", plan_us), ("device", dev_us),
+                            ("produce", prod_us)):
+                        spans.append(
+                            {"kind": kind, "g": g, "off": offs[i],
+                             "oid": oids[i], "aid": aids[i],
+                             "tid": tid, "ptid": 0, "t0": t,
+                             "t1": t + dur, "li": -1})
+                        t += dur
+                self.journal.record_spans(spans, batch=batch)
+        cap = self._EXEMPLARS
+        floor = (self._slow[-1]["e2e_us"]
+                 if len(self._slow) >= cap else -1)
+        # only this batch's `cap` slowest orders past the floor can stay
+        # in the list: pick them (ties in batch order, as the stable sort
+        # below keeps them) before building their records. In a backlog
+        # every order beats the floor, and a trace id and a record for
+        # each order were most of what the stamping cost.
+        top = heapq.nlargest(
+            cap, (c for c in ((max(0, done_us - a), i)
+                              for i, a in enumerate(atss) if a is not None)
+                  if c[0] > floor), key=itemgetter(0))
+        for e2e, i in top:
+            self._slow.append(
+                {"tid": local_tid(g, offs[i]), "off": offs[i],
+                 "oid": oids[i], "aid": aids[i], "g": g, "e2e_us": e2e})
+        if top:
+            self._slow.sort(key=lambda x: -x["e2e_us"])
+            del self._slow[cap:]
+            self.telemetry.set_exemplars(self._slow)
 
     # ------------------------------------------------------------------
     # durability: snapshot at batch boundaries, resume = load + replay
@@ -540,6 +923,17 @@ class MatchService:
             ck.save_oracle(self.checkpoint_dir, self._oracle, self.offset,
                            keep=self.checkpoint_keep, extra=extra)
         self._last_ckpt_offset = self.offset
+        if self.journal is not None:
+            # the journal is best-effort relative to the broker log, but
+            # a snapshot is a natural durability point for it too
+            self.journal.flush()
+        if self.auditor is not None and self._session is not None:
+            # checkpoint-cadence cross-check: the shadow ledger against
+            # the state the card's kernels left (exported) + the
+            # device histograms
+            found = self.auditor.check_engine(
+                self._session.export_state(), self._session.histograms())
+            self.engine_checks.append((self.offset, len(found)))
 
     # ------------------------------------------------------------------
 
@@ -620,7 +1014,7 @@ class MatchService:
         import time as _t
 
         fetch_us = self.clock.time_us()
-        msgs, atss = [], []
+        msgs, offs, drops, atss = [], [], [], []
         for r in recs:
             ats = getattr(r, "ats", None)
             if ats is not None:
@@ -628,7 +1022,10 @@ class MatchService:
             m = self._parse(r.value)
             if m is not None:
                 msgs.append(m)
+                offs.append(r.offset)
                 atss.append(ats)
+            else:
+                drops.append((-1, r.offset))
         out = reasons = None
         self._batch_ordinal += 1
         self._last_produce_s = 0.0
@@ -676,8 +1073,8 @@ class MatchService:
                 self._produce_rej_annotations(out, reasons)
         done_us = self.clock.time_us()
         n = len(msgs)
+        plan_d = dev_d = 0.0
         if n:
-            plan_d = dev_d = 0.0
             if phases is not None and self._session is not None:
                 p1 = self._session.phases
                 plan_d = p1.get("plan_s", 0.0) - p0.get("plan_s", 0.0)
@@ -689,6 +1086,9 @@ class MatchService:
                 dev_d = max(0.0, _t.perf_counter() - t_engine0
                             - self._last_produce_s)
             self._observe_batch(n, atss, done_us, plan_d, dev_d)
+        with self._ptimer.phase("serve_observe"):
+            self._observe_serial(out, reasons, msgs, offs, drops, atss,
+                                 fetch_us, done_us, plan_d, dev_d)
         # batch-boundary commit: offsets advance only after the outputs
         # for the whole batch are on MatchOut
         self.offset = recs[-1].offset + 1
@@ -701,6 +1101,43 @@ class MatchService:
         self._commit_watermark()
         self._publish_batch(len(recs), len(recs) - len(msgs))
         return len(recs)
+
+    def _observe_serial(self, out, reasons, msgs, offs, drops, atss,
+                        fetch_us, done_us, plan_d, dev_d) -> None:
+        """The serial path's observability at the batch barrier: the
+        journal (and the auditor, its observer), per-order stamps and
+        spans, watchpoints (the `serve_observe` span)."""
+        n = len(msgs)
+        if self.journal is not None and (out or drops):
+            jout = out or []
+            if self._journal_tamper is not None:
+                jout = self._journal_tamper(jout)
+            self.journal.record_batch(jout, reasons=reasons,
+                                      offsets=offs[:len(out or [])],
+                                      drops=drops)
+        if n:
+            # full batch wall per order (what the order EXPERIENCED),
+            # not an amortized per-order share
+            self._stamp_orders(
+                offs[:n], [int(m.oid) for m in msgs],
+                [int(m.aid) for m in msgs], atss, fetch_us, done_us,
+                int(plan_d * 1e6), int(dev_d * 1e6),
+                int(self._last_produce_s * 1e6),
+                batch=self._batch_ordinal)
+        if self.watch is not None and n:
+            # batch barrier, after _stamp_orders so a firing capture
+            # embeds this batch's trace exemplars; never the
+            # journal-tamper copy. The serving oracle IS the state
+            # machine and is read directly; every other engine feeds
+            # the shadow ledger from the batch's own output lines.
+            if self._oracle is not None:
+                self.watch.observe_engine(self._oracle, offs[n - 1],
+                                          exemplars=self._slow)
+            elif out:
+                self.watch.observe_lines(out, reasons=reasons,
+                                         offsets=offs[:len(out)],
+                                         drops=drops,
+                                         exemplars=self._slow)
 
     # -- pipelined serving: submit N+1 while N runs on the card
 
@@ -779,8 +1216,9 @@ class MatchService:
             self._flow("s")
             handle = self._session.submit(wb)
         plan_d = phases.get("plan_s", 0.0) - p0.get("plan_s", 0.0)
-        self._pipe.append((end_off, handle, wb.n, atss, plan_d,
-                           self._batch_ordinal))
+        self._pipe.append((end_off, handle, wb,
+                           [r.offset for r in recs], atss, fetch_us,
+                           plan_d, self._batch_ordinal))
         while len(self._pipe) > self.pipeline:
             self._collect_one()
         return len(recs)
@@ -791,18 +1229,42 @@ class MatchService:
         Checkpoints wait for an empty pipeline: a snapshot must pair
         engine state with an offset whose every predecessor is visible
         on MatchOut."""
-        end_off, handle, n, atss, plan_d, ordinal = self._pipe.popleft()
+        (end_off, handle, wb, offs, atss, fetch_us, plan_d,
+         ordinal) = self._pipe.popleft()
         self._last_produce_s = 0.0
         phases = self._session.phases
         p0 = dict(phases)
         with self._ptimer.phase("serve_engine"):
-            buf, line_off, _msg_lines = self._session.collect(handle)
+            buf, line_off, msg_lines = self._session.collect(handle)
+        reasons = self._session.last_reasons
         # device attribution under pipelining: what the batch WAITED at
         # fetch time (overlapped device work the host never sees is the
         # point of the pipeline)
         dev_d = phases.get("fetch_s", 0.0) - p0.get("fetch_s", 0.0)
         self._produce_buffer(buf, line_off, ordinal)
-        self._observe_batch(n, atss, self.clock.time_us(), plan_d, dev_d)
+        done_us = self.clock.time_us()
+        n = wb.n
+        self._observe_batch(n, atss, done_us, plan_d, dev_d)
+        with self._ptimer.phase("serve_observe"):
+            out = None
+            if (self.journal is not None or self.watch is not None) and n:
+                out = self._lines_of(buf, line_off, msg_lines)
+            if self.journal is not None and n:
+                jout = out
+                if self._journal_tamper is not None:
+                    jout = self._journal_tamper(jout)
+                self.journal.record_batch(jout, reasons=reasons,
+                                          offsets=offs, drops=[])
+            if n:
+                self._stamp_orders(
+                    offs, wb.oid.tolist(), wb.aid.tolist(), atss,
+                    fetch_us, done_us, int(plan_d * 1e6),
+                    int(dev_d * 1e6), int(self._last_produce_s * 1e6),
+                    batch=ordinal)
+            if self.watch is not None and out:
+                self.watch.observe_lines(out, reasons=reasons,
+                                         offsets=offs, drops=[],
+                                         exemplars=self._slow)
         self.offset = end_off
         if not self.follower:
             faults.kill_now("serve.kill", offset=self.offset)
@@ -818,6 +1280,19 @@ class MatchService:
         batch, a due checkpoint, shutdown)."""
         while self._pipe:
             self._collect_one()
+
+    @staticmethod
+    def _lines_of(buf, line_off, msg_lines):
+        """Reconstruction buffer -> per-message line lists (the journal
+        and watch surfaces speak lines)."""
+        text = buf.decode("ascii")
+        lo = line_off.tolist()
+        out, li = [], 0
+        for nl in msg_lines.tolist():
+            out.append([text[lo[li + k]:lo[li + k + 1]]
+                        for k in range(nl)])
+            li += nl
+        return out
 
     def _produce_buffer(self, buf, line_off, ordinal=None) -> None:
         """Produce a reconstructed record buffer line by line — the
@@ -888,6 +1363,13 @@ class MatchService:
             if self._shed_pending is not None:
                 self._drain_shed_annotations()
         self._publish_eos_gauges()
+        if self.journal is not None:
+            t.gauge("journal_last_offset",
+                    "input offset of the newest committed journal "
+                    "record").set(self.journal.last_offset)
+            t.gauge("journal_lag_bytes",
+                    "bytes accepted by the journal but not yet "
+                    "committed by its writer").set(self.journal.lag_bytes)
         ph = getattr(self._session, "phases", None) \
             if self._session is not None else None
         if ph:
@@ -913,6 +1395,21 @@ class MatchService:
             if self._session is not None:
                 self._session.metrics()   # publishes counters + gauges
                 self._session.histograms()  # publishes bucket counts
+            if self.slo is not None:
+                # SLO degradation rides the same heartbeat channel as
+                # an audit violation; the auditor's verdict wins
+                self._slo_reason = self.slo.evaluate()
+            if self.profiler is not None:
+                self.profiler.publish(t)
+            if self.capture is not None:
+                # trigger-based capture: SLO burn or a p99 exemplar
+                # past threshold records a bounded profile window whose
+                # span ids resolve through kme-torch-trace
+                fired = self.capture.maybe_fire(self._slo_reason,
+                                                t.exemplars())
+                if fired:
+                    print(f"kme-serve: profile capture {fired}",
+                          file=sys.stderr)
 
     def _publish_eos_gauges(self) -> None:
         """Exactly-once observability (cheap broker-attribute reads;
@@ -1092,7 +1589,10 @@ class MatchService:
         beat_stop = None
         seen_box = [0]
         tick_box = [0]
-        if health_file is not None:
+        # the beater thread also runs when only a TSDB is configured
+        # (health_file=None): metrics history wants the same heartbeat
+        # cadence whether or not a supervisor is watching
+        if health_file is not None or self.tsdb is not None:
             beat_stop = threading.Event()
             self._hb_every = float(health_every)
             state = self
@@ -1103,8 +1603,8 @@ class MatchService:
                                            tick_box[0])
 
             self._write_heartbeat(health_file, 0, 0)
-            t = threading.Thread(target=beater, daemon=True)
-            t.start()
+            beat = threading.Thread(target=beater, daemon=True)
+            beat.start()
         try:
             idle_since = self.clock.monotonic()
             while max_messages is None or seen < max_messages:
@@ -1138,12 +1638,15 @@ class MatchService:
             finally:
                 if beat_stop is not None:
                     beat_stop.set()
+                    # the beater's last write (heartbeat file, TSDB
+                    # append) must land before the closing one
+                    beat.join()
                     self._write_heartbeat(health_file, seen,
                                           tick_box[0], closing=True)
         return seen
 
-    def _write_heartbeat(self, path: str, seen: int, tick: int = 0,
-                         closing: bool = False) -> None:
+    def _write_heartbeat(self, path: Optional[str], seen: int,
+                         tick: int = 0, closing: bool = False) -> None:
         import json
         import os
 
@@ -1154,6 +1657,16 @@ class MatchService:
         seq = self.sample_seq
         self.sample_seq = seq + 1
         snap = self.telemetry.snapshot()
+        if path is None:       # TSDB-only heartbeat (no supervisor)
+            self._append_tsdb(snap, seq)
+            return
+        # additive events-log keys: the committed-bytes cursor of this
+        # process's control-plane event log (kme-torch-agg flags a
+        # recorder that froze while the heartbeat kept advancing)
+        ev = getattr(self, "events", None)
+        evkeys = ({"events_last_offset": ev.last_offset,
+                   "events_lag_bytes": ev.lag_bytes}
+                  if ev is not None else {})
         tmp = path + ".tmp"
         with open(tmp, "w") as f:
             # "metrics" is ADDITIVE — the supervisor keys
@@ -1163,10 +1676,23 @@ class MatchService:
             json.dump({"pid": os.getpid(), "time": self.clock.time(),
                        "seen": seen, "offset": self.offset,
                        "tick": tick, "closing": closing,
-                       "degraded": None,
+                       "degraded": self.degraded or self._slo_reason,
                        "role": "follower" if self.follower else "leader",
                        "epoch": self.epoch,
                        "sample_seq": seq,
                        "every": getattr(self, "_hb_every", 1.0),
+                       **evkeys,
                        "metrics": snap}, f)
         os.replace(tmp, path)
+        self._append_tsdb(snap, seq)
+
+    def _append_tsdb(self, snap: dict, seq: int) -> None:
+        if self.tsdb is None:
+            return
+        try:
+            self.tsdb.append_snapshot(snap, seq)
+        except OSError as e:
+            # history is best-effort; the live heartbeat is not
+            print(f"kme-serve: TSDB append failed: {e}",
+                  file=sys.stderr)
+            self.tsdb = None

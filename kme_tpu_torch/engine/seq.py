@@ -1177,6 +1177,132 @@ def seq_scan_reference(cfg: SeqConfig, state: dict, stacked: dict
 
 
 # ---------------------------------------------------------------------------
+# the byte count of one dispatch
+
+_ROW_BYTES = LN * 4
+_JAVA_HASH = ("hka_lo", "hka_hi", "hkb_lo", "hkb_hi", "hstate",
+              "ha_lo", "ha_hi", "hv_lo", "hv_hi")
+
+
+def _java_home(cfg, kal, kah, kbl, kbh):
+    """The java hash's home tile of 128-bit keys (4 int32 word arrays)."""
+    def mul(v, c):
+        return (v.astype(np.int64) * c) & 0xFFFFFFFF
+
+    h = (mul(kal, 0x9E3779B9) ^ mul(kah, 0x85EBCA6B) ^ mul(kbl, 0xC2B2AE35)
+         ^ mul(kbh, 69069))
+    return (h.astype(np.uint32).view(np.int32) >> 7) & (cfg.caprows - 1)
+
+
+def dispatch_bytes(cfg: SeqConfig, cols: dict, out, pre: dict,
+                   post: dict, barriers: int) -> int:
+    """Least bytes one dispatch of ONE chunk must move, counted from
+    this batch (the byte bound of the kernel table, and the device
+    plane's `bytes_per_batch`; the counterpart of the JAX package's
+    `step_cost_analysis`). `cols` are the chunk's host message columns,
+    `out` its output plane, `pre`/`post` the state before and after the
+    dispatch, `barriers` the barriers it executed. Counted: its
+    message columns read once; each state row its messages must read,
+    once per plane (of each book-touching lane, all 2*NR `bs` rows, which
+    the free-slot search and the sweep scan whole, and of the other book
+    planes only what live orders need: the `bo`/`bp`/`bq` rows that hold
+    a live order before the batch, and the `ba` rows of the makers
+    filled (Q2 ghosts included), of the orders cancelled and of the
+    orders a barrier settles; the lane rows, the balance rows of takers,
+    makers and credited accounts, the hash rows at the home tiles of the
+    takers' and makers' position keys — in java mode the 9 hash planes
+    at the home tiles of the real 128-bit keys and the raw-aid rows of
+    the makers — and for an executed PAYOUT the whole key plane plus the
+    amount rows where the lane's keys sit, from the pre-batch hash);
+    each state row it changed, written once (java's (amount, available)
+    keys are counted there); the output's used rows."""
+    B, NR, A = cfg.batch, cfg.nr, cfg.accounts
+    java = cfg.compat == "java"
+    act, lane, aid = cols["act"], cols["lane"], cols["aid"]
+    res = unpack_out(cfg, out.cpu().numpy(), B)
+    f_aid = res["fills"][1].astype(np.int64)
+    f_lane = np.repeat(lane.astype(np.int64), res["nfill"])
+    dev = act != L_NOP
+    read = {}
+    book = np.isin(act, [L_BUY, L_SELL, L_CANCEL, L_PAYOUT_YES,
+                         L_PAYOUT_NO, L_REMOVE_SYMBOL])
+    blk = (np.unique(lane[book]).astype(np.int64)[:, None] * 2 * NR
+           + np.arange(2 * NR)).ravel()
+    read["bs"] = [blk]
+    # the live orders before the batch, by (lane, oid) -> row
+    at = torch.nonzero(pre["bs"] > 0)
+    rows = at[:, 0].cpu().numpy().astype(np.int64)
+    oids = ((pre["bo_lo"][at[:, 0], at[:, 1]].cpu().numpy().astype(np.int64)
+             & 0xFFFFFFFF)
+            | (pre["bo_hi"][at[:, 0], at[:, 1]].cpu().numpy()
+               .astype(np.int64) << 32))
+    del at
+    live = np.intersect1d(rows, blk)
+    for k in ("bo_lo", "bo_hi", "bp", "bq"):
+        read[k] = [live]
+    where = dict(zip(zip((rows // (2 * NR)).tolist(), oids.tolist()),
+                     rows.tolist()))
+    cancel = act == L_CANCEL
+    c_oid = ((cols["oid_lo"][cancel].astype(np.int64) & 0xFFFFFFFF)
+             | (cols["oid_hi"][cancel].astype(np.int64) << 32))
+    wanted = (list(zip(f_lane.tolist(), res["fills"][0].tolist()))
+              + list(zip(lane[cancel].tolist(), c_oid.tolist())))
+    ba = [where[k] for k in wanted if k in where]
+    settle = np.unique(lane[np.isin(act, [L_PAYOUT_YES, L_PAYOUT_NO,
+                                          L_REMOVE_SYMBOL])])
+    ba.extend(rows[np.isin(rows // (2 * NR), settle)].tolist())
+    read["ba"] = [np.asarray(ba, np.int64)]
+    for k in ("seqc", "bex") + (() if java else ("dep",)):
+        read[k] = [lane[dev] >> 7]
+    accs = [aid[dev].astype(np.int64), f_aid]
+    trade = np.isin(act, [L_BUY, L_SELL, L_CANCEL])
+    if java:
+        def word(plane, idx):
+            return post[plane].reshape(-1).cpu().numpy()[idx]
+
+        nf = res["nfill"]
+        keys = [np.concatenate([cols["aidr_lo"][trade],
+                                word("araw_lo", f_aid)]),
+                np.concatenate([cols["aidr_hi"][trade],
+                                word("araw_hi", f_aid)]),
+                np.concatenate([cols["sidr_lo"][trade],
+                                np.repeat(cols["sidr_lo"], nf)]),
+                np.concatenate([cols["sidr_hi"][trade],
+                                np.repeat(cols["sidr_hi"], nf)])]
+        tiles = _java_home(cfg, *keys)
+        for k in _JAVA_HASH:
+            read[k] = [tiles]
+        read["araw_lo"] = read["araw_hi"] = [f_aid >> 7]
+    else:
+        keys = np.concatenate([lane[trade].astype(np.int64) * A + aid[trade]
+                               + 1, f_lane * A + f_aid + 1])
+        h = ((keys * -1640531527) & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+        tiles = (h >> 7) & (cfg.caprows - 1)
+        for k in ("hk", "ha_lo", "ha_hi", "hv_lo", "hv_hi"):
+            read[k] = [tiles]
+    pays = np.flatnonzero(np.isin(act, [L_PAYOUT_YES, L_PAYOUT_NO]))
+    if barriers and len(pays):
+        hk = pre["hk"].cpu().numpy()
+        read["hk"].append(np.arange(cfg.caprows))
+        for i in pays[act[pays] == L_PAYOUT_YES]:
+            klo = int(lane[i]) * A + 1
+            mine = (hk >= klo) & (hk < klo + A)
+            r = np.flatnonzero(mine.any(axis=1))
+            read["ha_lo"].append(r)
+            read["ha_hi"].append(r)
+            accs.append(hk[mine].astype(np.int64) - klo)
+    acc_rows = np.concatenate(accs) >> 7
+    for k in ("bal_lo", "bal_hi", "bal_u"):
+        read[k] = [acc_rows]
+    nread = sum(len(np.unique(np.concatenate(v))) for v in read.values())
+    changed = sum(int((pre[k] != post[k]).any(dim=1).sum())
+                  for k in state_keys(cfg))
+    ft = int(out[0, 1])
+    return (len(msg_fields(cfg)) * 4 * B + (nread + changed) * _ROW_BYTES
+            + used_rows(cfg, ft) * _ROW_BYTES)
+
+
+# ---------------------------------------------------------------------------
 # the kernel's wrapper
 
 # launches by the wrappers: of the seq_step chain kernel per

@@ -32,24 +32,31 @@ import ctypes
 import dataclasses
 import time
 import weakref
-from typing import Dict, Iterable, List, Optional, Tuple
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from kme_tpu_torch import opcodes as op
 from kme_tpu_torch.engine import seq as SQ
+from kme_tpu_torch.engine.lanes import MET_BARRIERS
 from kme_tpu_torch.native import load_library
 from kme_tpu_torch.native.sched import (_arr, export_map, import_map,
                                         plan_batch, recon_batch)
 from kme_tpu_torch.runtime.sequencer import CapacityError, EnvelopeError
 from kme_tpu_torch.runtime.session import LaneEngineError
 from kme_tpu_torch.telemetry import PhaseTimer, Registry
+# the overlap of SeqSession.windows (one copy, in the journal module)
+from kme_tpu_torch.telemetry.journal import measured_overlap_s  # noqa: F401
 from kme_tpu_torch.utils import jlong, pow2_bucket
 from kme_tpu_torch.wire import (OrderMsg, OutRecord, WireBatch, order_json,
                                 reject_reason_codes)
 
 _TRADE_ACTS = {op.BUY: SQ.L_BUY, op.SELL: SQ.L_SELL}
+# the device plane counts the bytes of every 16th one-chunk dispatch: a
+# probe clones the state twice, so probing each dispatch would slow the
+# path it measures
+_PROBE_EVERY = 16
 
 
 class UnsupportedJavaOp(RuntimeError):
@@ -345,29 +352,6 @@ def make_seq_router(num_lanes: int, num_accounts: int,
     return SeqRouter(num_lanes, num_accounts)
 
 
-def measured_overlap_s(windows: Iterable[Tuple[str, int, float, float]]
-                       ) -> float:
-    """Measured host/device overlap from SeqSession.windows' (kind, batch,
-    t0, t1) entries: the time collect (host fetch+recon of batch N) spent
-    while another batch was submitted-but-not-collected (its device
-    execution span is bounded by [submit_end, collect_start]). The port's
-    copy of `kme_tpu/telemetry/journal.py`'s."""
-    subs: Dict[int, Tuple[float, float]] = {}
-    cols: Dict[int, Tuple[float, float]] = {}
-    for kind, b, t0, t1 in windows:
-        (subs if kind == "submit" else cols)[b] = (t0, t1)
-    inflight = {b: (subs[b][1], cols[b][0])
-                for b in subs if b in cols and cols[b][0] > subs[b][1]}
-    total = 0.0
-    for b, (c0, c1) in cols.items():
-        cover = 0.0
-        for b2, (s1, k0) in inflight.items():
-            if b2 != b:
-                cover += max(0.0, min(c1, k0) - max(c0, s1))
-        total += min(cover, c1 - c0)
-    return total
-
-
 class _Staging:
     """The card's side of the host path: a ring of pinned host buffers
     for the message planes, a copy stream for their H2D copies, and a
@@ -432,6 +416,10 @@ class _Pending:
     head: torch.Tensor      # the headers + hint prefix (pinned on the card)
     done: Optional[object]  # event behind the early copy (card only)
     stage_s: float
+    # device plane: the kernel's (start, end) events, and for a probed
+    # dispatch (host columns, state before, state after)
+    ev: Optional[tuple] = None
+    probe: Optional[tuple] = None
 
 
 class SeqSession:
@@ -481,6 +469,42 @@ class SeqSession:
         # submit was still uncollected counts as overlapped
         self._h2d_total_s = 0.0
         self._h2d_overlap_s = 0.0
+        # device plane (telemetry/profiler.py), off until asked for:
+        # CUDA-event time of every dispatch's kernels, and the bytes of
+        # every `_PROBE_EVERY`-th one-chunk dispatch
+        self._timing = False
+        self._kernel_ms = 0.0
+        self._timed = 0
+        self._probe_bytes = 0
+        self._probed = 0
+
+    def enable_device_plane(self) -> None:
+        """Time each dispatch's kernels with CUDA events and count the
+        bytes (`SQ.dispatch_bytes`) of every `_PROBE_EVERY`-th dispatch
+        of one chunk. A probe copies the state before and after its
+        dispatch and reads both back at fetch time. Card sessions only:
+        on the CPU there is no kernel to time."""
+        if self._staging is None:
+            raise ValueError("the device plane times kernels on the card; "
+                             f"this session runs on {self.device}")
+        self._timing = True
+
+    def device_timing(self) -> Optional[dict]:
+        """The device plane's kernel fields, or None when not enabled:
+        mean CUDA-event ms per dispatch and mean bytes per probed
+        dispatch."""
+        if not self._timing:
+            return None
+        kern = "seq_scan_kernel<%s>" % (
+            "true" if self.cfg.compat == "java" else "false")
+        out = {"kernel": kern, "dispatches_timed": self._timed,
+               "kernel_ms_per_dispatch": (
+                   round(self._kernel_ms / self._timed, 6)
+                   if self._timed else None),
+               "dispatches_probed": self._probed}
+        if self._probed:
+            out["bytes_per_batch"] = self._probe_bytes // self._probed
+        return out
 
     def load_numpy(self, arrays: dict, aid_idx: Dict[int, int],
                    sid_lane: Dict[int, int], oid_sid: Dict[int, int]) -> None:
@@ -555,7 +579,21 @@ class SeqSession:
                     self._n_submit - self._n_collect)))
         stage_s = time.perf_counter() - t
         with self.timer.phase("dispatch_s"):
+            ev = probe = None
+            if self._timing:
+                if K == 1 and self.dispatches % _PROBE_EVERY == 0:
+                    # host columns copied: the planner's buffers are
+                    # reused by the next batch
+                    probe = ({f: np.array(stacked[f][0]) for f in fields},
+                             {k: v.clone() for k, v in self.state.items()})
+                ev = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+                ev[0].record()
             outp = SQ.seq_scan(self.cfg, self.state, dev)
+            if ev is not None:
+                ev[1].record()
+            if probe is not None:
+                probe += ({k: v.clone() for k, v in self.state.items()},)
             self.dispatches += 1
             ghint = self._hint()
             rows = SQ.hdr_rows(self.cfg) + 5 * ghint
@@ -575,7 +613,7 @@ class SeqSession:
         # compute stream's pool: only work queued behind this kernel can
         # reuse it, so the handle need not hold it; `outp` it must hold
         return _Pending(seq, msgs, cols, host_rejects, outp, cnts, K,
-                        ghint, head, done, stage_s)
+                        ghint, head, done, stage_s, ev, probe)
 
     def _fetch(self, p: _Pending):
         """Wait for the batch's early copy, unpack its headers, and fetch
@@ -586,6 +624,11 @@ class SeqSession:
         HR = SQ.hdr_rows(self.cfg)
         if p.done is not None:
             p.done.synchronize()
+        if p.ev is not None:
+            self._kernel_ms += p.ev[0].elapsed_time(p.ev[1])
+            self._timed += 1
+        if p.probe is not None:
+            self._count_bytes(p)
         fetched = p.head.numpy()
         results = []
         for ci in range(p.K):
@@ -608,6 +651,20 @@ class SeqSession:
                 for k in ("ok", "cap_reject", "append", "residual",
                           "nfill", "prev_oid")}
         return host, np.concatenate(fills, axis=1)
+
+    def _count_bytes(self, p: _Pending) -> None:
+        """The bytes of a probed dispatch, read on the side stream behind
+        its event, so that the reads do not wait for later kernels."""
+        cols, pre, post = p.probe
+        p.probe = None
+        side = self._staging.side
+        with torch.cuda.stream(side):
+            side.wait_event(p.done)
+            out = p.outp[0]
+            barriers = int(out[0, 2 + MET_BARRIERS])
+            self._probe_bytes += SQ.dispatch_bytes(self.cfg, cols, out,
+                                                   pre, post, barriers)
+        self._probed += 1
 
     def _second_round(self, p: _Pending, ci: int, lo: int, hi: int):
         self.overflow_fetches += 1
@@ -944,9 +1001,9 @@ class SeqSession:
              if k not in SQ.METRIC_NAMES})
 
     def export_state(self) -> Dict[str, dict]:
-        """Oracle-comparable host dict view. In fixed mode its Python loop
-        is O(lanes * (accounts + slots)): at full width use `metrics` or
-        `export_canonical`."""
+        """Oracle-comparable host dict view. It walks only the positions
+        and resting orders that exist, so its cost follows the state in
+        use (the auditor reads it at every checkpoint)."""
         if self.cfg.compat == "java":
             return self._export_state_java()
         return self._canon_to_export(SQ.export_canonical(self.cfg,
@@ -956,32 +1013,30 @@ class SeqSession:
         idx_to_aid = self.router.acct_of_idx()
         lane_to_sid = self.router.sid_of_lane()
         A = self.cfg.accounts
+        na = len(idx_to_aid)
         balances = {idx_to_aid[i]: int(canon["bal"][i])
-                    for i in range(len(idx_to_aid)) if canon["bal_used"][i]}
+                    for i in range(na) if canon["bal_used"][i]}
         positions = {}
-        pos_amt = canon["pos_amt"].reshape(self.cfg.lanes, A)
-        pos_avail = canon["pos_avail"].reshape(self.cfg.lanes, A)
+        pos_amt = canon["pos_amt"].reshape(self.cfg.lanes, A)[:, :na]
+        pos_avail = canon["pos_avail"].reshape(self.cfg.lanes, A)[:, :na]
+        # row-major nonzero order == the lane-then-account loop order
+        for lane, a in zip(*np.nonzero(pos_amt)):
+            sid = lane_to_sid.get(int(lane))
+            if sid is not None:
+                positions[(idx_to_aid[a], sid)] = (
+                    int(pos_amt[lane, a]), int(pos_avail[lane, a]))
         orders = {}
-        S, _, N = canon["slot_oid"].shape
-        for lane in range(S):
-            sid = lane_to_sid.get(lane)
+        for lane, side, nn in zip(*np.nonzero(canon["slot_used"])):
+            sid = lane_to_sid.get(int(lane))
             if sid is None:
                 continue
-            for a in range(len(idx_to_aid)):
-                if pos_amt[lane, a] != 0:
-                    positions[(idx_to_aid[a], sid)] = (
-                        int(pos_amt[lane, a]), int(pos_avail[lane, a]))
-            for side in range(2):
-                for nn in range(N):
-                    if canon["slot_used"][lane, side, nn]:
-                        orders[int(canon["slot_oid"][lane, side, nn])] = {
-                            "aid": idx_to_aid[int(
-                                canon["slot_aid"][lane, side, nn])],
-                            "sid": sid,
-                            "price": int(canon["slot_price"][lane, side, nn]),
-                            "size": int(canon["slot_size"][lane, side, nn]),
-                            "is_buy": side == 0,
-                        }
+            orders[int(canon["slot_oid"][lane, side, nn])] = {
+                "aid": idx_to_aid[int(canon["slot_aid"][lane, side, nn])],
+                "sid": sid,
+                "price": int(canon["slot_price"][lane, side, nn]),
+                "size": int(canon["slot_size"][lane, side, nn]),
+                "is_buy": bool(side == 0),
+            }
         books = {sid: True for sid, lane in self.router.sid_lane.items()
                  if canon["book_exists"][lane]}
         return {"balances": balances, "positions": positions,

@@ -1,0 +1,595 @@
+"""Continuous invariant auditing over the flight-recorder journal.
+
+The port's copy of `kme_tpu/telemetry/audit.py`: the same checks,
+violation kinds and repro dumps, so either package replays the other's
+dumps. `check_engine` reads what the card's kernels left in device
+memory through the session's `export_state()`.
+
+The InvariantAuditor is a SHADOW LEDGER: it subscribes to the journal
+(Journal.observers) and replays each batch's lifecycle deltas — accept
+margin reservations, fills, cancels, payouts, transfers — using the
+reference engine's exact fixed-mode arithmetic (oracle/javalong int32/
+int64 wrap semantics), without re-running the matching loop. Against
+that shadow it checks, continuously and in-process:
+
+per-event guards (each journaled event must have been legal):
+  - margin_overdraw     accept with balance < required risk
+  - transfer_overdraw   transfer past the balance guard
+  - create_dup          create for an existing account
+  - addsym_dup          add_symbol for an existing book
+  - accept_no_book      trade accepted on a nonexistent book
+  - fill_unknown_maker  fill against a maker not resting in the shadow
+  - fill_price_mismatch fill price != the maker's resting price
+  - fill_overfill       fill size exceeds maker size or taker residual
+  - fill_no_taker       fill with no in-flight accepted taker
+  - rest_mismatch       rested size != the taker's unfilled residual
+  - unfilled_residual   taker finished with residual but never rested
+  - cancel_unknown      cancel-ok for an order the shadow doesn't hold
+  - payout_no_book      payout/remove_symbol on a nonexistent book
+
+per-batch conservation invariants:
+  - position_conservation  per symbol, position amounts sum to zero
+    (every fill credits a long and debits a short symmetrically)
+  - escrow_negative        net external inflow (transfers + payout
+    settlements) minus the sum of balances must stay >= 0: open-order
+    margin lives in this escrow, so a negative value means the engine
+    credited money it never collected. The check self-disables once a
+    sell above price 100 is accepted — the reference margin formula
+    `(size+adj)*(price-100)` legally mints credit there.
+
+at checkpoint cadence (`check_engine`):
+  - state_mismatch  the shadow's balances/positions/orders/books
+    deep-compared against the engine's `export_state()`
+  - hist_mismatch   the shadow's fills_per_order histogram (exact
+    mirror: one observation per accepted trade, value = fill pairs)
+    and the book_depth observation COUNT (one observation per accepted
+    trade or successful cancel; the per-lane depth values depend on
+    router placement, so only the count is checked) against the
+    device histograms, net of the seed baseline
+
+On violation the auditor increments the `audit_violations` counter,
+invokes `on_violation` (kme-torch-serve marks the heartbeat degraded), and
+writes a minimized repro dump: the offending batch's events + input
+lines, the pre-batch shadow state, and a checkpoint reference —
+`replay_repro()` (or `kme-torch-trace --replay-repro`) re-applies the dump
+offline and must reproduce the same violations.
+
+Test hook: set `auditor.tamper` to a callable(events)->events to
+corrupt the delta stream before replay (deliberate violation
+injection); kme-torch-serve wires KME_AUDIT_TAMPER=fill_qty to a canned
+first-fill +1 corruption for end-to-end tests.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+from typing import Callable, Dict, List, Optional, Tuple
+
+from kme_tpu_torch import opcodes as op
+from kme_tpu_torch.oracle import javalong as jl
+from kme_tpu_torch.telemetry.registry import N_BUCKETS, bucket_index
+
+_J = dict(sort_keys=True, separators=(",", ":"))
+
+
+class Violation(dict):
+    """{kind, detail, batch, seq} — a dict so it JSON-serializes into
+    repro dumps untouched."""
+
+    def __init__(self, kind: str, detail: str, batch: int = -1,
+                 seq: int = -1) -> None:
+        super().__init__(kind=kind, detail=detail, batch=batch, seq=seq)
+
+    def __str__(self) -> str:  # pragma: no cover - repr convenience
+        return f"[{self['kind']}] b={self['batch']} {self['detail']}"
+
+
+class InvariantAuditor:
+    """Shadow-ledger replay of journal deltas + conservation checks.
+
+    Subscribe with `journal.observers.append(auditor.observe)`; in the
+    journal's async mode the replay then runs on the writer thread, off
+    the serving hot path. All auditor state is guarded by one lock so
+    `check_engine` may be called from the checkpoint path concurrently.
+    """
+
+    def __init__(self, registry=None, repro_dir: Optional[str] = None,
+                 on_violation: Optional[Callable] = None,
+                 max_dumps: int = 8,
+                 checkpoint_ref: Optional[str] = None,
+                 journal_ref: Optional[str] = None,
+                 log_ref: Optional[str] = None) -> None:
+        self.balances: Dict[int, int] = {}
+        # (aid, sid) -> (amount, available)
+        self.positions: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        # oid -> [aid, sid, is_buy, price, size]
+        self.orders: Dict[int, list] = {}
+        # sid -> ({price: [oid FIFO]} buys, {price: [oid FIFO]} sells)
+        self.books: Dict[int, Tuple[dict, dict]] = {}
+        self.inflow = 0
+        self.violations: List[Violation] = []
+        self.batches = 0
+        self.dumps: List[str] = []
+        self.tamper: Optional[Callable] = None
+        self.repro_dir = repro_dir
+        self.checkpoint_ref = checkpoint_ref
+        self.journal_ref = journal_ref
+        self.log_ref = log_ref
+        self.max_dumps = max_dumps
+        self.on_violation = on_violation
+        self._unbounded_credit = False
+        self._pending: Optional[dict] = None
+        self._fills_hist = [0] * N_BUCKETS
+        self._depth_obs = 0
+        self._hist_base: Optional[dict] = None
+        self._lock = threading.Lock()
+        self._counter = None
+        self._batch_counter = None
+        if registry is not None:
+            self._counter = registry.counter(
+                "audit_violations",
+                help="conservation-invariant violations detected")
+            self._batch_counter = registry.counter(
+                "audit_batches", help="batches audited")
+
+    # ------------------------------------------------------------------
+    # journal observer entry point
+
+    def observe(self, events: List[dict], lines=None) -> None:
+        """Replay one journaled batch and run the per-batch checks.
+        Signature matches Journal observer fan-out (events, lines)."""
+        if self.tamper is not None:
+            events = self.tamper(events)
+        with self._lock:
+            batch = next((ev.get("b", -1) for ev in events), -1)
+            pre = self._snapshot() if self.repro_dir else None
+            found: List[Violation] = []
+            for ev in events:
+                self._apply(ev, found)
+            self._finalize_pending(found)
+            self._batch_checks(found, batch)
+            self.batches += 1
+            if self._batch_counter is not None:
+                self._batch_counter.inc()
+            if not found:
+                return
+            self.violations.extend(found)
+            if self._counter is not None:
+                self._counter.inc(len(found))
+            dump = None
+            if pre is not None and len(self.dumps) < self.max_dumps:
+                dump = self._write_repro(found, batch, pre, events,
+                                         lines)
+        if self.on_violation is not None:
+            self.on_violation(found, dump)
+
+    # ------------------------------------------------------------------
+    # event replay (exact fixed-mode arithmetic; see oracle/engine.py)
+
+    def _apply(self, ev: dict, out: List[Violation]) -> None:
+        e = ev["e"]
+        if e in ("win", "lat", "drop", "reject"):
+            return      # timing/terminal records — no ledger effect
+        if e == "submit":
+            self._finalize_pending(out)
+            return
+        b, seq = ev.get("b", -1), ev.get("seq", -1)
+
+        def bad(kind, detail):
+            out.append(Violation(kind, detail, b, seq))
+
+        aid, sid = ev.get("aid", 0), ev.get("sid", 0)
+        qty, px = ev.get("qty", 0), ev.get("px", 0)
+        if e == "create":
+            if aid in self.balances:
+                bad("create_dup", f"aid={aid} already exists")
+            else:
+                self.balances[aid] = 0
+        elif e == "transfer":
+            bal = self.balances.get(aid)
+            if bal is None or bal < jl.jint(-qty):
+                bad("transfer_overdraw",
+                    f"aid={aid} bal={bal} transfer={qty}")
+            self.balances[aid] = jl.jadd(bal or 0, qty)
+            self.inflow += qty
+        elif e == "add_symbol":
+            if sid in self.books:
+                bad("addsym_dup", f"sid={sid}")
+            else:
+                self.books[sid] = ({}, {})
+        elif e == "accept":
+            self._accept(ev, bad)
+        elif e == "fill":
+            self._fill(ev, bad)
+        elif e == "rest":
+            self._rest(ev, bad)
+        elif e == "cancel":
+            self._cancel(ev, bad)
+        elif e in ("payout", "remove_symbol"):
+            self._settle(ev, e == "payout", bad)
+
+    def _accept(self, ev, bad) -> None:
+        aid, sid = ev["aid"], ev["sid"]
+        qty, px = ev["qty"], ev["px"]
+        is_buy = ev["act"] == op.BUY
+        if sid not in self.books:
+            bad("accept_no_book", f"oid={ev['oid']} sid={sid}")
+        # checkBalance (KProcessor.java:167-182) in fixed mode
+        sz = jl.jint(qty if is_buy else -qty)
+        pos = self.positions.get((aid, sid))
+        avail = pos[1] if pos is not None else 0
+        neg = jl.jint(-sz)
+        adj = (max(min(avail, 0), neg) if is_buy
+               else min(max(avail, 0), neg))
+        risk = jl.jmul(jl.jadd(sz, adj),
+                       jl.jint(px) if is_buy else jl.jint(px - 100))
+        bal = self.balances.get(aid)
+        if bal is None or bal < risk:
+            bad("margin_overdraw",
+                f"oid={ev['oid']} aid={aid} bal={bal} risk={risk}")
+        self.balances[aid] = jl.jadd(bal or 0, -risk)
+        if not is_buy and px > 100:
+            self._unbounded_credit = True   # negative risk is legal here
+        if adj != 0 and pos is not None:
+            self.positions[(aid, sid)] = (pos[0], jl.jadd(avail, -adj))
+        self._pending = {"oid": ev["oid"], "aid": aid, "sid": sid,
+                         "is_buy": is_buy, "px": px, "rem": qty,
+                         "nf": 0, "rested": False}
+
+    def _fill(self, ev, bad) -> None:
+        oid, aid = ev["oid"], ev["aid"]
+        moid, maid = ev["moid"], ev["maid"]
+        sid, qty, px = ev["sid"], ev["qty"], ev["px"]
+        taker_bought = ev["act"] == op.BOUGHT
+        rec = self.orders.get(moid)
+        if rec is None or rec[0] != maid:
+            bad("fill_unknown_maker", f"moid={moid} maid={maid}")
+        else:
+            if rec[3] != px:
+                bad("fill_price_mismatch",
+                    f"moid={moid} resting px={rec[3]} fill px={px}")
+            rec[4] -= qty
+            if rec[4] < 0:
+                bad("fill_overfill",
+                    f"moid={moid} overfilled by {-rec[4]}")
+            if rec[4] <= 0:
+                self._unrest(moid, rec)
+        p = self._pending
+        if p is not None and p["oid"] == oid:
+            limit = p["px"]
+            p["rem"] -= qty
+            p["nf"] += 1
+            if p["rem"] < 0:
+                bad("fill_overfill",
+                    f"taker oid={oid} overfilled by {-p['rem']}")
+        else:
+            bad("fill_no_taker", f"oid={oid} has no in-flight accept")
+            limit = px
+        # fillOrder x2 (KProcessor.java:276-287): maker at price 0
+        # first, taker at the price improvement
+        self._fill_apply(maid, sid, not taker_bought, qty, 0, bad)
+        self._fill_apply(aid, sid, taker_bought, qty,
+                         jl.jint(limit - px), bad)
+
+    def _fill_apply(self, aid, sid, bought, size, price, bad) -> None:
+        sz = jl.jint(size if bought else -size)
+        key = (aid, sid)
+        pos = self.positions.get(key)
+        if pos is None:
+            self.positions[key] = (sz, sz)
+        else:
+            na = jl.jadd(pos[0], sz)
+            if na == 0:
+                # delete-at-zero discards `available` (reference quirk)
+                self.positions.pop(key, None)
+            else:
+                self.positions[key] = (na, jl.jadd(pos[1], sz))
+        bal = self.balances.get(aid)
+        if bal is None:
+            bad("fill_no_balance", f"aid={aid} filled with no balance")
+            bal = 0
+        self.balances[aid] = jl.jadd(bal, jl.jint(sz * price))
+
+    def _rest(self, ev, bad) -> None:
+        p = self._pending
+        oid, qty = ev["oid"], ev["qty"]
+        if p is None or p["oid"] != oid:
+            bad("rest_mismatch", f"oid={oid} rested without accept")
+            return
+        if p["rem"] != qty:
+            bad("rest_mismatch",
+                f"oid={oid} residual={p['rem']} rested={qty}")
+        p["rested"] = True
+        side = self.books.setdefault(p["sid"], ({}, {}))[
+            0 if p["is_buy"] else 1]
+        side.setdefault(p["px"], []).append(oid)
+        self.orders[oid] = [p["aid"], p["sid"], p["is_buy"], p["px"],
+                            qty]
+
+    def _cancel(self, ev, bad) -> None:
+        oid, aid = ev["oid"], ev["aid"]
+        rec = self.orders.get(oid)
+        if rec is None or rec[0] != aid:
+            bad("cancel_unknown", f"oid={oid} aid={aid}")
+            return
+        self._unrest(oid, rec)
+        self._release(rec, bad)
+        self._depth_obs += 1
+
+    def _settle(self, ev, credit, bad) -> None:
+        """payout / remove_symbol: wipe both book sides min-price-first
+        FIFO with margin release (the fixed-mode removeAllOrders), then
+        for a YES payout credit `amount * size` per position."""
+        sid = ev["sid"]
+        s = abs(sid)
+        book = self.books.pop(s, None)
+        if book is None:
+            bad("payout_no_book", f"sid={sid}")
+            return
+        for side in book:
+            for px in sorted(side):
+                for oid in side[px]:
+                    rec = self.orders.pop(oid, None)
+                    if rec is not None:
+                        self._release(rec, bad)
+        if credit and ev["sid"] >= 0:
+            qty = ev["qty"]
+            for key in [k for k in self.positions if k[1] == s]:
+                amt, _avail = self.positions.pop(key)
+                bal = self.balances.get(key[0])
+                if bal is None:
+                    bad("fill_no_balance",
+                        f"payout credits aid={key[0]} with no balance")
+                    bal = 0
+                pay = jl.jmul(amt, qty)
+                self.balances[key[0]] = jl.jadd(bal, pay)
+                # settlement is external funding for escrow purposes
+                self.inflow += pay
+        else:
+            for key in [k for k in self.positions if k[1] == s]:
+                del self.positions[key]
+
+    def _release(self, rec, bad) -> None:
+        """postRemoveAdjustments (KProcessor.java:325-333), fixed."""
+        aid, sid, is_buy, price, size = rec
+        sz = jl.jint(size if is_buy else -size)
+        pos = self.positions.get((aid, sid))
+        blocked = (pos[0] - pos[1]) if pos is not None else 0
+        neg = jl.jint(-sz)
+        adj = (max(min(blocked, 0), neg) if is_buy
+               else min(max(blocked, 0), neg))
+        bal = self.balances.get(aid)
+        if bal is None:
+            bad("fill_no_balance",
+                f"margin release for aid={aid} with no balance")
+            bal = 0
+        unit = jl.jint(price) if is_buy else jl.jint(price - 100)
+        self.balances[aid] = jl.jadd(
+            bal, jl.jmul(jl.jadd(sz, adj), unit))
+        if adj != 0 and pos is not None:
+            self.positions[(aid, sid)] = (pos[0], jl.jadd(pos[1], adj))
+
+    def _unrest(self, oid, rec) -> None:
+        self.orders.pop(oid, None)
+        book = self.books.get(rec[1])
+        if book is None:
+            return
+        bucket = book[0 if rec[2] else 1].get(rec[3])
+        if bucket and oid in bucket:
+            bucket.remove(oid)
+            if not bucket:
+                del book[0 if rec[2] else 1][rec[3]]
+
+    def _finalize_pending(self, out: List[Violation]) -> None:
+        p, self._pending = self._pending, None
+        if p is None:
+            return
+        if p["rem"] > 0 and not p["rested"]:
+            out.append(Violation(
+                "unfilled_residual",
+                f"oid={p['oid']} residual={p['rem']} never rested"))
+        # device histogram mirror: fills_per_order observes nf per
+        # accepted trade; book_depth observes once per accepted trade
+        self._fills_hist[bucket_index(p["nf"])] += 1
+        self._depth_obs += 1
+
+    # ------------------------------------------------------------------
+    # per-batch conservation checks
+
+    def _batch_checks(self, out: List[Violation], batch: int) -> None:
+        sums: Dict[int, int] = {}
+        for (aid, sid), (amt, _a) in self.positions.items():
+            sums[sid] = sums.get(sid, 0) + amt
+        for sid, total in sums.items():
+            if total != 0:
+                out.append(Violation(
+                    "position_conservation",
+                    f"sid={sid} position amounts sum to {total}",
+                    batch))
+        if not self._unbounded_credit:
+            escrow = self.inflow - sum(self.balances.values())
+            if escrow < 0:
+                out.append(Violation(
+                    "escrow_negative",
+                    f"balances exceed external inflow by {-escrow}",
+                    batch))
+
+    # ------------------------------------------------------------------
+    # engine cross-checks (checkpoint cadence)
+
+    def check_engine(self, state: dict,
+                     histograms: Optional[dict] = None
+                     ) -> List[Violation]:
+        """Deep-compare the shadow against the engine's export_state()
+        (and optionally its histograms() net of the seed baseline).
+        Returns (and records) any mismatches as violations."""
+        with self._lock:
+            found: List[Violation] = []
+
+            def bad(kind, detail):
+                found.append(Violation(kind, detail, self.batches))
+
+            if state.get("balances") != self.balances:
+                d = _dict_diff(state.get("balances", {}), self.balances)
+                bad("state_mismatch", f"balances differ: {d}")
+            eng_pos = {k: tuple(v)
+                       for k, v in state.get("positions", {}).items()}
+            if eng_pos != self.positions:
+                d = _dict_diff(eng_pos, self.positions)
+                bad("state_mismatch", f"positions differ: {d}")
+            eng_ord = {o: (v["aid"], v["sid"], v["is_buy"], v["price"],
+                           v["size"])
+                       for o, v in state.get("orders", {}).items()}
+            shd_ord = {o: tuple(v) for o, v in self.orders.items()}
+            if eng_ord != shd_ord:
+                d = _dict_diff(eng_ord, shd_ord)
+                bad("state_mismatch", f"orders differ: {d}")
+            eng_books = set(state.get("books", {}))
+            if eng_books != set(self.books):
+                bad("state_mismatch",
+                    f"books differ: engine={sorted(eng_books)} "
+                    f"shadow={sorted(self.books)}")
+            if histograms is not None:
+                base = self._hist_base or {}
+                fills = [a - b for a, b in zip(
+                    histograms.get("fills_per_order",
+                                   [0] * N_BUCKETS),
+                    base.get("fills_per_order", [0] * N_BUCKETS))]
+                if fills != self._fills_hist:
+                    bad("hist_mismatch",
+                        f"fills_per_order device={fills} "
+                        f"shadow={self._fills_hist}")
+                if "book_depth" in histograms:
+                    dev = (sum(histograms["book_depth"])
+                           - sum(base.get("book_depth", [])))
+                    if dev != self._depth_obs:
+                        bad("hist_mismatch",
+                            f"book_depth observations device={dev} "
+                            f"shadow={self._depth_obs}")
+            if found:
+                self.violations.extend(found)
+                if self._counter is not None:
+                    self._counter.inc(len(found))
+        if found and self.on_violation is not None:
+            self.on_violation(found, None)
+        return found
+
+    # ------------------------------------------------------------------
+    # seeding (resume) + snapshots + repro dumps
+
+    def seed(self, state: dict,
+             histograms: Optional[dict] = None) -> None:
+        """Adopt an engine export as the shadow's starting point (a
+        resumed service audits forward from the checkpoint). Book FIFO
+        order within a price bucket is reconstructed by ascending oid —
+        an approximation of arrival order that only matters for margin
+        release ordering during wipes. The escrow baseline resets so
+        the invariant tracks post-seed flow only."""
+        with self._lock:
+            self.balances = dict(state.get("balances", {}))
+            self.positions = {k: tuple(v) for k, v in
+                              state.get("positions", {}).items()}
+            self.orders = {o: [v["aid"], v["sid"], v["is_buy"],
+                               v["price"], v["size"]]
+                           for o, v in state.get("orders", {}).items()}
+            self.books = {sid: ({}, {})
+                          for sid in state.get("books", {})}
+            for oid in sorted(self.orders):
+                aid, sid, is_buy, px, size = self.orders[oid]
+                book = self.books.setdefault(sid, ({}, {}))
+                book[0 if is_buy else 1].setdefault(px, []).append(oid)
+            self.inflow = sum(self.balances.values())
+            self._hist_base = ({k: list(v)
+                                for k, v in histograms.items()}
+                               if histograms else None)
+            self._fills_hist = [0] * N_BUCKETS
+            self._depth_obs = 0
+            self._pending = None
+
+    def _snapshot(self) -> dict:
+        return {
+            "balances": dict(self.balances),
+            "positions": {f"{a}:{s}": list(v)
+                          for (a, s), v in self.positions.items()},
+            "orders": {str(o): list(v)
+                       for o, v in self.orders.items()},
+            "books": sorted(self.books),
+            "inflow": self.inflow,
+            "unbounded_credit": self._unbounded_credit,
+        }
+
+    def _write_repro(self, found, batch, pre, events, lines
+                     ) -> Optional[str]:
+        try:
+            os.makedirs(self.repro_dir, exist_ok=True)
+            path = os.path.join(self.repro_dir,
+                                f"audit_repro_b{batch}.json")
+            doc = {"violations": found, "batch": batch,
+                   "pre_state": pre, "events": events,
+                   "inputs": ([ln for grp in lines for ln in grp]
+                              if lines else None),
+                   "checkpoint_ref": self.checkpoint_ref,
+                   "xray": self._xray_cmd(batch)}
+            with open(path, "w") as f:
+                json.dump(doc, f, **_J)
+            self.dumps.append(path)
+            return path
+        except OSError:  # pragma: no cover - disk-full etc.
+            return None
+
+    def _xray_cmd(self, batch: int) -> Optional[str]:
+        """The ready-to-run `kme-torch-xray --bisect` line for the violating
+        window — pasted from the repro dump, it binary-searches the
+        journal-vs-oracle divergence that tripped this auditor."""
+        if not (self.journal_ref and self.log_ref):
+            return None
+        cmd = (f"kme-torch-xray --bisect --journal {self.journal_ref} "
+               f"--log-dir {self.log_ref} --hi-batch {batch}")
+        if self.checkpoint_ref:
+            cmd += f" --checkpoint-dir {self.checkpoint_ref}"
+        return cmd
+
+
+def _dict_diff(a: dict, b: dict, limit: int = 4) -> str:
+    keys = [k for k in set(a) | set(b) if a.get(k) != b.get(k)]
+    parts = [f"{k}: engine={a.get(k)} shadow={b.get(k)}"
+             for k in sorted(keys, key=str)[:limit]]
+    more = len(keys) - limit
+    return "; ".join(parts) + (f"; +{more} more" if more > 0 else "")
+
+
+def load_repro(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def auditor_from_pre(pre: dict) -> "InvariantAuditor":
+    """Fresh auditor seeded from a repro dump's `pre_state` snapshot
+    (the _snapshot wire shape). Shared by replay_repro and the xray
+    bisect repro replayer."""
+    aud = InvariantAuditor()
+    aud.balances = {int(k): v for k, v in pre["balances"].items()}
+    aud.positions = {(int(a), int(s)): tuple(v)
+                     for ks, v in pre["positions"].items()
+                     for a, s in [ks.split(":")]}
+    aud.orders = {int(o): list(v) for o, v in pre["orders"].items()}
+    aud.books = {sid: ({}, {}) for sid in pre["books"]}
+    for oid in sorted(aud.orders):
+        aid, sid, is_buy, px, size = aud.orders[oid]
+        book = aud.books.setdefault(sid, ({}, {}))
+        book[0 if is_buy else 1].setdefault(px, []).append(oid)
+    aud.inflow = pre["inflow"]
+    aud._unbounded_credit = pre.get("unbounded_credit", False)
+    return aud
+
+
+def replay_repro(path: str) -> List[Violation]:
+    """Offline replay of a repro dump: seed a fresh auditor with the
+    dumped pre-batch shadow state, re-apply the dumped events, return
+    the violations found — which must cover the dumped ones."""
+    doc = load_repro(path)
+    aud = auditor_from_pre(doc["pre_state"])
+    aud.observe(doc["events"])
+    return aud.violations

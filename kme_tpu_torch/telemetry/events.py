@@ -1,0 +1,558 @@
+"""Control-plane flight recorder: durable, crash-safe event timeline.
+
+The port's copy of `kme_tpu/telemetry/events.py`: the same log
+format, so either package merges the other's logs.
+
+The data plane already answers "what happened to order X" (journal,
+traces, TSDB); this module answers "what did the CLUSTER decide" —
+supervisor restarts and promotions, lease grants/steals/fences,
+autoscale observations and proposals, reshard phases with their walls,
+overload-controller transitions, feed resyncs. Every control-plane
+seam appends typed events to a per-process ``EventLog``; ``kme-torch-events``
+merges the logs into one causally-ordered cluster timeline.
+
+One record per line, canonical compact JSON (sorted keys), with a
+small fixed schema (absent optional keys mean not-applicable):
+
+  src     writer identity ("supervisor", "reshard", "serve.g0", ...)
+  seq     per-source monotonic event sequence — the replay-dedup key,
+          mirroring tsdb's ``sample_seq`` and the broker's
+          ``(epoch, out_seq)`` discipline: a crash-resumed writer that
+          re-emits an already-committed event is dropped on append,
+          and the merge reader drops it again (first wins)
+  kind    dotted event name ("supervisor.restart", "reshard.fence")
+  sev     "info" | "warn" | "error"
+  ts      wall clock, microseconds — ADVISORY ONLY. Timestamps come
+          from the writer's injected clock and never participate in
+          identity or (where an offset anchor exists) ordering.
+  g       group ordinal anchor (absent = not group-scoped)
+  epoch   lease epoch anchor
+  off     input-stream offset anchor — the replay position this
+          decision is causally tied to; within one group, offsets
+          order the timeline even when wall clocks skew
+  tid     optional trace-id link into the per-order waterfalls
+  detail  free-form structured payload (phase walls, fingerprints...)
+
+Durability mirrors journal.py/tsdb.py: append-only JSONL with
+logrotate-style rotation (``path -> path.1 -> ...``), a sha256 JSON
+sidecar written per rotated segment, digest-verified pruning beyond
+``retain``, and torn-tail recovery on open (a crash mid-append leaves
+a partial final line; the next open truncates it and re-derives the
+seq cursor from the surviving tail, seeding from rotated segments when
+the live file is empty).
+
+Determinism contract (lint-enforced via EVENTS_SCOPES): the pure
+key/ordering/merge functions below — ``order_key``, ``sort_events``,
+``dedup_events``, ``merge_events``, ``timeline_digest``,
+``event_line`` — never read wall clock or RNG. Writers that need
+replay-stable identity (the reshard coordinator across a SIGKILL
+re-run) pass an explicit ``seq`` derived from durable state (the
+journal phase ordinal), so the re-run's duplicate emission deduplicates
+instead of double-counting.
+
+Event emission is always-on but can be globally disabled with
+``KME_EVENTS=0`` (the MatchOut byte-parity escape hatch the prof suite
+exercises); a disabled log swallows emissions without touching disk.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import time
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
+
+SEVERITIES = ("info", "warn", "error")
+
+# conventional file names: one live log per writer in its state dir —
+# ``events-<source>.jsonl`` — plus the bare ``events.jsonl`` name used
+# for MERGED artifacts (chaos reports, sim repro kits). Discovery
+# accepts both so a merged artifact can itself be re-merged/queried.
+PREFIX = "events-"
+SUFFIX = ".jsonl"
+MERGED_NAME = "events.jsonl"
+
+
+def enabled() -> bool:
+    """Global emission gate: KME_EVENTS=0 turns the recorder off (the
+    byte-parity escape hatch); anything else leaves it on."""
+    return os.environ.get("KME_EVENTS", "1") != "0"
+
+
+def log_path(state_dir: str, source: str) -> str:
+    """The conventional live-log path for one writer."""
+    safe = source.replace("/", "_").replace(os.sep, "_")
+    return os.path.join(state_dir, f"{PREFIX}{safe}{SUFFIX}")
+
+
+# ---------------------------------------------------------------------------
+# pure schema / ordering / merge functions (EVENTS_SCOPES: no wall
+# clock, no RNG — replay-law code)
+
+
+def make_event(source: str, seq: int, kind: str, ts_us: int,
+               severity: str = "info", group: Optional[int] = None,
+               epoch: Optional[int] = None, offset: Optional[int] = None,
+               tid: Optional[int] = None,
+               detail: Optional[dict] = None) -> dict:
+    """One schema-complete event dict. ``ts_us`` is caller-supplied
+    (the writer's injected clock) so this stays a pure function."""
+    if severity not in SEVERITIES:
+        raise ValueError(f"unknown severity {severity!r}")
+    ev: dict = {"src": str(source), "seq": int(seq), "kind": str(kind),
+                "sev": severity, "ts": int(ts_us)}
+    if group is not None and int(group) >= 0:
+        ev["g"] = int(group)
+    if epoch is not None and int(epoch) >= 0:
+        ev["epoch"] = int(epoch)
+    if offset is not None and int(offset) >= 0:
+        ev["off"] = int(offset)
+    if tid:
+        ev["tid"] = int(tid)
+    if detail:
+        ev["detail"] = dict(detail)
+    return ev
+
+
+def event_line(ev: dict) -> str:
+    """The canonical on-disk form (and the digest input): compact JSON,
+    sorted keys, one line."""
+    return json.dumps(ev, sort_keys=True, separators=(",", ":"))
+
+
+def format_event(ev: dict) -> str:
+    """One human line per event (kme-torch-events, the kme-torch-top/kme-torch-agg
+    recent-events pane)."""
+    ts = int(ev.get("ts", 0)) / 1e6
+    bits = [f"{ts:.6f}", f"{ev.get('sev', 'info'):5s}",
+            f"{ev.get('src', '?')}#{ev.get('seq', -1)}",
+            str(ev.get("kind", "?"))]
+    for k in ("g", "epoch", "off", "tid"):
+        if k in ev:
+            bits.append(f"{k}={ev[k]}")
+    det = ev.get("detail")
+    if det:
+        bits.append(" ".join(f"{k}={det[k]}" for k in sorted(det)))
+    return "  ".join(bits)
+
+
+def order_key(ev: dict) -> tuple:
+    """Walltime interleave key (ts, src, seq): the FALLBACK order.
+    ``sort_events`` then lets offset anchors override it within each
+    group — see there."""
+    return (int(ev.get("ts", 0)), str(ev.get("src", "")),
+            int(ev.get("seq", 0)))
+
+
+def sort_events(events: Sequence[dict]) -> List[dict]:
+    """Causal order for a merged timeline.
+
+    Pass 1 interleaves everything by the advisory walltime (stable,
+    deterministic: ties break on (src, seq)). Pass 2 enforces the
+    anchors: within each group, the events that carry an input-stream
+    offset are re-ordered by (off, src, seq) IN PLACE of the slots
+    they already occupy — replay position beats wall clock inside one
+    group's history (skewed clocks cannot reorder it), while
+    unanchored events and cross-group interleave keep their walltime
+    positions. Pure function of its input."""
+    out = sorted(events, key=order_key)
+    by_group: Dict[int, List[int]] = {}
+    for i, ev in enumerate(out):
+        if int(ev.get("g", -1)) >= 0 and int(ev.get("off", -1)) >= 0:
+            by_group.setdefault(int(ev["g"]), []).append(i)
+    for slots in by_group.values():
+        anchored = sorted((out[i] for i in slots),
+                          key=lambda e: (int(e["off"]), str(e["src"]),
+                                         int(e["seq"])))
+        for i, ev in zip(slots, anchored):
+            out[i] = ev
+    return out
+
+
+def dedup_events(events: Iterable[dict]) -> List[dict]:
+    """First-wins dedup on the (src, seq) identity — the reader-side
+    half of the replay-dedup discipline (a torn-then-resumed writer,
+    or the same log merged twice, collapses to one timeline).
+
+    A (src, seq) collision between two DIFFERENT records is not a
+    replay — it is two distinct writers that happen to share a source
+    name (e.g. ``serve.g0`` in two reshard generations merged into one
+    timeline). Those are kept: only byte-identical duplicates drop."""
+    seen: Dict[Tuple[str, int], List[str]] = {}
+    out: List[dict] = []
+    for ev in events:
+        key = (str(ev.get("src", "")), int(ev.get("seq", -1)))
+        line = event_line(ev)
+        lines = seen.setdefault(key, [])
+        if line in lines:
+            continue
+        lines.append(line)
+        out.append(ev)
+    return out
+
+
+def merge_events(streams: Iterable[Iterable[dict]]) -> List[dict]:
+    """N per-process event iterables -> one deduped, causally ordered
+    timeline."""
+    flat: List[dict] = []
+    for stream in streams:
+        flat.extend(stream)
+    return sort_events(dedup_events(flat))
+
+
+def timeline_digest(events: Sequence[dict]) -> str:
+    """sha256 over the canonical lines of an (ordered) timeline — the
+    byte-determinism verdict substrate for the sim."""
+    h = hashlib.sha256()
+    for ev in events:
+        h.update(event_line(ev).encode("utf-8"))
+        h.update(b"\n")
+    return h.hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# readers
+
+
+def iter_log(path: str) -> Iterator[dict]:
+    """Stream one segment's events in append order; a torn trailing
+    line (crash mid-append) is skipped, matching the writer's resume
+    behavior. Unparseable interior lines are skipped too (a reader
+    must not die on one bad record)."""
+    try:
+        fh = open(path, "rb")
+    except OSError:
+        return
+    with fh:
+        for ln in fh:
+            if not ln.endswith(b"\n"):
+                return          # torn tail
+            ln = ln.strip()
+            if not ln:
+                continue
+            try:
+                yield json.loads(ln)
+            except ValueError:
+                continue
+
+
+def read_log(path: str, include_rotated: bool = True) -> List[dict]:
+    """All of one writer's events, oldest first (rotated segments
+    ``path.N`` N-descending first, then the live file)."""
+    paths: List[str] = []
+    if include_rotated:
+        n = 1
+        while os.path.exists(f"{path}.{n}"):
+            n += 1
+        paths = [f"{path}.{k}" for k in range(n - 1, 0, -1)]
+    paths.append(path)
+    out: List[dict] = []
+    for p in paths:
+        out.extend(iter_log(p))
+    return out
+
+
+def discover_logs(root: str) -> List[str]:
+    """Every event-log live file under a state root: conventional
+    ``events-*.jsonl`` writers plus merged ``events.jsonl`` artifacts.
+    Rotated ``.N`` siblings ride along via read_log. Sorted for
+    deterministic merge input order."""
+    found: List[str] = []
+    for dirpath, _dirs, files in os.walk(root):
+        for name in files:
+            if (name == MERGED_NAME
+                    or (name.startswith(PREFIX)
+                        and name.endswith(SUFFIX))):
+                found.append(os.path.join(dirpath, name))
+    return sorted(found)
+
+
+def merge_logs(paths: Sequence[str]) -> List[dict]:
+    """Merge per-process logs (files or state-root directories) into
+    one timeline."""
+    files: List[str] = []
+    for p in paths:
+        if os.path.isdir(p):
+            files.extend(discover_logs(p))
+        else:
+            files.append(p)
+    return merge_events(read_log(f) for f in files)
+
+
+def write_merged(events: Sequence[dict], path: str) -> None:
+    """Write a merged timeline artifact (atomic replace)."""
+    tmp = path + ".tmp"
+    with open(tmp, "w") as f:
+        for ev in events:
+            f.write(event_line(ev) + "\n")
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+
+
+# ---------------------------------------------------------------------------
+# sidecar digests (same shape as tsdb.py's)
+
+
+def _sha256_file(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 16), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _write_digest(path: str) -> None:
+    doc = {"sha256": _sha256_file(path),
+           "bytes": os.path.getsize(path)}
+    tmp = path + ".sha256.tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path + ".sha256")
+
+
+def _verify_digest(path: str) -> Optional[bool]:
+    """True/False verdict, None when no sidecar exists."""
+    side = path + ".sha256"
+    if not os.path.exists(side):
+        return None
+    try:
+        with open(side) as f:
+            doc = json.load(f)
+        return (doc.get("bytes") == os.path.getsize(path)
+                and doc.get("sha256") == _sha256_file(path))
+    except (OSError, ValueError):
+        return False
+
+
+def verify_log(path: str) -> dict:
+    """Offline integrity sweep over one writer's segments: per-segment
+    sidecar verdicts plus a seq-gap scan across the whole history."""
+    segs: List[str] = []
+    n = 1
+    while os.path.exists(f"{path}.{n}"):
+        n += 1
+    segs = [f"{path}.{k}" for k in range(n - 1, 0, -1)]
+    report = {"segments": [], "events": 0, "seq_gaps": 0, "ok": True}
+    last = -1
+    for seg in segs:
+        verdict = _verify_digest(seg)
+        report["segments"].append({"path": seg, "digest_ok": verdict})
+        if verdict is False:
+            report["ok"] = False
+    for ev in read_log(path):
+        report["events"] += 1
+        seq = int(ev.get("seq", -1))
+        if last >= 0 and seq > last + 1:
+            report["seq_gaps"] += 1
+        if seq > last:
+            last = seq
+    return report
+
+
+# ---------------------------------------------------------------------------
+# writer
+
+
+class EventLog:
+    """Durable append-only control-plane event writer.
+
+    ``clock`` is a zero-arg seconds-float callable (the writer's
+    injected time source — a Supervisor's fake clock, a sim actor's
+    virtual view); it stamps the ADVISORY ``ts`` field only. ``seq``
+    defaults to the durable cursor + 1; writers with their own durable
+    identity (reshard phases) pass it explicitly and rely on the
+    dedup: an append at or below the committed high-water mark is
+    dropped and counted, never written twice.
+
+    ``enabled=False`` (or KME_EVENTS=0 at construction) makes every
+    emit a no-op that touches no disk — the byte-parity off switch."""
+
+    def __init__(self, path: str, source: str,
+                 rotate_bytes: int = 1 << 20, retain: int = 8,
+                 fsync: bool = True, clock=None,
+                 enabled: Optional[bool] = None) -> None:
+        self.path = path
+        self.source = str(source)
+        self.rotate_bytes = max(4096, int(rotate_bytes))
+        self.retain = max(1, int(retain))
+        self.fsync = fsync
+        # the ONE sanctioned wall-clock touch in this module: where the
+        # injected-clock seam bottoms out for writers nobody scripts.
+        # Grandfathered under KME-E001 (LINT_BASELINE.json) so any new
+        # clock/RNG reference in the identity paths still gates.
+        self._clock = clock or time.time
+        self.enabled = (globals()["enabled"]() if enabled is None
+                        else bool(enabled))
+        self.last_seq = -1
+        self.dup_skipped = 0
+        self.digest_mismatches = 0
+        self.last_offset = 0        # committed bytes in the live file
+        self.lag_bytes = 0          # written but not yet fsync'd
+        self._f = None
+        if self.enabled:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            self._open_live()
+
+    # -- open / recovery ----------------------------------------------
+
+    def _open_live(self) -> None:
+        if os.path.exists(self.path) and os.path.getsize(self.path):
+            with open(self.path, "r+b") as f:
+                data = f.read()
+                if not data.endswith(b"\n"):
+                    # torn tail: a crash mid-append left a partial
+                    # line — truncate to the last complete record
+                    cut = data.rfind(b"\n") + 1
+                    f.truncate(cut)
+            for ev in iter_log(self.path):
+                seq = int(ev.get("seq", -1))
+                if seq > self.last_seq:
+                    self.last_seq = seq
+        if self.last_seq < 0:
+            self._seed_seq_from_rotated()
+        self._f = open(self.path, "ab")
+        self.last_offset = self._f.tell()
+
+    def _seed_seq_from_rotated(self) -> None:
+        """Empty/fresh live file after a rotation boundary crash: the
+        cursor must continue from the newest rotated segment or the
+        dedup guarantee dies exactly when it matters."""
+        if not os.path.exists(f"{self.path}.1"):
+            return
+        for ev in iter_log(f"{self.path}.1"):
+            seq = int(ev.get("seq", -1))
+            if seq > self.last_seq:
+                self.last_seq = seq
+
+    # -- append -------------------------------------------------------
+
+    def emit(self, kind: str, severity: str = "info",
+             group: Optional[int] = None, epoch: Optional[int] = None,
+             offset: Optional[int] = None, tid: Optional[int] = None,
+             seq: Optional[int] = None, ts_us: Optional[int] = None,
+             **detail) -> bool:
+        """Append one event. Returns False when disabled or when the
+        (explicit) seq is at or below the committed high-water mark —
+        the crash-resume no-op."""
+        if not self.enabled or self._f is None:
+            return False
+        if seq is None:
+            seq = self.last_seq + 1
+        seq = int(seq)
+        if seq <= self.last_seq:
+            self.dup_skipped += 1
+            return False
+        if ts_us is None:
+            ts_us = int(self._clock() * 1e6)
+        ev = make_event(self.source, seq, kind, ts_us,
+                        severity=severity, group=group, epoch=epoch,
+                        offset=offset, tid=tid,
+                        detail=detail or None)
+        blob = (event_line(ev) + "\n").encode("utf-8")
+        self.lag_bytes += len(blob)
+        self._f.write(blob)
+        self._f.flush()
+        if self.fsync:
+            os.fsync(self._f.fileno())
+            self.lag_bytes = 0
+        self.last_seq = seq
+        # monotonic committed-bytes cursor (heartbeat
+        # events_last_offset): rotation must not rewind it
+        self.last_offset += len(blob)
+        if self._f.tell() >= self.rotate_bytes:
+            self._rotate()
+        return True
+
+    def flush(self) -> None:
+        if self._f is not None:
+            self._f.flush()
+            os.fsync(self._f.fileno())
+            self.lag_bytes = 0
+
+    def close(self) -> None:
+        if self._f is not None:
+            self.flush()
+            self._f.close()
+            self._f = None
+
+    # -- rotation -----------------------------------------------------
+
+    def _rotate(self) -> None:
+        self._f.flush()
+        os.fsync(self._f.fileno())
+        self._f.close()
+        n = 1
+        while os.path.exists(f"{self.path}.{n}"):
+            n += 1
+        for k in range(n, 0, -1):
+            src = self.path if k == 1 else f"{self.path}.{k - 1}"
+            dst = f"{self.path}.{k}"
+            os.replace(src, dst)
+            side = (self.path if k == 1
+                    else f"{self.path}.{k - 1}") + ".sha256"
+            if os.path.exists(side):
+                os.replace(side, dst + ".sha256")
+        _write_digest(f"{self.path}.1")
+        self._prune()
+        self._f = open(self.path, "ab")
+        self.lag_bytes = 0
+
+    def _prune(self) -> None:
+        n = 1
+        while os.path.exists(f"{self.path}.{n}"):
+            n += 1
+        for k in range(n - 1, self.retain, -1):
+            seg = f"{self.path}.{k}"
+            if _verify_digest(seg) is False:
+                self.digest_mismatches += 1
+            for p in (seg, seg + ".sha256"):
+                try:
+                    os.unlink(p)
+                except OSError:
+                    pass
+
+
+def open_log(state_dir: str, source: str, clock=None,
+             **kw) -> EventLog:
+    """The conventional constructor: live log at
+    ``<state_dir>/events-<source>.jsonl``."""
+    return EventLog(log_path(state_dir, source), source,
+                    clock=clock, **kw)
+
+
+# ---------------------------------------------------------------------------
+# chrome trace-event rendering (kme-torch-events --chrome-out)
+
+
+def to_chrome(events: Sequence[dict]) -> List[dict]:
+    """Chrome trace-event dicts for an ordered timeline: one instant
+    event per record (pid = source, tid = group), plus duration spans
+    for matched ``*.begin`` / ``*.end`` kind pairs per (src, stem) —
+    loadable into the same trace viewer the data-plane spans use."""
+    out: List[dict] = []
+    open_spans: Dict[Tuple[str, str], dict] = {}
+    for ev in events:
+        src = str(ev.get("src", "?"))
+        kind = str(ev.get("kind", "?"))
+        ts = int(ev.get("ts", 0))
+        args = dict(ev.get("detail") or {})
+        for k in ("g", "epoch", "off", "sev"):
+            if k in ev:
+                args[k] = ev[k]
+        tidno = int(ev.get("g", -1)) + 1
+        if kind.endswith(".begin"):
+            open_spans[(src, kind[:-6])] = {"ts": ts, "args": args}
+        elif kind.endswith(".end"):
+            stem = kind[:-4]
+            b = open_spans.pop((src, stem), None)
+            if b is not None:
+                out.append({"name": stem, "ph": "X", "ts": b["ts"],
+                            "dur": max(0, ts - b["ts"]), "pid": src,
+                            "tid": tidno, "args": args})
+        out.append({"name": kind, "ph": "i", "ts": ts, "pid": src,
+                    "tid": tidno, "s": "g", "args": args})
+    return out

@@ -1,0 +1,788 @@
+"""Order-lifecycle flight recorder: structured, append-only journal.
+
+The port's copy of `kme_tpu/telemetry/journal.py`: the same events, the
+same jsonl and 96-byte binary framings, so either package reads the
+other's journal files.
+
+Every input order's lifecycle — submit, accept/reject (with the engine's
+rej_* reason code), rest, each fill (price/qty/counterparty), cancel,
+transfer, payout — is derived from the byte-pinned wire line groups the
+sessions already reconstruct, stamped with provenance (batch id,
+intra-batch slot, engine sequence number, wall clock microseconds,
+shard), and appended to a journal file in one of two framings:
+
+- jsonl: one canonical compact JSON object per line (sorted keys) —
+  greppable, streamable, the default.
+- binary: fixed 96-byte records behind an 8-byte magic — 3-4x denser,
+  O(1) tail scan on resume, same event dicts after decode.
+
+The journal is an OBSERVABILITY artifact, not the source of truth (the
+broker log is): the service's offset commit does not wait on journal
+durability; `fsync="batch"` tightens the loss window to one batch when
+the operator wants it.
+
+Event dictionaries (canonical keys; absent keys mean not-applicable):
+
+  e    event type: submit accept reject rest fill cancel create
+       transfer payout add_symbol remove_symbol drop win lat span
+  seq  engine-global event sequence number (monotonic, survives resume)
+  ts   wall clock, microseconds since epoch
+  b    batch id (monotonic per journal)
+  i    intra-batch message slot (-1 for drop/win)
+  off  input-stream offset of the originating record (-1 if standalone)
+  sh   shard id
+  act  wire action of the originating message (taker fill action for
+       fill events)
+  oid/aid/sid/px/qty   message fields; for fill events oid/aid are the
+       TAKER's, moid/maid the resting MAKER's, px the maker's execution
+       price and qty the traded contracts
+  rej  reason code (wire.REJ_*) on reject/drop events
+  kind/t0/t1   on win (pipeline window) events: "submit"|"collect" and
+       the window bounds in integer microseconds
+  in_us/plan_us/dev_us/prod_us/e2e_us   on lat (stage-attribution)
+       events: per-order microseconds spent in broker ingress wait,
+       batch plan, device dispatch+fetch, produce-visible, and the
+       arrival->visible total (ingress is per-order from the broker
+       arrival stamp; plan/device/produce are the enclosing batch's
+       stage walls — every order in a batch shares them)
+  kind/tid/ptid/t0/t1/g/li   on span (distributed-tracing) events:
+       SPAN_KINDS stage name, deterministic trace id (+ parent trace
+       id for XFER legs), wall-clock span bounds in microseconds,
+       group ordinal and front-local row index (telemetry/dtrace.py)
+
+`batch_events` is the single wire->events derivation; the oracle replay
+(`oracle_events`) reuses it on the Python reference engine's output so a
+journal can be verified byte-for-byte (canonical form) against an
+independent replay of the same input stream — `kme-torch-trace --verify`.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import struct
+import threading
+from typing import Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
+
+from kme_tpu_torch import opcodes as op
+from kme_tpu_torch.wire import (REJ_MALFORMED, REJ_UNSPECIFIED,
+                                parse_order, reason_for_reject)
+
+ETYPES = ("submit", "accept", "reject", "rest", "fill", "cancel",
+          "create", "transfer", "payout", "add_symbol", "remove_symbol",
+          "drop", "win", "lat", "span")
+_ETYPE_IDX = {n: i for i, n in enumerate(ETYPES)}
+
+# distributed-tracing span kinds (telemetry/dtrace.py): the per-hop
+# stages a cluster waterfall is stitched from. Order is the wire
+# encoding (rej byte in the binary record) — append-only.
+SPAN_KINDS = ("front_accept", "route", "ingress", "plan", "device",
+              "produce", "xfer_reserve", "xfer_settle", "merge",
+              "consume")
+_SPAN_IDX = {n: i for i, n in enumerate(SPAN_KINDS)}
+
+_ACT_EVENT = {
+    op.CANCEL: "cancel",
+    op.CREATE_BALANCE: "create",
+    op.TRANSFER: "transfer",
+    op.PAYOUT: "payout",
+    op.ADD_SYMBOL: "add_symbol",
+    op.REMOVE_SYMBOL: "remove_symbol",
+}
+
+MAGIC = b"KMEJRNL1"
+# etype, rej, sh, pad | act, b, i | seq, ts, off, oid, aid, sid, px,
+# qty, moid, maid
+_REC = struct.Struct("<BBBBiii10q")
+REC_SIZE = _REC.size            # 96 bytes
+
+_WIN_KINDS = ("submit", "collect")
+
+
+# ---------------------------------------------------------------------------
+# wire lines -> lifecycle events
+
+
+def batch_events(lines_per_msg: Sequence[Sequence[str]],
+                 reasons: Optional[Sequence[int]] = None,
+                 offsets: Optional[Sequence[int]] = None,
+                 drops: Sequence[Tuple[int, int]] = ()) -> List[dict]:
+    """One batch's wire line groups (per input message: the IN echo,
+    then OUT fill pairs, then the OUT result echo) -> lifecycle event
+    dicts WITHOUT provenance stamps (Journal.record_batch stamps seq/
+    ts/b/sh). `reasons` are per-message wire.REJ_* codes (sessions'
+    `last_reasons`); None falls back to the action heuristic. `offsets`
+    are per-message input-stream offsets; None -> -1. `drops` lists
+    (slot, offset) records dropped before the engine (malformed)."""
+    evs: List[dict] = []
+    for slot, off in drops:
+        evs.append({"e": "drop", "i": slot, "off": off,
+                    "rej": REJ_MALFORMED})
+    for i, lines in enumerate(lines_per_msg):
+        off = offsets[i] if offsets is not None else -1
+        m = json.loads(lines[0].partition(" ")[2])
+        act = m["action"]
+        base = {"i": i, "off": off, "act": act, "oid": m["oid"],
+                "aid": m["aid"], "sid": m["sid"], "px": m["price"],
+                "qty": m["size"]}
+        evs.append(dict(base, e="submit"))
+        if len(lines) < 2:      # defensive: every message echoes a result
+            continue
+        res = json.loads(lines[-1].partition(" ")[2])
+        if res["action"] == op.REJECT:
+            rej = (int(reasons[i]) if reasons is not None
+                   else reason_for_reject(act))
+            if rej == 0:
+                rej = REJ_UNSPECIFIED
+            evs.append(dict(base, e="reject", rej=rej))
+            continue
+        if act in (op.BUY, op.SELL):
+            # margin reservation precedes matching in the engine, so the
+            # accept event precedes the fill events (the auditor replays
+            # in event order)
+            evs.append(dict(base, e="accept"))
+            for k in range(1, len(lines) - 1, 2):
+                mk = json.loads(lines[k].partition(" ")[2])
+                tk = json.loads(lines[k + 1].partition(" ")[2])
+                evs.append({"e": "fill", "i": i, "off": off,
+                            "act": tk["action"], "oid": tk["oid"],
+                            "aid": tk["aid"], "moid": mk["oid"],
+                            "maid": mk["aid"], "sid": tk["sid"],
+                            "px": m["price"] - tk["price"],
+                            "qty": tk["size"]})
+            if res["size"] > 0:
+                evs.append(dict(base, e="rest", qty=res["size"]))
+        else:
+            evs.append(dict(base, e=_ACT_EVENT.get(act, "accept")))
+    return evs
+
+
+def canonical_events(events: Iterable[dict]) -> List[dict]:
+    """Provenance-independent view for replay comparison: window and
+    latency-stamp events dropped (both are recorder-local timing, not
+    lifecycle); seq/ts/b/i/sh/rej stripped (batching, wall clock and
+    reason granularity differ between recorders; the lifecycle payload
+    and the input offset alignment must not). Events are stably
+    ordered by input offset — batching also decides WHERE a drop
+    record lands relative to whole messages (drops lead their batch),
+    and two recorders with different batch sizes must still compare
+    byte-for-byte."""
+    out = []
+    for ev in events:
+        if ev.get("e") in ("win", "lat", "span"):
+            continue
+        out.append({k: v for k, v in ev.items()
+                    if k not in ("seq", "ts", "b", "i", "sh", "rej")})
+    out.sort(key=lambda ev: ev.get("off", -1))   # stable
+    return out
+
+
+def canonical_lines(events: Iterable[dict]) -> List[str]:
+    return [json.dumps(ev, sort_keys=True, separators=(",", ":"))
+            for ev in canonical_events(events)]
+
+
+def oracle_events(input_lines: Iterable[str], compat: str = "fixed",
+                  book_slots: Optional[int] = None,
+                  max_fills: Optional[int] = None) -> List[dict]:
+    """Independent replay: run the input stream through the Python
+    reference replica (oracle/engine.py) and derive lifecycle events
+    from ITS wire output — the judge for `kme-torch-trace --verify` and the
+    journal tests. Unparseable/out-of-envelope records become drop
+    events, mirroring the service's drop policy."""
+    from kme_tpu_torch.oracle import OracleEngine
+    from kme_tpu_torch.wire import dumps_order
+
+    kw = {}
+    if compat == "fixed" and book_slots is not None:
+        kw = {"book_slots": book_slots, "max_fills": max_fills or 16}
+    eng = OracleEngine(compat, **kw)
+    groups: List[List[str]] = []
+    offsets: List[int] = []
+    drops: List[Tuple[int, int]] = []
+    for off, ln in enumerate(input_lines):
+        ln = ln.strip()
+        if not ln:
+            continue
+        try:
+            m = parse_order(ln)
+            if not (-2**31 <= m.price < 2**31
+                    and -2**31 <= m.size < 2**31):
+                raise ValueError("price/size outside int32")
+        except ValueError:
+            drops.append((-1, off))
+            continue
+        recs = eng.process(m)
+        groups.append([f"{r.key} {dumps_order(r.value)}" for r in recs])
+        offsets.append(off)
+    return batch_events(groups, offsets=offsets, drops=drops)
+
+
+# ---------------------------------------------------------------------------
+# binary framing
+
+
+def _encode(ev: dict) -> bytes:
+    e = _ETYPE_IDX[ev["e"]]
+    if ev["e"] == "win":
+        return _REC.pack(e, _WIN_KINDS.index(ev["kind"]),
+                         ev.get("sh", 0), 0, 0, ev.get("b", -1), -1,
+                         ev.get("seq", 0), ev.get("ts", 0), -1,
+                         ev["t0"], ev["t1"], 0, 0, 0, 0, 0)
+    if ev["e"] == "lat":
+        # stage micro-durations ride the spare int64 slots (aid/sid/
+        # px/qty/moid) — same 96-byte framing, no format version bump
+        return _REC.pack(
+            e, 0, ev.get("sh", 0), 0, 0, ev.get("b", -1), -1,
+            ev.get("seq", 0), ev.get("ts", 0), ev.get("off", -1),
+            ev.get("oid", 0), ev.get("in_us", 0), ev.get("plan_us", 0),
+            ev.get("dev_us", 0), ev.get("prod_us", 0),
+            ev.get("e2e_us", 0), 0)
+    if ev["e"] == "span":
+        # trace span: kind index in the rej byte, group in act, and the
+        # spare q-slots carry tid/ptid/t0/t1/aid/li — same framing, no
+        # version bump (mirrors the "lat" precedent above)
+        return _REC.pack(
+            e, _SPAN_IDX[ev["kind"]], ev.get("sh", 0), 0,
+            ev.get("g", -1), ev.get("b", -1), -1, ev.get("seq", 0),
+            ev.get("ts", 0), ev.get("off", -1), ev.get("oid", 0),
+            ev.get("tid", 0), ev.get("ptid", 0), ev.get("t0", 0),
+            ev.get("t1", 0), ev.get("aid", 0), ev.get("li", -1))
+    return _REC.pack(
+        e, ev.get("rej", 0), ev.get("sh", 0), 0, ev.get("act", 0),
+        ev.get("b", 0), ev.get("i", -1), ev.get("seq", 0),
+        ev.get("ts", 0), ev.get("off", -1), ev.get("oid", 0),
+        ev.get("aid", 0), ev.get("sid", 0), ev.get("px", 0),
+        ev.get("qty", 0), ev.get("moid", 0), ev.get("maid", 0))
+
+
+def _decode(buf: bytes) -> dict:
+    (e, rej, sh, _pad, act, b, i, seq, ts, off, oid, aid, sid, px, qty,
+     moid, maid) = _REC.unpack(buf)
+    name = ETYPES[e]
+    ev = {"e": name, "seq": seq, "ts": ts, "b": b, "sh": sh}
+    if name == "win":
+        ev.update(kind=_WIN_KINDS[rej], t0=oid, t1=aid)
+        return ev
+    if name == "lat":
+        ev.update(off=off, oid=oid, in_us=aid, plan_us=sid,
+                  dev_us=px, prod_us=qty, e2e_us=moid)
+        return ev
+    if name == "span":
+        ev.update(kind=SPAN_KINDS[rej], g=act, off=off, oid=oid,
+                  tid=aid, ptid=sid, t0=px, t1=qty, aid=moid, li=maid)
+        return ev
+    ev.update(i=i, off=off)
+    if name == "drop":
+        ev["rej"] = rej
+        return ev
+    ev.update(act=act, oid=oid, aid=aid, sid=sid, px=px, qty=qty)
+    if name == "fill":
+        ev.update(moid=moid, maid=maid)
+    if name == "reject":
+        ev["rej"] = rej
+    return ev
+
+
+# ---------------------------------------------------------------------------
+# readers
+
+
+def iter_events(path: str) -> Iterator[dict]:
+    """Stream one journal file's events (format auto-detected). A torn
+    trailing record (crash mid-write) is ignored, matching the writer's
+    resume behavior."""
+    with open(path, "rb") as f:
+        head = f.read(len(MAGIC))
+        if head == MAGIC:
+            while True:
+                rec = f.read(REC_SIZE)
+                if len(rec) < REC_SIZE:
+                    return
+                yield _decode(rec)
+        f.seek(0)
+        for ln in f:
+            if not ln.endswith(b"\n"):
+                return          # torn tail
+            ln = ln.strip()
+            if ln:
+                yield json.loads(ln)
+
+
+def read_events(path: str, include_rotated: bool = True) -> List[dict]:
+    """All events, oldest first. With include_rotated, rotated
+    predecessors (`<path>.N`, N descending = oldest first) are read
+    before the live file."""
+    paths = []
+    if include_rotated:
+        n = 1
+        while os.path.exists(f"{path}.{n}"):
+            n += 1
+        paths = [f"{path}.{k}" for k in range(n - 1, 0, -1)]
+    paths.append(path)
+    out: List[dict] = []
+    for p in paths:
+        if os.path.exists(p):
+            out.extend(iter_events(p))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# writer
+
+
+class Journal:
+    """Append-only lifecycle journal with rotation, fsync policy, tail
+    resume and an optional background writer thread.
+
+    fmt: "jsonl" | "binary" | None (None = by extension: .bin/.kmej ->
+    binary). fsync: "off" (OS buffering; flushed on close) or "batch"
+    (fsync after every record_batch — bounds loss to one batch).
+    rotate_bytes: start a new file once the live one exceeds this
+    (logrotate-style shift: path -> path.1 -> path.2 ...). resume: scan
+    the existing file's tail and continue seq/batch numbering
+    monotonically (a torn binary tail is truncated; a torn jsonl line
+    is dropped). async_write: derive + encode + write on a FIFO worker
+    thread so the serving hot path only enqueues (flush() drains).
+
+    Observers (`observers.append(fn)`) are called as fn(events,
+    lines_per_msg) after each batch commits — the invariant auditor
+    subscribes here and thus runs on the writer thread in async mode.
+    """
+
+    def __init__(self, path: str, fmt: Optional[str] = None,
+                 rotate_bytes: Optional[int] = None,
+                 fsync: str = "off", shard: int = 0,
+                 resume: bool = True, async_write: bool = False,
+                 clock=None, rotate_keep: Optional[int] = None,
+                 retention_guard=None) -> None:
+        if fmt is None:
+            fmt = ("binary" if path.endswith((".bin", ".kmej"))
+                   else "jsonl")
+        if fmt not in ("jsonl", "binary"):
+            raise ValueError(f"unknown journal format {fmt!r}")
+        if fsync not in ("off", "batch"):
+            raise ValueError(f"unknown fsync policy {fsync!r}")
+        self.path = path
+        self.fmt = fmt
+        self.rotate_bytes = rotate_bytes
+        # bound how many rotated segments are retained (None = keep
+        # all, the historical behavior). retention_guard, when set, is
+        # a zero-arg callable returning the oldest input offset a
+        # restore could still need (the oldest retained snapshot's
+        # offset, runtime/checkpoint.oldest_retained_offset) — a
+        # segment containing any event at or past that offset is NEVER
+        # pruned, whatever rotate_keep says: a standby restoring the
+        # oldest snapshot must still replay the journal to the tip.
+        self.rotate_keep = rotate_keep
+        self.retention_guard = retention_guard
+        self.fsync = fsync
+        self.shard = shard
+        self.observers: List = []
+        self._clock = clock or (lambda: __import__("time").time_ns()
+                                // 1000)
+        self._seq = 0
+        self._batch = 0
+        self._lock = threading.Lock()
+        # writer-lag instrumentation (heartbeat gauges): payload bytes
+        # enqueued but not yet committed (a wedged async worker shows
+        # up here long before the disk fills), and the highest input
+        # offset a committed event carried
+        self._lag_lock = threading.Lock()
+        self._pending_bytes = 0
+        self.last_offset = -1
+        if resume and os.path.exists(path) and os.path.getsize(path):
+            self._resume_tail()
+        self._f = open(path, "ab")
+        if self.fmt == "binary" and self._f.tell() == 0:
+            self._f.write(MAGIC)
+        self._q = None
+        self._worker = None
+        if async_write:
+            import queue
+
+            self._q = queue.Queue()
+            self._worker = threading.Thread(target=self._drain,
+                                            daemon=True)
+            self._worker.start()
+
+    # -- resume ---------------------------------------------------------
+
+    def _resume_tail(self) -> None:
+        size = os.path.getsize(self.path)
+        with open(self.path, "r+b") as f:
+            head = f.read(len(MAGIC))
+            if head == MAGIC:
+                body = size - len(MAGIC)
+                torn = body % REC_SIZE
+                if torn:
+                    f.truncate(size - torn)
+                    body -= torn
+                if body:
+                    f.seek(len(MAGIC) + body - REC_SIZE)
+                    last = _decode(f.read(REC_SIZE))
+                    self._seq = last["seq"] + 1
+                    self._batch = last["b"] + 1
+                return
+            # jsonl: drop a torn final line, read the last complete one
+            f.seek(0)
+            data = f.read()
+            if not data.endswith(b"\n"):
+                cut = data.rfind(b"\n") + 1
+                f.truncate(cut)
+                data = data[:cut]
+            lines = data.splitlines()
+            if lines:
+                last = json.loads(lines[-1])
+                self._seq = last.get("seq", -1) + 1
+                self._batch = last.get("b", -1) + 1
+
+    # -- hot-path API ---------------------------------------------------
+
+    def record_batch(self, lines_per_msg, reasons=None, offsets=None,
+                     drops=()) -> None:
+        """Journal one processed batch. In async mode this only
+        enqueues; derivation, encoding, the write and the observer
+        fan-out all happen on the worker thread in FIFO order (so seq
+        and batch numbering stay deterministic)."""
+        job = ("batch", lines_per_msg, reasons, offsets, tuple(drops))
+        # payload estimate for lag_bytes: the wire lines dominate the
+        # encoded size in either framing
+        est = sum(len(ln) + 1 for lines in lines_per_msg
+                  for ln in lines)
+        self._submit(job, est)
+
+    def record_window(self, kind: str, t0: float, t1: float,
+                      batch: Optional[int] = None) -> None:
+        """Record one pipeline overlap window (submit or collect):
+        [t0, t1] seconds on any monotonic clock, stored as integer
+        microseconds. `batch` tags the pipeline batch index."""
+        job = ("win", kind, int(t0 * 1e6), int(t1 * 1e6),
+               -1 if batch is None else batch)
+        self._submit(job, REC_SIZE)
+
+    def record_latency(self, entries: Sequence[dict],
+                       batch: Optional[int] = None) -> None:
+        """Append per-order stage-attribution stamps ("lat" events).
+        Each entry carries off/oid plus in_us/plan_us/dev_us/prod_us/
+        e2e_us microsecond durations (see module docstring). Dropped
+        from the canonical form, so `kme-torch-trace --verify` still
+        byte-agrees with the oracle replay."""
+        job = ("lat", tuple(dict(e) for e in entries),
+               -1 if batch is None else batch)
+        self._submit(job, REC_SIZE * len(entries))
+
+    def record_spans(self, entries: Sequence[dict],
+                     batch: Optional[int] = None) -> None:
+        """Append distributed-tracing "span" events (kind/off/oid/aid/
+        tid/ptid/t0/t1/g/li — see SPAN_KINDS and telemetry/dtrace.py).
+        Like "lat", spans are excluded from the canonical form: the
+        lifecycle stream `kme-torch-trace --verify` replays is untouched."""
+        job = ("span", tuple(dict(e) for e in entries),
+               -1 if batch is None else batch)
+        self._submit(job, REC_SIZE * len(entries))
+
+    def append_events(self, events: List[dict]) -> None:
+        """Stamp + append pre-derived events (one batch's worth)."""
+        job = ("events", events)
+        self._submit(job, REC_SIZE * len(events))
+
+    # -- worker / commit ------------------------------------------------
+
+    def _submit(self, job, est: int) -> None:
+        with self._lag_lock:
+            self._pending_bytes += est
+        if self._q is not None:
+            self._q.put((job, est))
+        else:
+            self._commit_job(job, est)
+
+    def _commit_job(self, job, est: int) -> None:
+        try:
+            self._commit(job)
+        finally:
+            with self._lag_lock:
+                self._pending_bytes -= est
+
+    @property
+    def lag_bytes(self) -> int:
+        """Estimated payload bytes enqueued but not yet written."""
+        with self._lag_lock:
+            return self._pending_bytes
+
+    def _drain(self) -> None:
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            job, est = item
+            try:
+                self._commit_job(job, est)
+            except Exception as e:  # pragma: no cover - defensive
+                import sys
+
+                print(f"kme journal: write failed ({e})",
+                      file=sys.stderr)
+
+    def _commit(self, job) -> None:
+        with self._lock:
+            ts = self._clock()
+            lines = None
+            if job[0] == "batch":
+                _, lines, reasons, offsets, drops = job
+                events = batch_events(lines, reasons, offsets, drops)
+                b = self._batch
+                self._batch += 1
+            elif job[0] == "win":
+                _, kind, t0, t1, b = job
+                events = [{"e": "win", "kind": kind, "t0": t0,
+                           "t1": t1}]
+            elif job[0] == "lat":
+                _, entries, b = job
+                events = [dict(ev, e="lat") for ev in entries]
+            elif job[0] == "span":
+                _, entries, b = job
+                events = [dict(ev, e="span") for ev in entries]
+            else:
+                _, events = job
+                b = self._batch
+                self._batch += 1
+            for ev in events:
+                ev.setdefault("b", b)
+                ev["seq"] = self._seq
+                self._seq += 1
+                ev["ts"] = ts
+                ev["sh"] = self.shard
+            self._write(events)
+            for ev in events:
+                off = ev.get("off", -1)
+                if off is not None and off > self.last_offset:
+                    self.last_offset = off
+        for obs in self.observers:
+            obs(events, lines)
+
+    def _write(self, events: List[dict]) -> None:
+        if self.fmt == "binary":
+            blob = b"".join(_encode(ev) for ev in events)
+        else:
+            blob = "".join(
+                json.dumps(ev, sort_keys=True,
+                           separators=(",", ":")) + "\n"
+                for ev in events).encode()
+        from kme_tpu_torch import faults
+
+        if faults.should("journal.torn"):
+            # kme-chaos: crash mid-append — half the batch's bytes reach
+            # the file, then the process dies with no cleanup. The next
+            # incarnation's _resume_tail must truncate/drop the torn
+            # record (appending after it would corrupt the interior).
+            import signal as _sig
+
+            self._f.write(blob[:max(1, len(blob) // 2)])
+            self._f.flush()
+            os.fsync(self._f.fileno())
+            os.kill(os.getpid(), _sig.SIGKILL)
+        self._f.write(blob)
+        if self.fsync == "batch":
+            self._f.flush()
+            os.fsync(self._f.fileno())
+        if self.rotate_bytes and self._f.tell() >= self.rotate_bytes:
+            self._rotate()
+
+    def _rotate(self) -> None:
+        self._f.flush()
+        self._f.close()
+        n = 1
+        while os.path.exists(f"{self.path}.{n}"):
+            n += 1
+        for k in range(n, 0, -1):
+            src = self.path if k == 1 else f"{self.path}.{k - 1}"
+            os.replace(src, f"{self.path}.{k}")
+        self._prune_rotated()
+        self._f = open(self.path, "ab")
+        if self.fmt == "binary":
+            self._f.write(MAGIC)
+
+    def _prune_rotated(self) -> None:
+        """Unlink rotated segments beyond `rotate_keep`, oldest (largest
+        .N) first, but never one the retention guard still needs — and
+        stop at the first still-needed segment, since everything newer
+        is needed too. A guard that errors or reports no snapshot keeps
+        everything (fail safe: losing disk to journals beats losing the
+        ability to replay)."""
+        if not self.rotate_keep:
+            return
+        n = 1
+        while os.path.exists(f"{self.path}.{n}"):
+            n += 1
+        if n - 1 <= self.rotate_keep:
+            return
+        guard = None
+        if self.retention_guard is not None:
+            try:
+                guard = self.retention_guard()
+            except Exception:
+                return
+            if guard is None:
+                return      # no snapshot yet: every event may replay
+        for k in range(n - 1, self.rotate_keep, -1):
+            seg = f"{self.path}.{k}"
+            if guard is not None:
+                try:
+                    newest = max((int(ev.get("off", -1))
+                                  for ev in iter_events(seg)), default=-1)
+                except (OSError, ValueError, TypeError):
+                    return
+                if newest >= guard:
+                    return
+            try:
+                os.unlink(seg)
+            except OSError:
+                return
+
+    # -- lifecycle ------------------------------------------------------
+
+    def flush(self) -> None:
+        """Drain the async queue (if any) and flush OS buffers."""
+        if self._q is not None:
+            # the worker holds _lock while committing, so empty queue +
+            # an acquired lock below means the last job has landed
+            import time
+
+            while not self._q.empty():
+                time.sleep(0.002)
+        with self._lock:
+            self._f.flush()
+
+    def close(self) -> None:
+        if self._q is not None and self._worker is not None:
+            self.flush()
+            self._q.put(None)
+            self._worker.join(timeout=5)
+            self._q = None
+        with self._lock:
+            self._f.flush()
+            self._f.close()
+
+    @property
+    def next_seq(self) -> int:
+        return self._seq
+
+    # -- at-least-once resume dedup ------------------------------------
+
+    def rewind_to_offset(self, offset: int) -> None:
+        """Drop journaled events whose input offset is >= `offset` (the
+        resume point): the service replays the MatchIn tail from the
+        snapshot offset (at-least-once), and without this the replayed
+        batches would journal twice. Standalone events (off == -1:
+        windows, drops of unoffsetted records) are kept. Rewrites the
+        live file atomically; rotated files are assumed older than any
+        replayable tail (rotation cadence >> checkpoint cadence)."""
+        if not os.path.exists(self.path):
+            return
+        with self._lock:
+            self._f.flush()     # buffered appends must be on disk first
+            kept = [ev for ev in iter_events(self.path)
+                    if ev.get("off", -1) < offset]
+            self._f.close()
+            tmp = self.path + ".tmp"
+            with open(tmp, "wb") as f:
+                if self.fmt == "binary":
+                    f.write(MAGIC)
+                    f.write(b"".join(_encode(ev) for ev in kept))
+                else:
+                    f.write("".join(
+                        json.dumps(ev, sort_keys=True,
+                                   separators=(",", ":")) + "\n"
+                        for ev in kept).encode())
+                f.flush()
+                os.fsync(f.fileno())
+            os.replace(tmp, self.path)
+            if kept:
+                self._seq = max(ev["seq"] for ev in kept) + 1
+                self._batch = max(ev.get("b", -1) for ev in kept) + 1
+                self.last_offset = max(ev.get("off", -1) for ev in kept)
+            else:
+                self._seq = self._batch = 0
+                self.last_offset = -1
+            self._f = open(self.path, "ab")
+
+
+# ---------------------------------------------------------------------------
+# pipeline overlap measurement
+
+
+def measured_overlap_s(windows: Iterable[Tuple[str, int, float, float]]
+                       ) -> float:
+    """Measured host/device overlap from (kind, batch, t0, t1) windows:
+    the time collect (host fetch+recon of batch N) spent while another
+    batch was submitted-but-not-collected (its device execution span is
+    bounded by [submit_end, collect_start]). This is the wall time the
+    pipeline actually hid, as opposed to a t_serial/t_pipe ratio, which
+    also carries run-to-run variance. SeqSession.windows holds such
+    windows."""
+    subs: Dict[int, Tuple[float, float]] = {}
+    cols: Dict[int, Tuple[float, float]] = {}
+    for kind, b, t0, t1 in windows:
+        (subs if kind == "submit" else cols)[b] = (t0, t1)
+    inflight = {b: (subs[b][1], cols[b][0])
+                for b in subs if b in cols and cols[b][0] > subs[b][1]}
+    total = 0.0
+    for b, (c0, c1) in cols.items():
+        cover = 0.0
+        for b2, (s1, k0) in inflight.items():
+            if b2 != b:
+                cover += max(0.0, min(c1, k0) - max(c0, s1))
+        total += min(cover, c1 - c0)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# lifecycle reconstruction (kme-torch-trace)
+
+
+def order_lifecycle(events: Iterable[dict], oid: int) -> List[dict]:
+    """Every event touching order `oid` — as taker (oid) or as resting
+    maker (moid) — in journal order."""
+    return [ev for ev in events
+            if ev.get("oid") == oid or ev.get("moid") == oid]
+
+
+def account_history(events: Iterable[dict], aid: int) -> List[dict]:
+    """Every event touching account `aid` (incl. maker-side fills)."""
+    return [ev for ev in events
+            if ev.get("aid") == aid or ev.get("maid") == aid]
+
+
+def lifecycle_summary(events: List[dict], oid: int) -> dict:
+    """Terminal state of one order from its lifecycle events."""
+    sub = next((e for e in events if e["e"] == "submit"
+                and e.get("oid") == oid), None)
+    filled = sum(e["qty"] for e in events if e["e"] == "fill"
+                 and (e.get("oid") == oid or e.get("moid") == oid))
+    rested = next((e["qty"] for e in events if e["e"] == "rest"
+                   and e.get("oid") == oid), None)
+    state = "unknown"
+    if any(e["e"] == "reject" and e.get("oid") == oid
+           and e.get("act") in (op.BUY, op.SELL) for e in events):
+        # a rejected CANCEL (act=4) says nothing about the order itself
+        state = "rejected"
+    elif any(e["e"] == "cancel" and e.get("oid") == oid
+             for e in events):
+        state = "cancelled"
+    elif sub is not None and sub.get("act") in (op.BUY, op.SELL):
+        taker_fill = sum(e["qty"] for e in events if e["e"] == "fill"
+                         and e.get("oid") == oid)
+        maker_fill = sum(e["qty"] for e in events if e["e"] == "fill"
+                         and e.get("moid") == oid)
+        if rested is not None:
+            state = ("resting" if maker_fill < rested
+                     else "filled")
+        else:
+            state = ("filled" if sub["qty"] == taker_fill
+                     else "accepted")
+    elif sub is not None:
+        state = "done"
+    return {"oid": oid, "state": state, "filled": filled,
+            "rested": rested,
+            "events": len(events)}

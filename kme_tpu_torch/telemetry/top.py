@@ -1,0 +1,699 @@
+"""kme-torch-top: live operations dashboard for a serving pair.
+
+The port's copy of `kme_tpu/telemetry/top.py`.
+
+One terminal view over the surfaces the serving stack already exposes —
+nothing here adds instrumentation, it only reads:
+
+- the LEADER's /metrics.json (kme-torch-serve --metrics-port) or heartbeat
+  file (--health-file; the heartbeat embeds the same registry snapshot)
+- the STANDBY's /metrics.json (kme-standby --metrics-port) or its
+  heartbeat file
+- the SUPERVISOR's state mirror (<checkpoint-dir>/supervisor.json)
+
+Shown: input throughput (rate computed between refreshes), per-stage
+latency quantiles (ingress/plan/device/produce/e2e/consume — the
+attribution pipeline in bridge/service.py), leader epoch and offset,
+SLO state, per-shard occupancy/imbalance/migrations when the leader is
+a sharded mesh session (device_shard{N} + shard_imbalance,
+parallel/seqmesh.py), replica application lag, and the supervisor's
+restart history. `--once` prints a single plain-text frame (scriptable; the
+smoke test uses it); the default is a curses loop that redraws every
+--interval seconds and quits on `q`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from typing import Optional
+
+STAGES = ("ingress", "plan", "device", "produce", "e2e", "consume")
+
+
+# -- collection --------------------------------------------------------
+
+
+def scrape(source: Optional[str], timeout: float = 1.0) -> dict:
+    """Read one node's state from a URL or a heartbeat file.
+
+    Returns {"source", "ok", "error"?, "hb"?, "metrics"} — `hb` is the
+    heartbeat dict when the source was a heartbeat file (or a metrics
+    surface that happens to embed one); `metrics` is always the
+    registry-snapshot shape ({counters, gauges, histograms,
+    latencies}), possibly empty."""
+    if not source:
+        return {"source": None, "ok": False, "metrics": {}}
+    out: dict = {"source": source, "ok": False, "metrics": {}}
+    try:
+        if source.startswith(("http://", "https://")):
+            from urllib.request import urlopen
+
+            url = source
+            if not url.rstrip("/").endswith("metrics.json"):
+                url = url.rstrip("/") + "/metrics.json"
+            with urlopen(url, timeout=timeout) as resp:
+                doc = json.loads(resp.read().decode())
+        else:
+            with open(source) as f:
+                doc = json.load(f)
+    except Exception as e:
+        out["error"] = str(e)
+        return out
+    out["ok"] = True
+    if "counters" in doc or "latencies" in doc:
+        out["metrics"] = doc          # bare registry snapshot
+    else:
+        out["hb"] = doc               # heartbeat with embedded metrics
+        out["metrics"] = doc.get("metrics") or {}
+    return out
+
+
+def read_supervisor(path: Optional[str]) -> Optional[dict]:
+    if not path:
+        return None
+    try:
+        with open(path) as f:
+            return json.load(f)
+    except (OSError, ValueError):
+        return None
+
+
+def discover_endpoints(state_root: str) -> dict:
+    """Endpoint discovery for a state directory — the ONE place the
+    conventional file names live (kme-torch-agg and the --cluster view share
+    it; the single-pair names used to be hardcoded in main()).
+
+    A plain checkpoint dir yields the leader/standby/supervisor trio;
+    a multi-leader run dir (chaos layout: `group{k}/state/...`) also
+    yields one row per group. Paths are returned whether or not the
+    files exist yet — scrape() degrades unreachable sources instead of
+    dying."""
+    import os
+
+    eps: dict = {
+        "leader": os.path.join(state_root, "serve.health"),
+        "standby": os.path.join(state_root, "standby.health"),
+        "supervisor": os.path.join(state_root, "supervisor.json"),
+        "feed": os.path.join(state_root, "feed.health"),
+        "groups": [],
+    }
+    try:
+        names = sorted(os.listdir(state_root))
+    except OSError:
+        names = []
+    for name in names:
+        if name.startswith("group") and name[5:].isdigit():
+            st = os.path.join(state_root, name, "state")
+            eps["groups"].append({
+                "k": int(name[5:]),
+                "health": os.path.join(st, "serve.health"),
+                "supervisor": os.path.join(st, "supervisor.json"),
+                "feed": os.path.join(st, "feed.health"),
+            })
+    return eps
+
+
+def collect(leader: Optional[str], standby: Optional[str],
+            supervisor: Optional[str], now: Optional[float] = None,
+            feed: Optional[str] = None) -> dict:
+    return {"t": time.monotonic() if now is None else now,
+            "leader": scrape(leader), "standby": scrape(standby),
+            "supervisor": read_supervisor(supervisor),
+            "feed": scrape(feed)}
+
+
+def collect_cluster(groups, now: Optional[float] = None) -> dict:
+    """One scrape sweep over a discovered group list — every row goes
+    through the same scrape() path as the single-pair view."""
+    rows = []
+    for g in groups:
+        rows.append({"k": g["k"], "node": scrape(g.get("health")),
+                     "supervisor": read_supervisor(
+                         g.get("supervisor")),
+                     "feed": scrape(g.get("feed"))})
+    return {"t": time.monotonic() if now is None else now,
+            "rows": rows}
+
+
+# -- derivation --------------------------------------------------------
+
+
+def _counter(node: dict, name: str):
+    return node.get("metrics", {}).get("counters", {}).get(name)
+
+
+def _gauge(node: dict, name: str):
+    return node.get("metrics", {}).get("gauges", {}).get(name)
+
+
+def build_view(cur: dict, prev: Optional[dict] = None) -> dict:
+    """Fold two collections into the render model: point-in-time state
+    plus rates derived from the deltas between them."""
+    view = dict(cur)
+    rate = None
+    if prev is not None:
+        dt = cur["t"] - prev["t"]
+        a = _counter(prev["leader"], "service_records")
+        b = _counter(cur["leader"], "service_records")
+        if dt > 0 and a is not None and b is not None and b >= a:
+            rate = (b - a) / dt
+    view["records_per_s"] = rate
+    lead = cur["leader"]
+    stby = cur["standby"]
+    lag = _gauge(stby, "replica_lag_records")
+    if lag is None:
+        hb = stby.get("hb") or {}
+        applied, lead_off = hb.get("applied"), hb.get("leader_offset")
+        if applied is not None and lead_off is not None:
+            lag = max(0, lead_off - applied)
+    view["replica_lag"] = lag
+    hb = lead.get("hb") or {}
+    view["degraded"] = hb.get("degraded")
+    view["epoch"] = hb.get("epoch", _gauge(lead, "leader_epoch"))
+    view["offset"] = hb.get("offset", _gauge(lead, "service_offset"))
+    return view
+
+
+# -- rendering ---------------------------------------------------------
+
+_SPARK_BLOCKS = "▁▂▃▄▅▆▇█"
+
+
+def sparkline(vals, width: int = 24) -> str:
+    """Render a value series as a unicode sparkline, newest right.
+    Longer series keep the newest `width` points; constant (or empty)
+    series render flat."""
+    vals = [float(v) for v in vals][-width:]
+    if not vals:
+        return ""
+    lo, hi = min(vals), max(vals)
+    if hi <= lo:
+        return _SPARK_BLOCKS[0] * len(vals)
+    n = len(_SPARK_BLOCKS) - 1
+    return "".join(_SPARK_BLOCKS[round((v - lo) / (hi - lo) * n)]
+                   for v in vals)
+
+
+# curated kme-torch-top history columns: what an operator wants at a glance.
+# Monotonic series (counters and histogram .count sub-series) plot
+# their per-sample deltas — a rate shape — instead of an ever-rising
+# ramp that always renders as the same diagonal.
+HISTORY_NAMES = ("service_records", "lat_e2e.p99_ms",
+                 "lat_device.p99_ms", "lat_produce.p99_ms",
+                 "prof_stage_frac_plan", "prof_stage_frac_dispatch",
+                 "prof_stage_frac_produce", "pipeline_depth")
+
+
+def history_lines(store: str, source: str = "serve",
+                  names=HISTORY_NAMES, width: int = 24,
+                  indent: str = "  ") -> list:
+    """Sparkline rows from the on-disk TSDB (kme-torch-serve --tsdb) — the
+    dashboard's look-back columns. Series absent from the store are
+    skipped; an unreadable store degrades to a note, never a crash."""
+    from kme_tpu_torch.telemetry import tsdb as _tsdb
+
+    try:
+        series = _tsdb.query(store, names, source=source)
+    except (OSError, ValueError) as e:
+        return [f"{indent}history unavailable: {e}"]
+    lines = []
+    for name in names:
+        pts = series.get(name) or []
+        if len(pts) < 2:
+            continue
+        vals = [v for _ts, v in pts]
+        if _tsdb._is_monotonic_name(name):
+            vals = [b - a for a, b in zip(vals, vals[1:])]
+        lines.append(f"{indent}{name:<26s} {sparkline(vals, width)} "
+                     f"{_fmt(vals[-1], 3)}")
+    if lines:
+        lines.insert(0, f"{indent[:-2]}history  (oldest -> newest, "
+                        f"source={source})")
+    return lines
+
+
+def _fmt(v, nd=1) -> str:
+    if v is None:
+        return "-"
+    if isinstance(v, float):
+        return f"{v:,.{nd}f}"
+    return f"{v:,}"
+
+
+def feed_lines(node: dict, indent: str = "") -> list:
+    """The feed-tier rows (kme-feed fan-out metrics) for one scraped
+    node — shared by the single-pair and --cluster frames. Conflation
+    rate = frames dropped into conflated-TOB mode over frames offered
+    to subscriber queues (delivered + dropped)."""
+    delivered = _counter(node, "feed_delivered_total") or 0
+    dropped = _counter(node, "feed_conflated_frames_total") or 0
+    offered = delivered + dropped
+    rate = (dropped / offered) if offered else 0.0
+    lat = (node.get("metrics", {}).get("latencies", {})
+           .get("feed_lag") or {})
+    lines = [
+        f"{indent}feed     subs="
+        f"{_fmt(_gauge(node, 'feed_subscribers'), 0)} "
+        f"group={_fmt(_gauge(node, 'feed_group'), 0)} "
+        f"offset={_fmt(_gauge(node, 'feed_offset'), 0)} "
+        f"frames={_fmt(_counter(node, 'feed_frames_total'), 0)} "
+        f"delivered={_fmt(delivered, 0)}",
+        f"{indent}  conflation rate={rate:.1%} "
+        f"cycles={_fmt(_counter(node, 'feed_conflations_total'), 0)} "
+        f"resyncs={_fmt(_counter(node, 'feed_resyncs_total'), 0)} "
+        f"snapshots="
+        f"{_fmt(_counter(node, 'feed_snapshots_served_total'), 0)} "
+        f"disconnects="
+        f"{_fmt(_counter(node, 'feed_disconnects_total'), 0)}",
+        f"{indent}  feed_lag p50={_fmt(lat.get('p50_ms'), 3)}ms "
+        f"p99={_fmt(lat.get('p99_ms'), 3)}ms "
+        f"({_fmt(lat.get('count'), 0)} obs)",
+    ]
+    return lines
+
+
+def event_lines(state_root: str, limit: int = 6,
+                indent: str = "") -> list:
+    """Recent-events pane: the tail of the merged control-plane
+    timeline (telemetry/events.py) under a state root — restarts,
+    promotions, fences, autoscale proposals — one line each. Empty
+    when no writer has an event log yet."""
+    try:
+        from kme_tpu_torch.telemetry import events as cpevents
+
+        merged = cpevents.merge_logs([state_root])
+    except Exception:
+        return []
+    if not merged:
+        return []
+    lines = [f"{indent}events   (last {min(limit, len(merged))} of "
+             f"{len(merged)} — kme-torch-events for the full timeline):"]
+    for ev in merged[-limit:]:
+        lines.append(f"{indent}  {cpevents.format_event(ev)}")
+    return lines
+
+
+def render(view: dict, width: int = 78) -> list:
+    """The dashboard frame as plain lines (shared by the curses loop
+    and --once; pure so the smoke test can assert on it)."""
+    lead, stby = view["leader"], view["standby"]
+    sup = view.get("supervisor")
+    bar = "=" * width
+    lines = [f"kme-torch-top  {time.strftime('%H:%M:%S')}", bar]
+
+    rate = view.get("records_per_s")
+    lines.append(
+        f"leader   epoch={_fmt(view.get('epoch'))} "
+        f"offset={_fmt(view.get('offset'))} "
+        f"records={_fmt(_counter(lead, 'service_records'))} "
+        f"rate={_fmt(rate) + '/s' if rate is not None else '-'}")
+    if not lead["ok"]:
+        lines.append(f"  leader source unreachable: "
+                     f"{lead.get('error', 'no source')}")
+    deg = view.get("degraded")
+    slo_ok = _gauge(lead, "slo_ok")
+    burn = _gauge(lead, "slo_burn_rate")
+    if deg:
+        lines.append(f"  DEGRADED: {deg}")
+    if slo_ok is not None:
+        lines.append(
+            f"  slo={'OK' if slo_ok else 'BREACH'}"
+            + (f" burn={_fmt(burn, 2)}x" if burn is not None else ""))
+    if _gauge(lead, "pipeline_warning"):
+        lines.append("  pipeline_warning: speedup < 1.0 "
+                     "(see measured_overlap_s)")
+
+    # degradation row (adaptive overload controller, kme-torch-serve
+    # --overload-high-lag): only rendered when the controller is
+    # active — overload_state is absent on a binary-max_lag or
+    # unbounded-ingress leader
+    ostate = _gauge(lead, "overload_state")
+    if ostate is not None:
+        names = ("normal", "shedding", "draining")
+        sname = (names[int(ostate)] if 0 <= int(ostate) < 3
+                 else f"?{ostate}")
+        adm = [_gauge(lead, f"admitted_by_class{c}") or 0
+               for c in range(3)]
+        shd = [_gauge(lead, f"shed_by_class{c}") or 0
+               for c in range(3)]
+        offered = sum(adm) + sum(shd)
+        frac = (sum(shd) / offered) if offered else 0.0
+        lines.append(
+            f"  overload state={sname.upper() if ostate else sname} "
+            f"shed={_fmt(sum(shd), 0)} ({frac:.1%}) "
+            f"backoff={_fmt(_gauge(lead, 'overload_backoff_ms'), 0)}ms "
+            f"transitions="
+            f"{_fmt(_gauge(lead, 'overload_transitions'), 0)} "
+            f"fairness_sheds="
+            f"{_fmt(_gauge(lead, 'overload_fairness_sheds'), 0)}")
+        lines.append(
+            f"  {'class':<16s}{'admitted':>10s}{'shed':>10s}")
+        for c, label in enumerate(("drain (cxl/pay)", "admin",
+                                   "new orders")):
+            lines.append(f"  {label:<16s}{_fmt(adm[c], 0):>10s}"
+                         f"{_fmt(shd[c], 0):>10s}")
+
+    # wire row (binary front door, kme-torch-serve + produce_frames): only
+    # rendered when the leader publishes the binary-adoption gauge —
+    # absent on pre-binary leaders
+    wfrac = _gauge(lead, "wire_binary_frac")
+    if wfrac is not None:
+        lines.append(
+            f"  wire binary={wfrac:.1%} "
+            f"parse={_fmt(_gauge(lead, 'parse_ns_per_msg'), 0)}ns/msg")
+
+    lats = lead.get("metrics", {}).get("latencies", {})
+    rows = [(s, lats.get(f"lat_{s}")) for s in STAGES]
+    if any(v for _s, v in rows):
+        lines.append("")
+        lines.append(f"  {'stage':<9s}{'count':>10s}{'p50 ms':>10s}"
+                     f"{'p99 ms':>10s}{'p999 ms':>10s}")
+        for s, v in rows:
+            if not v:
+                continue
+            lines.append(
+                f"  {s:<9s}{_fmt(v.get('count'), 0):>10s}"
+                f"{_fmt(v.get('p50_ms'), 3):>10s}"
+                f"{_fmt(v.get('p99_ms'), 3):>10s}"
+                f"{_fmt(v.get('p999_ms'), 3):>10s}")
+
+    # per-shard straggler attribution (SeqMeshSession telemetry):
+    # occupancy + migration gauges and the occupancy-weighted
+    # device_shard{N} latency summaries
+    nshards = _gauge(lead, "shard_count")
+    if nshards:
+        lines.append("")
+        head = (
+            f"  shards={_fmt(nshards, 0)} "
+            f"imbalance={_fmt(_gauge(lead, 'shard_imbalance'), 3)} "
+            f"migrations="
+            f"{_fmt(_counter(lead, 'shard_migrations_total'), 0)} "
+            f"rebalances="
+            f"{_fmt(_counter(lead, 'shard_rebalances_total'), 0)}")
+        # per-chip timing gauges only exist under async dispatch;
+        # their absence means a lockstep mesh — no stall column, and
+        # the histograms fall back to occupancy-weighted splits
+        stall = _gauge(lead, "chip_stall_frac")
+        if stall is not None:
+            head += f" stall={stall:.1%}"
+        lines.append(head)
+        has_stall = any(
+            _gauge(lead, f"shard{s}_stall_frac") is not None
+            for s in range(int(nshards)))
+        lines.append(f"  {'shard':<9s}{'occupancy':>10s}{'p50 ms':>12s}"
+                     f"{'p99 ms':>12s}"
+                     + (f"{'stall%':>9s}" if has_stall else ""))
+        for s in range(int(nshards)):
+            v = lats.get(f"device_shard{s}") or {}
+            row = (
+                f"  {s:<9d}"
+                f"{_fmt(_gauge(lead, f'shard{s}_occupancy'), 0):>10s} "
+                f"{_fmt(v.get('p50_ms'), 3):>11s} "
+                f"{_fmt(v.get('p99_ms'), 3):>11s}")
+            if has_stall:
+                sf = _gauge(lead, f"shard{s}_stall_frac")
+                row += (f" {sf * 100:>7.1f}%" if sf is not None
+                        else f" {'-':>8s}")
+            lines.append(row)
+
+    # multi-leader shard group (bridge/front.py scale-out): the
+    # leader's place in the group universe, its input lag, and the
+    # cross-shard transfer traffic with the reserve->settle RTT
+    ngroups = _gauge(lead, "group_count")
+    if ngroups and ngroups > 1:
+        gid = _gauge(lead, "group_id")
+        lag = (_gauge(lead, f"group{int(gid)}_lag")
+               if gid is not None else None)
+        lines.append("")
+        lines.append(
+            f"  group={_fmt(gid, 0)}/{_fmt(ngroups, 0)} "
+            f"lag={_fmt(lag, 0)} "
+            f"xfers="
+            f"{_fmt(_gauge(lead, 'cross_shard_transfers_total'), 0)} "
+            f"volume="
+            f"{_fmt(_gauge(lead, 'cross_shard_transfer_volume'), 0)} "
+            f"broadcasts="
+            f"{_fmt(_gauge(lead, 'balance_broadcasts_total'), 0)}")
+        rtt = lats.get("transfer_rtt")
+        if rtt:
+            lines.append(
+                f"  transfer_rtt  count={_fmt(rtt.get('count'), 0)} "
+                f"p50={_fmt(rtt.get('p50_ms'), 3)}ms "
+                f"p99={_fmt(rtt.get('p99_ms'), 3)}ms")
+
+    # feed-tier row (kme-feed fan-out, --state-root feed.health): only
+    # rendered when the feed gauges are present — absent on runs with
+    # no market-data tier
+    feedn = view.get("feed") or {}
+    if _gauge(feedn, "feed_subscribers") is not None:
+        lines.append("")
+        lines.extend(feed_lines(feedn))
+
+    lines.append("")
+    if stby.get("source"):
+        hb = stby.get("hb") or {}
+        lines.append(
+            f"standby  applied={_fmt(hb.get('applied', _gauge(stby, 'replica_applied_offset')))} "
+            f"lag={_fmt(view.get('replica_lag'))} "
+            f"out_seq={_fmt(hb.get('out_seq'))} "
+            f"discarded={_fmt(hb.get('discarded'))}")
+        if not stby["ok"]:
+            lines.append(f"  standby source unreachable: "
+                         f"{stby.get('error', '?')}")
+    else:
+        lines.append("standby  (none)")
+
+    hist = view.get("history")
+    if hist:
+        lines.append("")
+        lines.extend(hist)
+
+    if sup is not None:
+        lines.append(
+            f"superv   restarts={_fmt(sup.get('restarts_total'))} "
+            f"budget={_fmt(sup.get('budget_used'))}/"
+            f"{_fmt(sup.get('max_restarts'))} "
+            f"standby_restarts={_fmt(sup.get('standby_restarts'))}")
+        for rec in (sup.get("recoveries") or [])[-3:]:
+            if isinstance(rec, dict):
+                lines.append("  recovery: " + " ".join(
+                    f"{k}={rec[k]}" for k in sorted(rec)))
+    evs = view.get("events")
+    if evs:
+        lines.append("")
+        lines.extend(evs)
+    lines.append(bar)
+    return lines
+
+
+def render_cluster(cur: dict, prev: Optional[dict] = None,
+                   width: int = 78) -> list:
+    """Multi-leader frame: one row per shard group (rate from the
+    previous sweep's counters), DEGRADED rows for groups whose health
+    surface is unreachable instead of a crash or a silent hole."""
+    bar = "=" * width
+    lines = [f"kme-torch-top --cluster  {time.strftime('%H:%M:%S')}", bar,
+             f"  {'group':<7s}{'epoch':>6s}{'offset':>10s}"
+             f"{'rate/s':>10s}{'e2e p99':>10s}{'lag':>8s}"
+             f"{'shed':>8s}{'restarts':>9s}"]
+    prev_rows = {r["k"]: r for r in (prev or {}).get("rows", ())}
+    dt = (cur["t"] - prev["t"]) if prev else 0.0
+    up = 0
+    for row in cur["rows"]:
+        k, node = row["k"], row["node"]
+        if not node["ok"]:
+            lines.append(f"  g{k:<6d} DEGRADED (unreachable: "
+                         f"{node.get('error', 'no source')})")
+            continue
+        up += 1
+        hb = node.get("hb") or {}
+        rate = None
+        p = prev_rows.get(k)
+        if p is not None and p["node"]["ok"] and dt > 0:
+            a = _counter(p["node"], "service_records")
+            b = _counter(node, "service_records")
+            if a is not None and b is not None and b >= a:
+                rate = (b - a) / dt
+        lats = node.get("metrics", {}).get("latencies", {})
+        p99 = (lats.get("lat_e2e") or {}).get("p99_ms")
+        lag = _gauge(node, f"group{k}_lag")
+        shed = _gauge(node, "overload_rejects")
+        sup = row.get("supervisor") or {}
+        lines.append(
+            f"  g{k:<6d}"
+            f"{_fmt(hb.get('epoch', _gauge(node, 'leader_epoch')), 0):>6s}"
+            f"{_fmt(hb.get('offset', _gauge(node, 'service_offset')), 0):>10s}"
+            f"{_fmt(rate, 0):>10s}"
+            f"{_fmt(p99, 3):>10s}"
+            f"{_fmt(lag, 0):>8s}"
+            f"{_fmt(shed, 0):>8s}"
+            f"{_fmt(sup.get('restarts_total'), 0):>9s}")
+    # feed tier, one block per group that publishes the feed gauges
+    feed_rows = [(row["k"], row.get("feed") or {}) for row in cur["rows"]
+                 if _gauge(row.get("feed") or {}, "feed_subscribers")
+                 is not None]
+    if feed_rows:
+        lines.append("  feed tier:")
+        for k, node in feed_rows:
+            for ln in feed_lines(node, indent="  "):
+                lines.append(ln.replace("feed     ", f"g{k} feed  ", 1))
+    lines.append(bar)
+    lines.append(f"  {up}/{len(cur['rows'])} groups up")
+    return lines
+
+
+# -- entry point -------------------------------------------------------
+
+
+def _curses_loop(args) -> int:
+    import curses
+
+    def loop(scr):
+        curses.curs_set(0)
+        scr.nodelay(True)
+        prev = None
+        while True:
+            cur = collect(args.leader, args.standby, args.supervisor,
+                          feed=args.feed)
+            view = build_view(cur, prev)
+            if args.tsdb:
+                view["history"] = history_lines(args.tsdb)
+            if args.state_root:
+                view["events"] = event_lines(args.state_root)
+            prev = cur
+            scr.erase()
+            maxy, maxx = scr.getmaxyx()
+            for i, ln in enumerate(render(view, width=min(maxx - 1, 100))):
+                if i >= maxy - 1:
+                    break
+                scr.addnstr(i, 0, ln, maxx - 1)
+            scr.refresh()
+            t_end = time.monotonic() + args.interval
+            while time.monotonic() < t_end:
+                ch = scr.getch()
+                if ch in (ord("q"), ord("Q")):
+                    return 0
+                time.sleep(0.05)
+
+    return curses.wrapper(loop) or 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="kme-torch-top", description=__doc__)
+    p.add_argument("--leader", default=None, metavar="URL|PATH",
+                   help="leader metrics URL (http://host:port, the "
+                        "/metrics.json path is appended) or heartbeat "
+                        "file (serve.health)")
+    p.add_argument("--standby", default=None, metavar="URL|PATH",
+                   help="standby metrics URL or heartbeat file "
+                        "(standby.health)")
+    p.add_argument("--supervisor", default=None, metavar="PATH",
+                   help="supervisor state mirror "
+                        "(<checkpoint-dir>/supervisor.json)")
+    p.add_argument("--feed", default=None, metavar="URL|PATH",
+                   help="feed-tier metrics URL or heartbeat file "
+                        "(kme-feed --state-root writes feed.health); "
+                        "the feed section renders iff its gauges are "
+                        "present")
+    p.add_argument("--state-root", default=None, metavar="DIR",
+                   help="convenience: a checkpoint dir (or a multi-"
+                        "leader run dir with group{k}/ children); "
+                        "fills in --leader/--standby/--supervisor via "
+                        "discover_endpoints")
+    p.add_argument("--tsdb", default=None, metavar="DIR",
+                   help="on-disk metrics history (kme-torch-serve --tsdb): "
+                        "adds sparkline look-back columns to the "
+                        "leader frame")
+    p.add_argument("--cluster", action="store_true",
+                   help="multi-leader view: one row per discovered "
+                        "shard group under --state-root (degraded "
+                        "rows for unreachable groups)")
+    p.add_argument("--interval", type=float, default=1.0,
+                   metavar="SECS")
+    p.add_argument("--once", action="store_true",
+                   help="print one plain-text frame and exit (after a "
+                        "second sample --interval later for rates)")
+    p.add_argument("--no-rate-sample", action="store_true",
+                   help="with --once: single sample, no rate")
+    args = p.parse_args(argv)
+    eps = None
+    if args.state_root:
+        eps = discover_endpoints(args.state_root)
+        args.leader = args.leader or eps["leader"]
+        args.standby = args.standby or eps["standby"]
+        args.supervisor = args.supervisor or eps["supervisor"]
+        args.feed = args.feed or eps["feed"]
+    if args.cluster:
+        if eps is None or not eps["groups"]:
+            p.error("--cluster needs --state-root pointing at a run "
+                    "dir with group{k}/ children")
+        prev = None
+        if args.once and not args.no_rate_sample:
+            prev = collect_cluster(eps["groups"])
+            time.sleep(min(args.interval, 1.0))
+        if args.once:
+            for ln in render_cluster(collect_cluster(eps["groups"]),
+                                     prev):
+                print(ln)
+            for ln in event_lines(args.state_root):
+                print(ln)
+            return 0
+        try:
+            while True:
+                cur = collect_cluster(eps["groups"])
+                for ln in render_cluster(cur, prev):
+                    print(ln)
+                for ln in event_lines(args.state_root):
+                    print(ln)
+                prev = cur
+                time.sleep(args.interval)
+        except KeyboardInterrupt:
+            return 0
+    if not (args.leader or args.standby or args.supervisor):
+        p.error("nothing to watch: give --leader/--standby/"
+                "--supervisor or --state-root")
+    if args.once:
+        prev = None
+        if not args.no_rate_sample:
+            prev = collect(args.leader, args.standby, args.supervisor,
+                           feed=args.feed)
+            time.sleep(min(args.interval, 1.0))
+        cur = collect(args.leader, args.standby, args.supervisor,
+                      feed=args.feed)
+        view = build_view(cur, prev)
+        if args.tsdb:
+            view["history"] = history_lines(args.tsdb)
+        if args.state_root:
+            view["events"] = event_lines(args.state_root)
+        for ln in render(view):
+            print(ln)
+        return 0
+    try:
+        return _curses_loop(args)
+    except Exception as e:
+        # no tty / TERM unset (CI): degrade to a plain-text loop
+        print(f"kme-torch-top: curses unavailable ({e}); plain loop "
+              f"(ctrl-c to quit)", file=sys.stderr)
+        prev = None
+        try:
+            while True:
+                cur = collect(args.leader, args.standby,
+                              args.supervisor, feed=args.feed)
+                view = build_view(cur, prev)
+                if args.tsdb:
+                    view["history"] = history_lines(args.tsdb)
+                if args.state_root:
+                    view["events"] = event_lines(args.state_root)
+                for ln in render(view):
+                    print(ln)
+                prev = cur
+                time.sleep(args.interval)
+        except KeyboardInterrupt:
+            return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,492 @@
+"""On-disk metrics time-series store — the cluster's memory.
+
+The port's copy of `kme_tpu/telemetry/tsdb.py`: the same segment
+format and digests, so either package reads the other's store.
+
+Every observability surface built before this module is point-in-time:
+a /metrics scrape, a heartbeat JSON, a kme-torch-top frame all evaporate the
+moment they are read. The TSDB keeps a durable history instead: each
+service appends one flattened Registry snapshot per heartbeat into an
+append-only file of FIXED-WIDTH binary records, on the same framing
+discipline as the lifecycle journal (telemetry/journal.py):
+
+- a magic header per segment, fixed 64-byte records after it — a torn
+  tail after a crash is `(size - len(MAGIC)) % REC_SIZE` bytes that the
+  next open truncates away (never a resync scan);
+- logrotate-style rotation (`path -> path.1 -> path.2 ...`) once the
+  live segment exceeds `rotate_bytes`, with a `<segment>.sha256` digest
+  sidecar written when a segment is finalized;
+- retention pruning beyond `retain` rotated segments, oldest first,
+  verifying the recorded digest on the way out (a mismatch is counted
+  and reported — evidence of on-disk corruption — but the segment is
+  still pruned: retention is a space bound, not an audit);
+- an fsync policy (`off` = OS buffering, `batch` = fsync after every
+  appended snapshot).
+
+Records come in two kinds. NAME records intern a metric name to a
+32-bit id once per segment (so 48-byte names never repeat per sample);
+SAMPLE records carry `(name_id, sample_seq, ts_us, value)`. Every
+segment is self-contained: rotation resets the intern table, so a
+reader never needs a sibling segment to resolve names.
+
+Replay dedup mirrors the broker's `(epoch, out_seq)` discipline: every
+appended snapshot carries a monotonic `sample_seq`. The store remembers
+the highest sequence it has committed (rescanned from the tail on
+open), and `append_snapshot` drops any snapshot at or below it — so a
+service that crash-resumes from a checkpoint and replays heartbeats it
+already wrote cannot double-count history. Writers without a durable
+cursor of their own (standby, feed, clients) seed from `last_seq + 1`.
+
+Layout: one store directory holds one live segment per SOURCE
+(`<source>.kmet`), so a serve leader, its standby, the feed tier and
+load-generating clients can share a directory without write contention.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import struct
+import time
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple
+
+MAGIC = b"KMETSDB1"
+REC_SIZE = 64
+
+# kind(u8) pad flags(u16) name_id(u32) sample_seq(u64) + payload
+_NAME = struct.Struct("<BxHIQ48s")           # payload: utf-8 name
+_SAMP = struct.Struct("<BxHIQqd32x")         # payload: ts_us, value
+assert _NAME.size == REC_SIZE and _SAMP.size == REC_SIZE
+
+KIND_NAME = 1
+KIND_SAMPLE = 2
+
+NAME_MAX = 48
+SUFFIX = ".kmet"
+
+
+def _clip_name(name: str) -> str:
+    """Deterministic 48-byte interning key: long names keep a prefix
+    plus a short content hash so two distinct long names never
+    collide after clipping (and re-clipping is stable across runs)."""
+    raw = name.encode("utf-8")
+    if len(raw) <= NAME_MAX:
+        return name
+    tag = hashlib.sha256(raw).hexdigest()[:8]
+    head = raw[:NAME_MAX - 9].decode("utf-8", "ignore")
+    return f"{head}~{tag}"
+
+
+def flatten_snapshot(snap: dict) -> List[Tuple[str, float]]:
+    """Registry.snapshot() -> flat numeric (name, value) series.
+
+    Counters and numeric gauges pass through under their own names;
+    latency families explode into the sub-series kme-torch-prof diffs
+    (`lat_e2e.p99_ms` etc.); plain histograms keep count and sum. The
+    bucket vectors stay out — the TSDB answers "what moved", the live
+    snapshot answers "what is the exact distribution right now"."""
+    out: List[Tuple[str, float]] = []
+    for name, v in (snap.get("counters") or {}).items():
+        if isinstance(v, (int, float)):
+            out.append((name, float(v)))
+    for name, v in (snap.get("gauges") or {}).items():
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            out.append((name, float(v)))
+    for name, lat in (snap.get("latencies") or {}).items():
+        if not isinstance(lat, dict):
+            continue
+        for sub in ("count", "sum_s", "p50_ms", "p90_ms", "p99_ms",
+                    "p999_ms"):
+            v = lat.get(sub)
+            if isinstance(v, (int, float)):
+                out.append((f"{name}.{sub}", float(v)))
+    for name, h in (snap.get("histograms") or {}).items():
+        if isinstance(h, dict):
+            for sub in ("count", "sum"):
+                v = h.get(sub)
+                if isinstance(v, (int, float)):
+                    out.append((f"{name}.{sub}", float(v)))
+    return out
+
+
+class TSDB:
+    """Append-only per-source metrics history in `directory`.
+
+    Parameters
+    ----------
+    directory : the shared store root (created if missing)
+    source : which service this writer is (`serve`, `standby`, `feed`,
+        `front`, `loadgen`, `consume`, ...) — names the segment file
+    rotate_bytes : rotate the live segment past this size (default 4 MiB)
+    retain : rotated segments kept per source (default 8)
+    fsync : "off" | "batch" — batch fsyncs after every snapshot
+    """
+
+    def __init__(self, directory: str, source: str = "serve",
+                 rotate_bytes: int = 4 << 20, retain: int = 8,
+                 fsync: str = "off") -> None:
+        if fsync not in ("off", "batch"):
+            raise ValueError(f"unknown fsync policy {fsync!r}")
+        if any(ch in source for ch in "/\\"):
+            raise ValueError(f"source {source!r} must be a bare name")
+        self.directory = directory
+        self.source = source
+        self.rotate_bytes = max(REC_SIZE * 4, int(rotate_bytes))
+        self.retain = max(1, int(retain))
+        self.fsync = fsync
+        self.path = os.path.join(directory, source + SUFFIX)
+        self.last_seq = -1          # highest committed sample_seq
+        self.dup_skipped = 0        # snapshots dropped by the dedup
+        self.digest_mismatches = 0  # pruned segments failing sha256
+        self._names: Dict[str, int] = {}   # live-segment intern table
+        self._torn_bytes = 0
+        os.makedirs(directory, exist_ok=True)
+        self._fh = self._open_live()
+
+    # -- segment lifecycle ---------------------------------------------
+
+    def _open_live(self):
+        """Open (or adopt) the live segment: verify the magic, truncate
+        a torn tail to the last whole record, and rebuild the intern
+        table + dedup cursor from the surviving records."""
+        try:
+            size = os.path.getsize(self.path)
+        except OSError:
+            size = -1
+        if size < len(MAGIC):
+            if size >= 0:
+                # shorter than the magic: unrecoverable stub from a
+                # crash inside the header write — start the segment over
+                os.unlink(self.path)
+            fh = open(self.path, "ab")
+            fh.write(MAGIC)
+            fh.flush()
+            self._seed_seq_from_rotated()
+            return fh
+        with open(self.path, "rb") as rd:
+            head = rd.read(len(MAGIC))
+            if head != MAGIC:
+                raise ValueError(
+                    f"{self.path}: bad magic {head!r} — not a TSDB "
+                    f"segment")
+            body = size - len(MAGIC)
+            torn = body % REC_SIZE
+            for _off, kind, name_id, seq, payload in _iter_records(rd):
+                if kind == KIND_NAME:
+                    nm = payload[0]
+                    self._names[nm] = name_id
+                elif kind == KIND_SAMPLE:
+                    self.last_seq = max(self.last_seq, seq)
+        if torn:
+            self._torn_bytes = torn
+            with open(self.path, "r+b") as t:
+                t.truncate(size - torn)
+        if self.last_seq < 0:
+            self._seed_seq_from_rotated()
+        return open(self.path, "ab")
+
+    def _seed_seq_from_rotated(self) -> None:
+        """A fresh/empty live segment right after rotation must not
+        reset the dedup cursor — adopt the newest rotated segment's
+        high-water mark."""
+        newest = self.path + ".1"
+        if not os.path.exists(newest):
+            return
+        try:
+            for _ts, seq, _name, _v in iter_samples(newest):
+                self.last_seq = max(self.last_seq, seq)
+        except (OSError, ValueError):
+            pass
+
+    def _rotate(self) -> None:
+        """path -> path.1 -> path.2 ... then finalize the shifted-out
+        segment with a sha256 sidecar and prune beyond `retain`."""
+        self._fh.close()
+        n = 1
+        while os.path.exists(f"{self.path}.{n}"):
+            n += 1
+        for i in range(n, 1, -1):
+            os.replace(f"{self.path}.{i - 1}", f"{self.path}.{i}")
+            side = f"{self.path}.{i - 1}.sha256"
+            if os.path.exists(side):
+                os.replace(side, f"{self.path}.{i}.sha256")
+        os.replace(self.path, f"{self.path}.1")
+        _write_digest(f"{self.path}.1")
+        self._prune()
+        self._names = {}      # segments are self-contained
+        fh = open(self.path, "ab")
+        fh.write(MAGIC)
+        fh.flush()
+        self._fh = fh
+
+    def _prune(self) -> None:
+        """Unlink rotated segments beyond `retain`, oldest (highest .N)
+        first, verifying the recorded digest on the way out."""
+        n = 1
+        while os.path.exists(f"{self.path}.{n}"):
+            n += 1
+        for i in range(n - 1, self.retain, -1):
+            seg = f"{self.path}.{i}"
+            if not _verify_digest(seg):
+                self.digest_mismatches += 1
+            for p in (seg, seg + ".sha256"):
+                try:
+                    os.unlink(p)
+                except OSError:
+                    pass
+
+    # -- writing --------------------------------------------------------
+
+    def _intern(self, name: str) -> int:
+        nid = self._names.get(name)
+        if nid is None:
+            nid = len(self._names) + 1
+            self._names[name] = nid
+            self._fh.write(_NAME.pack(KIND_NAME, 0, nid, 0,
+                                      name.encode("utf-8")))
+        return nid
+
+    def append_snapshot(self, snap: dict, sample_seq: int,
+                        ts_us: Optional[int] = None) -> bool:
+        """Append one flattened Registry snapshot under `sample_seq`.
+
+        Returns False (and counts `dup_skipped`) when the sequence is
+        at or below the committed high-water mark — the crash-resume
+        replay dedup. The whole snapshot commits or none of it does
+        from the reader's point of view: a torn write truncates away on
+        the next open, and `last_seq` only advances after the OS
+        accepted every record."""
+        seq = int(sample_seq)
+        if seq <= self.last_seq:
+            self.dup_skipped += 1
+            return False
+        if ts_us is None:
+            ts_us = time.time_ns() // 1000
+        for name, value in flatten_snapshot(snap):
+            nid = self._intern(_clip_name(name))
+            self._fh.write(_SAMP.pack(KIND_SAMPLE, 0, nid, seq,
+                                      int(ts_us), float(value)))
+        self._fh.flush()
+        if self.fsync == "batch":
+            os.fsync(self._fh.fileno())
+        self.last_seq = seq
+        if self._fh.tell() >= self.rotate_bytes:
+            self._rotate()
+        return True
+
+    def append_values(self, values: dict, sample_seq: int,
+                      ts_us: Optional[int] = None) -> bool:
+        """Append a plain {name: number} dict (client-side writers that
+        have no Registry) under the same dedup discipline."""
+        return self.append_snapshot(
+            {"gauges": {k: v for k, v in values.items()
+                        if isinstance(v, (int, float))
+                        and not isinstance(v, bool)}},
+            sample_seq, ts_us=ts_us)
+
+    def next_seq(self) -> int:
+        """The next unused sample_seq — writers without their own
+        durable cursor (standby/feed/clients) call this per sample."""
+        return self.last_seq + 1
+
+    def flush(self) -> None:
+        self._fh.flush()
+
+    def close(self) -> None:
+        try:
+            self._fh.flush()
+            self._fh.close()
+        except (OSError, ValueError):
+            pass
+
+    def segments(self) -> List[str]:
+        """Readable segment paths, oldest first (live file last)."""
+        return _segments(self.path)
+
+
+# -- readers ----------------------------------------------------------------
+
+
+def _iter_records(fh) -> Iterator[tuple]:
+    """(offset, kind, name_id, sample_seq, payload) per whole record;
+    a torn tail (short read) ends the iteration silently."""
+    off = fh.tell()
+    while True:
+        buf = fh.read(REC_SIZE)
+        if len(buf) < REC_SIZE:
+            return
+        kind = buf[0]
+        if kind == KIND_NAME:
+            k, _fl, nid, seq, raw = _NAME.unpack(buf)
+            name = raw.rstrip(b"\x00").decode("utf-8", "replace")
+            yield off, k, nid, seq, (name,)
+        elif kind == KIND_SAMPLE:
+            k, _fl, nid, seq, ts_us, value = _SAMP.unpack(buf)
+            yield off, k, nid, seq, (ts_us, value)
+        # unknown kinds skip (additive forward-compat)
+        off += REC_SIZE
+
+
+def iter_samples(path: str) -> Iterator[Tuple[int, int, str, float]]:
+    """(ts_us, sample_seq, name, value) from ONE segment file, in
+    append order, resolving the segment's own intern table."""
+    names: Dict[int, str] = {}
+    with open(path, "rb") as fh:
+        if fh.read(len(MAGIC)) != MAGIC:
+            raise ValueError(f"{path}: not a TSDB segment")
+        for _off, kind, nid, seq, payload in _iter_records(fh):
+            if kind == KIND_NAME:
+                names[nid] = payload[0]
+            elif kind == KIND_SAMPLE:
+                ts_us, value = payload
+                yield ts_us, seq, names.get(nid, f"#{nid}"), value
+
+
+def _segments(live_path: str) -> List[str]:
+    segs = []
+    n = 1
+    while os.path.exists(f"{live_path}.{n}"):
+        segs.append(f"{live_path}.{n}")
+        n += 1
+    segs.reverse()              # oldest (highest .N) first
+    if os.path.exists(live_path):
+        segs.append(live_path)
+    return segs
+
+
+def read_samples(store: str, source: Optional[str] = None,
+                 ) -> Iterator[Tuple[str, int, int, str, float]]:
+    """(source, ts_us, sample_seq, name, value) across a store
+    directory (every source, or one), rotated segments first. Accepts
+    a bare segment path too."""
+    if os.path.isfile(store):
+        src = os.path.basename(store).split(SUFFIX)[0]
+        for ts, seq, name, v in iter_samples(store):
+            yield src, ts, seq, name, v
+        return
+    try:
+        entries = sorted(os.listdir(store))
+    except OSError:
+        return
+    for ent in entries:
+        if not ent.endswith(SUFFIX):
+            continue
+        src = ent[:-len(SUFFIX)]
+        if source is not None and src != source:
+            continue
+        for seg in _segments(os.path.join(store, ent)):
+            try:
+                for ts, seq, name, v in iter_samples(seg):
+                    yield src, ts, seq, name, v
+            except (OSError, ValueError):
+                continue    # unreadable sibling never hides the rest
+
+
+def query(store: str, names: Optional[Sequence[str]] = None,
+          source: Optional[str] = None, t0_us: Optional[int] = None,
+          t1_us: Optional[int] = None) -> Dict[str, List[Tuple[int, float]]]:
+    """{name: [(ts_us, value), ...]} filtered by source/name/window.
+    Duplicate (seq, name) points (pre-dedup history from old stores)
+    keep the first occurrence."""
+    want = set(names) if names else None
+    out: Dict[str, List[Tuple[int, float]]] = {}
+    seen = set()
+    for src, ts, seq, name, v in read_samples(store, source=source):
+        if want is not None and name not in want:
+            continue
+        if t0_us is not None and ts < t0_us:
+            continue
+        if t1_us is not None and ts > t1_us:
+            continue
+        key = (src, seq, name)
+        if key in seen:
+            continue
+        seen.add(key)
+        out.setdefault(name, []).append((ts, v))
+    for series in out.values():
+        series.sort(key=lambda p: p[0])
+    return out
+
+
+def window_summary(store: str, t0_us: Optional[int] = None,
+                   t1_us: Optional[int] = None,
+                   source: Optional[str] = None) -> Dict[str, float]:
+    """{name: representative value} over a window — the diff substrate.
+
+    Monotonic series (counters, `.count`/`.sum*` sub-series) summarize
+    as their in-window DELTA (last - first) so two windows compare as
+    rates; everything else (gauges, quantile series) as the mean."""
+    series = query(store, source=source, t0_us=t0_us, t1_us=t1_us)
+    out: Dict[str, float] = {}
+    for name, pts in series.items():
+        vals = [v for _t, v in pts]
+        if not vals:
+            continue
+        if _is_monotonic_name(name):
+            out[name] = vals[-1] - vals[0] if len(vals) > 1 else vals[0]
+        else:
+            out[name] = sum(vals) / len(vals)
+    return out
+
+
+def _is_monotonic_name(name: str) -> bool:
+    return (name.endswith("_total") or name.endswith(".count")
+            or name.endswith(".sum") or name.endswith(".sum_s")
+            or name.startswith("service_"))
+
+
+# -- digest sidecars --------------------------------------------------------
+
+
+def _sha256_file(path: str) -> str:
+    h = hashlib.sha256()
+    with open(path, "rb") as f:
+        for chunk in iter(lambda: f.read(1 << 16), b""):
+            h.update(chunk)
+    return h.hexdigest()
+
+
+def _write_digest(seg: str) -> None:
+    doc = {"segment": os.path.basename(seg),
+           "sha256": _sha256_file(seg),
+           "bytes": os.path.getsize(seg)}
+    tmp = seg + ".sha256.tmp"
+    with open(tmp, "w") as f:
+        json.dump(doc, f)
+    os.replace(tmp, seg + ".sha256")
+
+
+def _verify_digest(seg: str) -> bool:
+    """True when the sidecar digest matches (or no sidecar exists —
+    pre-digest segments are not treated as corrupt)."""
+    side = seg + ".sha256"
+    try:
+        with open(side) as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        return True
+    try:
+        return _sha256_file(seg) == doc.get("sha256")
+    except OSError:
+        return False
+
+
+def verify_store(store: str) -> dict:
+    """Digest audit across every finalized segment in a store dir:
+    {"segments": n, "verified": n_ok, "mismatched": [paths]}."""
+    mismatched = []
+    n = 0
+    try:
+        entries = sorted(os.listdir(store))
+    except OSError:
+        entries = []
+    for ent in entries:
+        if SUFFIX + "." not in ent or ent.endswith(".sha256"):
+            continue
+        seg = os.path.join(store, ent)
+        n += 1
+        if not _verify_digest(seg):
+            mismatched.append(seg)
+    return {"segments": n, "verified": n - len(mismatched),
+            "mismatched": mismatched}

@@ -280,22 +280,34 @@ def test_exactly_once_stamps_survive_a_crash(engine, tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    """The options whose modules are not ported yet refuse to run."""
+    """Only the multi-leader group waits for its module: the
+    observability options construct (the ported modules), `group`
+    refuses to run, and kme-torch-serve refuses only --kafka and
+    --group."""
     b = _broker(InProcessBroker, [])
-    for opt, val in (("journal", str(tmp_path / "j.jsonl")), ("audit", True),
-                     ("group", (0, 2)), ("tsdb", str(tmp_path)),
-                     ("watch", ["balance[1]<0"]), ("trace_spans", True)):
-        with pytest.raises(NotImplementedError, match="Queue A item 6"):
-            SV.MatchService(b, engine="oracle", **{opt: val})
+    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+        SV.MatchService(b, engine="oracle", group=(0, 2))
+    with pytest.raises(TypeError, match="unexpected keyword"):
+        SV.MatchService(b, engine="oracle", kafka="k:1")
+    svc = SV.MatchService(b, engine="oracle",
+                          journal=str(tmp_path / "j.jsonl"), audit=True,
+                          tsdb=str(tmp_path / "tsdb"),
+                          watch=["balance[1]<0"], trace_spans=True,
+                          slo={"p99_ms": 5.0}, profile=True,
+                          profile_artifact=str(tmp_path / "a.json"),
+                          capture_dir=str(tmp_path / "cap"))
+    assert svc.journal is not None and svc.auditor is not None
+    assert svc.tsdb is not None and svc.watch is not None
+    assert svc.slo is not None and svc.profiler is not None
+    svc.close()
     # the sharded lanes engine is ported: the service builds it
     svc = SV.MatchService(b, engine="lanes", shards=2, symbols=8,
                           accounts=128, device="cpu")
     assert svc._session.shards == 2 and svc._session.dev_cfg.width == 0
     from kme_tpu_torch.bridge import serve
 
-    for argv in (["--kafka", "k:1"], ["--group", "0/2"],
-                 ["--metrics-port", "0"], ["--slo-p99-ms", "5"],
-                 ["--journal-out", "x"], ["--watch", "depth[1]>=2"]):
+    assert set(serve.UNPORTED_FLAGS) == {"--kafka", "--group"}
+    for argv in (["--kafka", "k:1"], ["--group", "0/2"]):
         with pytest.raises(SystemExit) as e:
             serve.main(argv)
         assert e.value.code == 2
@@ -449,5 +461,7 @@ def test_follower_counts_but_holds_no_lease(tmp_path):
     assert svcs[0].out_seq == svcs[1].out_seq > 0
     assert lease.current_epoch(str(tmp_path / "p")) == 0 == \
         jlease.current_epoch(str(tmp_path / "j"))
-    # a follower writes no snapshot: the directory is never made
-    assert not os.path.exists(tmp_path / "p")
+    # a follower writes no snapshot: its checkpoint directory holds only
+    # its control-plane event log, as the JAX package's follower's does
+    assert sorted(os.listdir(tmp_path / "p")) == \
+        sorted(os.listdir(tmp_path / "j")) == ["events-follower.jsonl"]

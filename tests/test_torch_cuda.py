@@ -14,8 +14,11 @@ and the service (seq pipelined, seq java, lanes) on the card against the
 same service on the CPU, with snapshots restored from the card onto the
 CPU and back; the seq fleet (its shards on their own CUDA streams) in
 both dispatch modes against the same fleet on the CPU, with a race probe
-that patches accounts across shards in every window; and the sharded
-lanes engine's captured step against the CPU.
+that patches accounts across shards in every window; the sharded
+lanes engine's captured step against the CPU; and the observability
+planes that read the card: the seq session's device plane (CUDA-event
+kernel time, bytes per dispatch, H2D bandwidth) and the auditor's
+`check_engine` against the state the card's kernels left.
 
 Every test here carries the `cuda` marker and skips where
 `torch.cuda.is_available()` is false (a CUDA kernel has no CPU mode).
@@ -717,3 +720,72 @@ def test_sharded_lane_session_on_card_matches_cpu(cuda_device, shards):
     assert gpu.export_state() == cpu.export_state()
     assert gpu.metrics() == cpu.metrics()
     assert gpu.histograms() == cpu.histograms()
+
+
+# ---------------------------------------------------------------------------
+# observability on the card: the device plane and the auditor
+
+
+@pytest.mark.cuda
+def test_device_plane_of_a_card_session(cuda_device, tmp_path):
+    """The seq session times every dispatch with CUDA events and counts
+    the bytes of every probed one (`dispatch_bytes`, the kernel table's
+    count); the plane carries them, the measured H2D bandwidth and the
+    transfer seconds, and merges beside other backends' entries."""
+    from kme_tpu_torch.telemetry import profiler as PP
+
+    cfg = SQ.SeqConfig(**KW)
+    ses = SeqSession(cfg)
+    msgs = zipf_symbol_stream(1500, num_symbols=7, num_accounts=60, seed=2,
+                              payout_per_mille=8)
+    ses.enable_device_plane()
+    with pytest.raises(ValueError, match="timed no dispatch"):
+        PP.device_plane(ses)
+    cpu = SeqSession(cfg, device="cpu")
+    for lo in range(0, len(msgs), cfg.batch):
+        part = msgs[lo:lo + cfg.batch]
+        assert ses.process_wire(part) == cpu.process_wire(part)
+    plane = PP.device_plane(ses)
+    assert plane["backend"] == "cuda"
+    assert plane["dispatches_timed"] == ses.dispatches > 0
+    assert plane["dispatches_probed"] == -(-ses.dispatches // 16)
+    assert plane["kernel_ms_per_dispatch"] > 0
+    assert plane["bytes_per_batch"] > len(SQ.msg_fields(cfg)) * 4 * cfg.batch
+    assert plane["h2d_bytes_per_s"] > 1e9
+    assert plane["transfer_s_per_batch"] == round(
+        plane["bytes_per_batch"] / plane["h2d_bytes_per_s"], 9)
+    path = str(tmp_path / "t.json")
+    PP.write_transfer_artifact(path, {"backend": "cpu", "x": 1})
+    doc = PP.write_transfer_artifact(path, plane)
+    assert doc["cpu"]["x"] == 1 and doc["cuda"]["kernel"].startswith(
+        "seq_scan_kernel")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("engine", ["seq", "lanes"])
+def test_check_engine_on_card_state(cuda_device, engine):
+    """The auditor's shadow ledger, fed from the journal's events of a
+    card session, equals the state the card's kernels left (exported),
+    and catches a balance off by one."""
+    from kme_tpu_torch.telemetry.audit import InvariantAuditor
+    from kme_tpu_torch.telemetry.journal import batch_events
+
+    msgs = zipf_symbol_stream(1500, num_symbols=7, num_accounts=60, seed=2,
+                              payout_per_mille=8)
+    if engine == "seq":
+        ses = SeqSession(SQ.SeqConfig(**KW))
+    else:
+        ses = LaneSession(L.LaneConfig(lanes=8, slots=64, accounts=128,
+                                       max_fills=32), width=8)
+    aud = InvariantAuditor()
+    for lo in range(0, len(msgs), 256):
+        part = msgs[lo:lo + 256]
+        aud.observe(batch_events(ses.process_wire(part),
+                                 reasons=ses.last_reasons,
+                                 offsets=list(range(lo, lo + len(part)))))
+    assert aud.violations == []
+    assert aud.check_engine(ses.export_state(), ses.histograms()) == []
+    aid = next(iter(aud.balances))
+    aud.balances[aid] -= 1
+    assert [v["kind"] for v in aud.check_engine(ses.export_state())] == \
+        ["state_mismatch"]

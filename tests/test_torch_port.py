@@ -66,6 +66,7 @@ def _port_sources():
             if f.endswith(".py"):
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
+    yield os.path.join(ROOT, "serve_ab.py")
 
 
 def test_port_imports_without_jax_or_kme_tpu():
