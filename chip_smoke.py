@@ -5,7 +5,8 @@
 Drives the port's main paths — wire JSON -> a session -> the CUDA
 kernels -> MatchOut lines — at full width (the seq fleet and the sharded
 lanes engine too, phase 11; the service with its observability on, phase
-12), and holds each kernel bit for
+12; a multi-leader deployment of group services and the feed, phase 13),
+and holds each kernel bit for
 bit against its plain PyTorch version. Four paths: three through
 SeqSession and the seq_step kernel, one per configuration, each three
 ways (process_wire's Python line builder; the native host path serially,
@@ -157,7 +158,43 @@ Phases, in order; any failure exits non-zero:
    repro replays; (d) the lanes service (B4/B5) journaled and audited
    over the same 20,000 messages: B1's lines, `check_engine` [] at its
    checkpoint and at the end. Its launches join the kernels line;
-13. summary: one `kernels` JSON line, the card line, then the device line
+13. the multi-leader front, at the serve defaults, over the payout-free
+   zipf stream (phase 3c's; on phase 4's PAYOUT stream the groups do not
+   reproduce the single leader in either package): first a single-leader
+   `MatchService(engine="seq", pipeline=2)` on the card, whose MatchOut
+   per message is the reference; (a) groups2 and groups4: the port's
+   front (`GroupRouter`, transfers on, prefund 8) splits the stream,
+   `FrontLinks` produces it over TCP (`send_batch`) to one `serve_broker`
+   per group, and each group, `MatchService(engine="seq", pipeline=2,
+   group=(k, N))` exactly once, serves its substream on the card, one
+   after another: each MatchOut.gK must equal the single leader's lines
+   of the messages routed to group k, no Xfer.gK stamp may repeat, and
+   the merged stream, the router's counters and the substreams must be
+   what the JAX package gives on the CPU (GROUPS_ZIPF); each group's
+   wall, their maximum (the deployment wall), the split and produce
+   seconds, and the reference's `FrontLinks.send` (a record per round
+   trip) timed over the first 8,192 records; (b) groups-cross: `cross_account_stream(20_000, ...,
+   cross_frac=1.0)` through a single-leader card service and two groups
+   likewise (GROUPS_CROSS), group 0 with checkpoints every 8,192 messages,
+   then again from a copy of its log, killed at 10,240 and resumed from
+   disk: its `pending_reserve` restored from the snapshot, MatchOut.g0
+   and Xfer.g0 equal to the uninterrupted run's; (c) groups-cli, the
+   stream's first 20,000 messages: `kme-torch-front route` feeding two
+   `kme-torch-serve --group k/2 --engine seq --pipeline 2
+   --checkpoint-dir --journal-out --trace-spans` processes on the card,
+   `kme-torch-consume --topic MatchOut.gK` reading each group (the single
+   leader's lines again), then `kme-torch-trace --cluster` (every order
+   admitted and stitched) and `kme-torch-xray --cluster` (cash conserved
+   at the cut) on that run directory; (d) feed-groups: a `FeedServer` per
+   group of (c) over its stamped MatchOut.gK, 10,000 subscribers (or the
+   fd limit's cap) on one symbol each, round-robin, on their symbol's
+   group, and two wildcard auditors per group: every subscriber's books
+   equal the levels of the resting orders in the group sessions' last
+   snapshots (restored on the card), 0 gaps, 0 duplicates, and each
+   group's frame bytes the JAX package's `FeedDeriver`'s (FEED_FRAMES);
+   frames derived and delivered, conflations, resyncs, `feed_lag`. Its
+   launches of B1 join the kernels line;
+14. summary: one `kernels` JSON line, the card line, then the device line
    last.
 
 `plain_ms` in the kernels line is the plain version's time per call:
@@ -165,7 +202,8 @@ host-clock time on the CPU for the seq kernel's entries (its plain
 version is a Python interpreter of the kernel), CUDA-event time on the
 card for the row copies and the rows-in-use kernel (whose plain versions
 are torch ops). `seq_step` (B1) counts the launches of phase 4's main
-path, of the fleet's runs (11a, 11b) and of phase 12 (a-c); its
+path, of the fleet's runs (11a, 11b), of phase 12 (a-c) and of phase
+13's in-process services (a, b); its
 `max_abs_err` includes phase 11c's. `seq_rows_in_use` is the prologue of the deep-book
 configurations of the seq kernel; its `launches` are those of the B3 main
 path, its `max_abs_err` is over every state of phases 3b-3d that it was
@@ -257,6 +295,60 @@ OBSERVED_HITS = (
 OBSERVED_SLO_MS = 5.0
 TAMPER_BATCH = 12
 DRILL_PREFIX = 20_000
+# phase 13: the payout-free zipf stream the groups serve (phase 3c's;
+# on phase 4's PAYOUT stream the groups do not reproduce the single
+# leader, in either package: a settlement can debit a group past the
+# margin the front granted) and its single-leader MatchOut at the serve
+# defaults; the front's prefund, its records per produce round trip and
+# the records it times at one per round trip; the cross-account stream of
+# 13b; the
+# prefix of the stream that the CLI deployment (13c) and the feed (13d)
+# serve; the feed's deriver and queue (kme-bench --suite feed's
+# defaults), its subscribers, and the wall past which they are cut; the
+# group-0 checkpoint cadence and crash point of 13b. What the JAX package
+# gives on the CPU (tests/test_torch_front_stream.py recomputes them):
+# per group count, the merged MatchOut (lines, sha256), the router's
+# counters and the substream line counts; for the cross stream, the
+# single leader's MatchOut first; per feed group, (sequenced frames,
+# sha256 of every frame's bytes)
+GROUPS_STREAM = JAVA_STREAM
+GROUPS_SINGLE = (
+    325_558, "7dd9c0eeafc454f33330149e58fe1ae5ab8afb4212e73ec58aa36b9bf71d484d")
+FRONT_PREFUND = 8
+FRONT_BATCH = 1024
+FRONT_SEND_PROBE = 8192
+CROSS_STREAM = dict(num_events=20_000, num_symbols=1024, num_accounts=4096,
+                    ngroups=2, seed=0, cross_frac=1.0)
+GROUPS_CLI_PREFIX = 20_000
+FEED_DERIVE = dict(depth_every=256, depth_levels=8)
+FEED_QUEUE_BYTES = 64 * 1024
+FEED_SUBSCRIBERS = 10_000
+FEED_AUDITORS = 2
+FEED_PHASE_LIMIT_S = 60.0
+CROSS_CKPT_EVERY, CROSS_CRASH_AT = 8192, 10_240
+GROUPS_ZIPF = {
+    2: ((325_558, "755ed05ca5756e9b4a3a04e4a47575a4"
+                  "e894dfca3999239fb9506bc746d1be96"),
+        {"cross_shard_transfers_total": 7728, "transfer_shortfall_total": 0,
+         "transfer_volume_total": 155_139_294,
+         "balance_broadcasts_total": 4096}, [83_955, 44_813]),
+    4: ((325_558, "ccf29b5f5bfdf6945538d15c85676035"
+                  "78f78d30947a3c815b6b019b982e50a7"),
+        {"cross_shard_transfers_total": 15_277,
+         "transfer_shortfall_total": 0,
+         "transfer_volume_total": 304_638_275,
+         "balance_broadcasts_total": 12_288},
+        [47_654, 28_745, 22_638, 53_021]),
+}
+GROUPS_CROSS = (
+    (80_678, "cf10cda0e96bdade918a4e720d8842e7e6e8c638da07e1916e83e6fe001aab91"),
+    (80_678, "2422e58c846ac6948e7e8e703bdd1a3e4d48fcda52499991f72e1eb3a3b6e68f"),
+    {"cross_shard_transfers_total": 4590, "transfer_shortfall_total": 0,
+     "transfer_volume_total": 91_193_597, "balance_broadcasts_total": 4096},
+    [25_224, 17_268])
+FEED_FRAMES = (
+    (17_687, "45451af100260cf89ef8dd83b5c34bba8dba9350dd6486b97d647ea2f42dcb92"),
+    (8_078, "ef62641f9ca1e2787458b88e9215b8f5e4f94484201a1aa0de49c13439c187f2"))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 
 
@@ -2292,6 +2384,711 @@ def observed_phase(SQ, rowdma, zipf, b1, card, unobserved):
         shutil.rmtree(root, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the multi-leader front
+
+
+def split_routes(front, lines, n):
+    """The front's split of `lines` into n groups (transfers on, prefund
+    FRONT_PREFUND), timed. -> (the (group, line) records in front order,
+    each input line's primary group, per-group line counts, router,
+    seconds)."""
+    router = front.GroupRouter(n, transfers=True, prefund=FRONT_PREFUND)
+    routed, prim, counts = [], [], [0] * n
+    t = time.perf_counter()
+    for ln in lines:
+        for g, out in router.route_line(ln):
+            routed.append((g, out))
+            counts[g] += 1
+            if not front.is_internal_line(out):
+                prim.append(g)
+    split_s = time.perf_counter() - t
+    if len(prim) != len(lines):
+        fail(f"front split at {n} groups: {len(prim)} primary routes for "
+             f"{len(lines)} lines")
+    return routed, prim, counts, router, split_s
+
+
+def restricted(per_msg, prim, k, upto=None):
+    """The single leader's MatchOut lines of the messages whose primary
+    route is group k (the first `upto` messages)."""
+    n = len(prim) if upto is None else upto
+    return [ln for i in range(n) if prim[i] == k for ln in per_msg[i]]
+
+
+def front_produce(front, routed, servers):
+    """Every routed line onto its group's serve_broker over TCP through
+    FrontLinks, in front order, FRONT_BATCH stamped records per round
+    trip (`send_batch`). -> (seconds, the links' snapshot)."""
+    links = front.FrontLinks(["%s:%d" % s.server_address[:2]
+                              for s, _b in servers])
+    try:
+        pend = [[] for _ in servers]
+        t = time.perf_counter()
+        for g, ln in routed:
+            pend[g].append(ln)
+            if len(pend[g]) == FRONT_BATCH:
+                links.send_batch(g, pend[g])
+                pend[g] = []
+        for g, lines in enumerate(pend):
+            links.send_batch(g, lines)
+        produce_s = time.perf_counter() - t
+        snap = links.snapshot()
+    finally:
+        links.close()
+    faults = sum(h["transport_faults"] for h in snap["links"])
+    if faults or snap["cursors"] != [sum(1 for g, _ in routed if g == k)
+                                     for k in range(len(servers))]:
+        fail(f"front links: cursors {snap['cursors']}, {faults} transport "
+             f"faults")
+    return produce_s, snap
+
+
+def send_probe(front, routed, n):
+    """The reference's produce, `FrontLinks.send` (one stamped record
+    per round trip), for the first FRONT_SEND_PROBE routed records into
+    fresh serve_brokers. -> (records, seconds)."""
+    from kme_tpu_torch.bridge.broker import InProcessBroker
+    from kme_tpu_torch.bridge.tcp import serve_broker
+
+    servers = [serve_broker("127.0.0.1", 0, InProcessBroker())
+               for _ in range(n)]
+    links = front.FrontLinks(["%s:%d" % s.server_address[:2]
+                              for s, _b in servers])
+    try:
+        part = routed[:FRONT_SEND_PROBE]
+        t = time.perf_counter()
+        for g, ln in part:
+            links.send(g, ln)
+        return len(part), time.perf_counter() - t
+    finally:
+        links.close()
+        for s, _b in servers:
+            s.shutdown()
+            s.server_close()
+
+
+def group_service(broker, k, n, root, checkpoint_every=1 << 30):
+    """Group k of n on the card: `MatchService(engine="seq", pipeline=2,
+    group=(k, n))`, exactly once (its lease under `root`)."""
+    from kme_tpu_torch.bridge.service import MatchService
+
+    svc = MatchService(broker, engine="seq", compat="fixed", pipeline=2,
+                       group=(k, n), exactly_once=True, checkpoint_dir=root,
+                       checkpoint_every=checkpoint_every, **SERVE)
+    if svc.pipeline != 2 or svc.topic_in != f"MatchIn.g{k}":
+        fail(f"group {k}/{n}: pipeline {svc.pipeline}, topic {svc.topic_in}")
+    return svc
+
+
+def run_group(SQ, svc, nmsgs, label):
+    """Serve `nmsgs` with the launch counts set to 0 just before. ->
+    (wall s, B1 launches)."""
+    import torch
+
+    zero_launches(SQ.LAUNCHES)
+    t = time.perf_counter()
+    got = svc.run(max_messages=nmsgs, poll_timeout=0.05)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if got != nmsgs:
+        fail(f"{label}: served {got} of {nmsgs} messages")
+    return wall, seq_launches_checked(SQ, svc, label)
+
+
+def stamped(broker, topic):
+    return [(r.epoch, r.out_seq, r.key, r.value)
+            for r in broker.fetch(topic, 0, 1 << 30, timeout=0)]
+
+
+def xfer_checked(front, broker, k, label):
+    """Group k's Xfer.gK log: every record an internal transfer or
+    broadcast line, no (epoch, out_seq) stamp twice."""
+    recs = stamped(broker, f"Xfer.g{k}")
+    stamps = {(e, s) for e, s, _k, _v in recs}
+    if len(stamps) != len(recs) or any(e is None for e, _s in stamps):
+        fail(f"{label}: Xfer.g{k} holds {len(recs)} records with "
+             f"{len(stamps)} distinct stamps")
+    if not all(front.is_internal_line(v) for _e, _s, _k, v in recs):
+        fail(f"{label}: an organic record on Xfer.g{k}")
+    return recs
+
+
+def groups_run(SQ, front, lines, per_msg, n, root, label, want):
+    """One n-group deployment of `lines` (phase 13a/13b): the front's
+    split, FrontLinks into one serve_broker per group, the group services
+    one after another on the card. Each MatchOut.gK must equal the
+    single leader's lines (`per_msg`) of the messages routed to group k;
+    the merged stream's digest, the router's counters and the substream
+    counts must be `want` (the JAX package's, on the CPU). -> (B1
+    launches, primary routes, per-group (MatchOut lines, Xfer records,
+    transfer ledger), brokers' report)."""
+    from kme_tpu_torch.bridge.broker import InProcessBroker
+    from kme_tpu_torch.bridge.provision import group_topics, provision
+    from kme_tpu_torch.bridge.tcp import serve_broker
+
+    routed, prim, counts, router, split_s = split_routes(front, lines, n)
+    c = router.counters
+    if c["transfer_shortfall_total"]:
+        fail(f"{label}: {c['transfer_shortfall_total']} transfer shortfalls")
+    servers = [serve_broker("127.0.0.1", 0, InProcessBroker())
+               for _ in range(n)]
+    for k, (_s, broker) in enumerate(servers):
+        provision(broker, topics=group_topics(k))
+    launches, walls, groups = 0, [], []
+    try:
+        produce_s, snap = front_produce(front, routed, servers)
+        for k, (_s, broker) in enumerate(servers):
+            gl = f"{label} group {k}"
+            svc = group_service(broker, k, n,
+                                os.path.join(root, f"{label}-g{k}"))
+            wall, d = run_group(SQ, svc, counts[k], gl)
+            launches += d
+            walls.append(wall)
+            gauges = svc.telemetry.snapshot()["gauges"]
+            xfer = dict(svc._xfer)
+            svc.close()
+            out = log_lines(broker, f"MatchOut.g{k}")
+            if out != restricted(per_msg, prim, k):
+                fail(f"{gl}: MatchOut.g{k} ({len(out)} lines) != the "
+                     f"single leader's lines of its messages")
+            xrecs = xfer_checked(front, broker, k, gl)
+            groups.append((out, xrecs, xfer))
+            log(f"{gl}: {counts[k]} messages in {wall:.3f} s = "
+                f"{counts[k] / wall:.0f} msg/s ({d} dispatches = "
+                f"launches); MatchOut.g{k} {len(out)} lines == the single "
+                f"leader's for its messages; Xfer.g{k} {len(xrecs)} stamped "
+                f"records, no stamp twice; ledger {xfer}; gauges "
+                f"cross_shard_transfers_total "
+                f"{gauges.get('cross_shard_transfers_total')} "
+                f"group{k}_lag {gauges.get(f'group{k}_lag')}")
+    finally:
+        for s, _b in servers:
+            s.shutdown()
+            s.server_close()
+    nprobe, probe_s = send_probe(front, routed, n)
+    merged = stream_digest(front.merge_streams([g[0] for g in groups]))
+    got = (merged, dict(c), counts)
+    if got != want:
+        fail(f"{label}: merged {merged}, counters {dict(c)}, substreams "
+             f"{counts}; the JAX package gives {want}")
+    log(f"{label}: {len(lines)} messages split in {split_s:.3f} s and "
+        f"produced over TCP by FrontLinks (send_batch) in {produce_s:.3f} s "
+        f"({len(routed)} records = {len(routed) / produce_s:.0f}/s; one "
+        f"record per round trip, `send`: {nprobe} in {probe_s:.3f} s = "
+        f"{nprobe / probe_s:.0f}/s); "
+        f"substreams {counts}; cross_shard_transfers_total "
+        f"{c['cross_shard_transfers_total']}, transfer_shortfall_total "
+        f"{c['transfer_shortfall_total']}, balance_broadcasts_total "
+        f"{c['balance_broadcasts_total']}; group walls "
+        f"{[round(w, 3) for w in walls]} s, deployment wall (the slowest "
+        f"group) {max(walls):.3f} s, sum {sum(walls):.3f} s; merged "
+        f"MatchOut {merged[0]} lines sha256 {merged[1]} (host clock)")
+    return launches, prim, groups
+
+
+def cross_phase(SQ, front, lines, root):
+    """Phase 13b: the cross-account stream through one single-leader card
+    service and through two groups; group 0 exactly once with
+    checkpoints every CROSS_CKPT_EVERY, killed after its first and
+    resumed from disk. -> B1 launches."""
+    import shutil
+
+    from kme_tpu_torch.bridge.broker import InProcessBroker
+    from kme_tpu_torch.bridge.provision import group_topics, provision
+    from kme_tpu_torch.bridge.tcp import serve_broker
+    from kme_tpu_torch.runtime import checkpoint as ck
+
+    single, launches = single_leader(SQ, lines, "cross single leader")
+    if stream_digest(single) != GROUPS_CROSS[0]:
+        fail(f"cross single leader: MatchOut {stream_digest(single)}; the "
+             f"JAX package gives {GROUPS_CROSS[0]}")
+    per_msg = per_message(single)
+    routed, prim, counts, router, _ = split_routes(front, lines, 2)
+    log0, copy0 = os.path.join(root, "x-log0"), os.path.join(root, "x-copy0")
+    servers = [serve_broker("127.0.0.1", 0,
+                            InProcessBroker(persist_dir=log0)),
+               serve_broker("127.0.0.1", 0, InProcessBroker())]
+    for k, (_s, broker) in enumerate(servers):
+        provision(broker, topics=group_topics(k))
+    runs = {}
+    try:
+        front_produce(front, routed, servers)
+        servers[0][1].sync()
+        shutil.copytree(log0, copy0)
+        for k, (_s, broker) in enumerate(servers):
+            svc = group_service(broker, k, 2, os.path.join(root, f"x-g{k}"),
+                                CROSS_CKPT_EVERY)
+            wall, d = run_group(SQ, svc, counts[k], f"cross group {k}")
+            launches += d
+            runs[k] = (stamped(broker, f"MatchOut.g{k}"),
+                       xfer_checked(front, broker, k, f"cross group {k}"),
+                       dict(svc._xfer), wall)
+            svc.close()
+            want = restricted(per_msg, prim, k)
+            if [f"{r[2]} {r[3]}" for r in runs[k][0]] != want:
+                fail(f"cross group {k}: MatchOut.g{k} != the single "
+                     f"leader's lines of its messages")
+    finally:
+        for s, _b in servers:
+            s.shutdown()
+            s.server_close()
+    merged = stream_digest(front.merge_streams(
+        [[f"{r[2]} {r[3]}" for r in runs[k][0]] for k in range(2)]))
+    got = (stream_digest(single), merged, dict(router.counters), counts)
+    if got != GROUPS_CROSS:
+        fail(f"cross groups: {got}; the JAX package gives {GROUPS_CROSS}")
+    log(f"cross groups: substreams {counts}, "
+        f"cross_shard_transfers_total "
+        f"{router.counters['cross_shard_transfers_total']}, shortfalls "
+        f"{router.counters['transfer_shortfall_total']}; group walls "
+        f"{[round(runs[k][3], 3) for k in range(2)]} s; merged MatchOut "
+        f"{merged[0]} lines sha256 {merged[1]} == the JAX package's")
+    # group 0 again from the copied log: killed after its first snapshot
+    ck_dir = os.path.join(root, "x-crash")
+    b1 = InProcessBroker(persist_dir=copy0)
+    topics = group_topics(0)
+    svc1 = group_service(b1, 0, 2, ck_dir, CROSS_CKPT_EVERY)
+    zero_launches(SQ.LAUNCHES)
+    svc1.run(max_messages=CROSS_CRASH_AT, poll_timeout=0.05)
+    launches += seq_launches_checked(SQ, svc1, "cross crash, first")
+    snap = svc1._last_ckpt_offset
+    if not 0 < snap <= CROSS_CKPT_EVERY + SERVE["batch"] * 2:
+        fail(f"cross crash: first snapshot at {snap}")
+    pending = ck.snapshot_extra(ck_dir, snap).get("pending_reserve")
+    del svc1, b1                      # the whole process dies
+    b2 = InProcessBroker(persist_dir=copy0)
+    svc2 = group_service(b2, 0, 2, ck_dir, CROSS_CKPT_EVERY)
+    restored = dict(svc2._xfer)
+    if svc2.offset != snap or not pending or restored != pending \
+            or pending["legs"] == 0:
+        fail(f"cross crash: resumed at {svc2.offset} (snapshot {snap}), "
+             f"ledger {restored}, snapshot's pending_reserve {pending}")
+    _wall, d = run_group(SQ, svc2, counts[0] - snap, "cross crash, resumed")
+    launches += d
+    final = dict(svc2._xfer)
+    svc2.close()
+    out0 = [r[1:] for r in stamped(b2, topics[1])]
+    x0 = [r[1:] for r in stamped(b2, topics[2])]
+    if out0 != [r[1:] for r in runs[0][0]] or \
+            x0 != [r[1:] for r in runs[0][1]] or final != runs[0][2]:
+        fail("cross crash: the resumed group 0's MatchOut.g0 / Xfer.g0 / "
+             "ledger differ from the uninterrupted run's")
+    log(f"cross crash: group 0 killed at {CROSS_CRASH_AT} messages after "
+        f"its snapshot at {snap}; resumed with pending_reserve {pending} "
+        f"from the snapshot; MatchOut.g0 ({len(out0)}) and Xfer.g0 "
+        f"({len(x0)}) stamps and values == the uninterrupted run's, "
+        f"{b2.dup_suppressed} replayed records suppressed")
+    return launches
+
+
+def cli_phase(front, lines, per_msg, prim, root):
+    """Phase 13c: `kme-torch-front route` feeds two `kme-torch-serve
+    --group k/2` processes; `kme-torch-consume --topic MatchOut.gK` reads
+    each group; then `kme-torch-trace --cluster` and `kme-torch-xray
+    --cluster` on the run directory. -> each group's MatchOut lines."""
+    import threading
+
+    from kme_tpu_torch.bridge.tcp import TcpBroker
+
+    t_phase = time.perf_counter()
+    os.makedirs(root)
+    with open(os.path.join(root, "front.in"), "w") as f:
+        f.write("".join(ln + "\n" for ln in lines))
+    want = [restricted(per_msg, prim, k, len(lines)) for k in range(2)]
+    cli = [sys.executable, "-m", "kme_tpu_torch.cli"]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    serves, addrs, errs = [], [], [[], []]
+    try:
+        for k in range(2):
+            gdir = os.path.join(root, f"group{k}", "state")
+            serves.append(subprocess.Popen(
+                cli + ["serve", "--listen", "127.0.0.1:0", "--engine",
+                       "seq", "--pipeline", "2", "--group", f"{k}/2",
+                       "--auto-provision", "--idle-exit", "8",
+                       "--checkpoint-dir", gdir, "--journal-out",
+                       os.path.join(gdir, "journal.bin"), "--trace-spans"],
+                cwd=ROOT, env=env, stderr=subprocess.PIPE, text=True))
+        for k, p in enumerate(serves):
+            while len(addrs) <= k:
+                line = p.stderr.readline()
+                if not line:
+                    fail(f"group {k} serve exited before listening: "
+                         f"{errs[k]}")
+                errs[k].append(line.rstrip())
+                if "broker listening on" in line:
+                    addrs.append(line.rsplit(" ", 1)[1].strip())
+            threading.Thread(target=lambda p=p, e=errs[k]: e.extend(
+                ln.rstrip() for ln in p.stderr), daemon=True).start()
+        t = time.perf_counter()
+        r = subprocess.run(cli + ["front", "route", "--groups", "2",
+                                  "--brokers", ",".join(addrs), "--input",
+                                  os.path.join(root, "front.in"),
+                                  "--prefund", str(FRONT_PREFUND)],
+                           cwd=ROOT, env=env, capture_output=True,
+                           text=True, timeout=600)
+        route_s = time.perf_counter() - t
+        if r.returncode != 0:
+            fail(f"kme-torch-front route rc={r.returncode}: {r.stderr}")
+        front_doc = json.loads(r.stderr.strip().splitlines()[-1])
+        got = []
+        for k, addr in enumerate(addrs):
+            h, port = addr.rsplit(":", 1)
+            client = TcpBroker(h, int(port))
+            deadline = time.monotonic() + 300
+            while client.end_offset(f"MatchOut.g{k}") < len(want[k]):
+                if time.monotonic() > deadline or serves[k].poll() is not None:
+                    fail(f"group {k} serve: MatchOut.g{k} stalled at "
+                         f"{client.end_offset(f'MatchOut.g{k}')} of "
+                         f"{len(want[k])} lines: {errs[k][-5:]}")
+                time.sleep(0.1)
+            client.close()
+            c = subprocess.run(cli + ["consume", "--broker", addr,
+                                      "--topic", f"MatchOut.g{k}",
+                                      "--no-follow"], cwd=ROOT, env=env,
+                               capture_output=True, text=True, timeout=300)
+            if c.returncode != 0:
+                fail(f"kme-torch-consume group {k} rc={c.returncode}: "
+                     f"{c.stderr}")
+            got.append(c.stdout.splitlines())
+        for k, p in enumerate(serves):
+            rc = p.wait(timeout=300)
+            if rc != 0:
+                fail(f"group {k} serve rc={rc}: {errs[k][-5:]}")
+    finally:
+        for p in serves:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    wall = time.perf_counter() - t_phase
+    for k in range(2):
+        if got[k] != want[k]:
+            fail(f"CLI group {k}: kme-torch-consume read {len(got[k])} "
+                 f"lines; the single leader gives {len(want[k])} for its "
+                 f"messages")
+    merged = stream_digest(front.merge_streams(got))
+    log(f"groups-cli: kme-torch-front route sent {len(lines)} messages "
+        f"({front_doc['cursors']} records, cross_shard_transfers_total "
+        f"{front_doc['cross_shard_transfers_total']}) in {route_s:.3f} s; "
+        f"kme-torch-consume read MatchOut.g0/g1 ({len(got[0])} + "
+        f"{len(got[1])} lines): merged {merged[0]} lines sha256 "
+        f"{merged[1]} == the single leader's stream restricted to the cut; "
+        f"serves said {[[e for e in es if 'processed' in e] for es in errs]}"
+        f"; wall with the idle exits {wall:.1f} s (host clock)")
+    t = time.perf_counter()
+    tr = subprocess.run(cli + ["trace", "--cluster", "--state-root", root,
+                               "--prefund", str(FRONT_PREFUND)], cwd=ROOT,
+                        env=env, capture_output=True, text=True,
+                        timeout=600)
+    tail = tr.stderr.strip().splitlines()[-1] if tr.stderr.strip() else ""
+    if tr.returncode != 0 or f"{len(lines)} orders admitted" not in tail \
+            or f"{len(lines)} stitched" not in tail:
+        fail(f"kme-torch-trace --cluster rc={tr.returncode}: {tail}")
+    trace_s = time.perf_counter() - t
+    t = time.perf_counter()
+    xr = subprocess.run(cli + ["xray", "--cluster", "--state-root", root,
+                               "--prefund", str(FRONT_PREFUND),
+                               "--book-slots", str(SERVE["slots"]),
+                               "--max-fills", str(SERVE["max_fills"]),
+                               "--json"], cwd=ROOT, env=env,
+                        capture_output=True, text=True, timeout=600)
+    if xr.returncode != 0:
+        fail(f"kme-torch-xray --cluster rc={xr.returncode}: "
+             f"{xr.stderr[-2000:]}")
+    cut = json.loads(xr.stdout)
+    if not cut["conserved"] or cut["watermark"] != len(lines):
+        fail(f"kme-torch-xray --cluster: not conserved at "
+             f"{cut['watermark']}: delta {cut['delta']}")
+    log(f"groups-cli: kme-torch-trace --cluster: {tail.split(': ', 1)[-1]} "
+        f"({trace_s:.1f} s); kme-torch-xray --cluster: cash conserved at "
+        f"the cut {cut['watermark']}: cluster {cut['cluster']} == single "
+        f"leader {cut['single_leader']}, pending reserve "
+        f"{cut['pending_reserve_total']} ({time.perf_counter() - t:.1f} s)")
+    return got
+
+
+def feed_phase(SQ, front, root, per_lines):
+    """Phase 13d: one FeedServer per group of 13c over its MatchOut.gK,
+    subscribers on one symbol each (round-robin over the symbols, on
+    their symbol's group) and FEED_AUDITORS wildcard auditors per group.
+    `per_lines` = each group's substream line count."""
+    import resource
+    import selectors
+    import socket
+    from types import SimpleNamespace
+
+    from kme_tpu_torch import opcodes as op
+    from kme_tpu_torch.bridge.broker import InProcessBroker
+    from kme_tpu_torch.feed.client import subscribe_line
+    from kme_tpu_torch.feed.derive import (BookBuilder, books_from_oracle,
+                                           canonical_books)
+    from kme_tpu_torch.feed.server import FeedServer
+    from kme_tpu_torch.runtime import checkpoint as ck
+    from kme_tpu_torch.telemetry import Registry
+
+    t_phase = time.perf_counter()
+    ngroups, nsym = 2, SERVE["symbols"]
+    cfg = SQ.SeqConfig(lanes=SERVE["symbols"], slots=SERVE["slots"],
+                       accounts=SERVE["accounts"],
+                       max_fills=SERVE["max_fills"])
+    recs, levels = [], []
+    for k in range(ngroups):
+        gdir = os.path.join(root, f"group{k}", "state")
+        b = InProcessBroker(persist_dir=os.path.join(gdir, "broker-log"))
+        recs.append(b.fetch(f"MatchOut.g{k}", 0, 1 << 30, timeout=0))
+        ses, off = ck.load_seq_session(gdir, cfg)
+        if ses is None or off != per_lines[k]:
+            fail(f"feed: group {k}'s last snapshot is at {off}, its "
+                 f"substream has {per_lines[k]} messages")
+        orders = ses.export_state()["orders"]
+        levels.append(books_from_oracle(SimpleNamespace(orders={
+            oid: SimpleNamespace(action=op.BUY if o["is_buy"] else op.SELL,
+                                 sid=o["sid"], price=o["price"],
+                                 size=o["size"])
+            for oid, o in orders.items()})))
+        del ses
+    subs = FEED_SUBSCRIBERS
+    try:
+        soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+        want_fd = 2 * subs + 512
+        if soft < want_fd:
+            soft = want_fd if hard == resource.RLIM_INFINITY \
+                else min(want_fd, hard)
+            resource.setrlimit(resource.RLIMIT_NOFILE, (soft, hard))
+        cap = max(16, (soft - 256) // 2)
+        if subs > cap:
+            log(f"feed: RLIMIT_NOFILE {soft} caps the subscribers at {cap} "
+                f"(asked {subs})")
+            subs = cap
+    except (ValueError, OSError) as e:
+        log(f"feed: RLIMIT_NOFILE not raised ({e})")
+    servers, hashes = [], []
+    for k in range(ngroups):
+        broker = InProcessBroker()
+        broker.create_topic(f"MatchOut.g{k}")
+        srv = FeedServer(broker, port=0, group=k, topic=f"MatchOut.g{k}",
+                         queue_bytes=FEED_QUEUE_BYTES, registry=Registry(),
+                         **FEED_DERIVE)
+        h = hashlib.sha256()
+        hashes.append(h)
+
+        def fan_out(f, orig=srv._fan_out, h=h):
+            h.update(f.raw)
+            orig(f)
+
+        srv._fan_out = fan_out
+        servers.append((broker, srv))
+    plan = [(k, None) for k in range(ngroups) for _ in range(FEED_AUDITORS)]
+    plan += [(front.symbol_group(i % nsym, ngroups), {i % nsym})
+             for i in range(max(0, subs - len(plan)))]
+    csel = selectors.DefaultSelector()
+    clients = []
+
+    class Client:
+        __slots__ = ("k", "sock", "symbols", "out", "buf", "live", "eof")
+
+        def __init__(self, k, symbols) -> None:
+            self.k, self.symbols = k, symbols
+            self.out = subscribe_line(symbols)
+            self.buf, self.live, self.eof = [], False, False
+            self.sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+            self.sock.setblocking(False)
+            self.sock.connect_ex(servers[k][1].address)
+
+    def pump_clients(timeout):
+        moved = 0
+        for key, mask in csel.select(timeout=timeout):
+            c = key.data
+            if not c.live:
+                if mask & selectors.EVENT_WRITE:
+                    try:
+                        n = c.sock.send(c.out)
+                    except (BlockingIOError, InterruptedError):
+                        continue
+                    c.out = c.out[n:]
+                    if not c.out:
+                        c.live = True
+                        csel.modify(c.sock, selectors.EVENT_READ, c)
+                continue
+            try:
+                data = c.sock.recv(1 << 16)
+            except (BlockingIOError, InterruptedError):
+                continue
+            except OSError:
+                data = b""
+            if not data:
+                c.eof = True
+                csel.unregister(c.sock)
+                continue
+            c.buf.append(data)
+            moved += len(data)
+        return moved
+
+    def step_all(timeout):
+        return sum(srv.step(timeout) for _b, srv in servers)
+
+    try:
+        t = time.perf_counter()
+        for lo in range(0, len(plan), 512):
+            for k, syms in plan[lo:lo + 512]:
+                c = Client(k, syms)
+                clients.append(c)
+                csel.register(c.sock, selectors.EVENT_WRITE, c)
+            for _ in range(200):
+                step_all(0.001)
+                pump_clients(0.0)
+                if all(c.live for c in clients):
+                    break
+        deadline = time.monotonic() + 120
+        while sum(len(srv._subs) for _b, srv in servers) < len(clients):
+            if time.monotonic() > deadline:
+                fail(f"feed: only {sum(len(s._subs) for _b, s in servers)}"
+                     f" of {len(clients)} subscribers connected")
+            step_all(0.001)
+            pump_clients(0.0)
+        connect_s = time.perf_counter() - t
+        t = time.perf_counter()
+        for k, (broker, _srv) in enumerate(servers):
+            now = time.time_ns() // 1000
+            for r in recs[k]:
+                broker.produce(f"MatchOut.g{k}", r.key, r.value,
+                               epoch=r.epoch, out_seq=r.out_seq, ats=now)
+        deadline = time.monotonic() + 600
+        while True:
+            n = step_all(0.0)
+            pump_clients(0.0)
+            if n == 0 and all(srv.offset >= len(recs[k]) and not any(
+                    s.queue or s.conflating for s in srv._subs.values())
+                    for k, (_b, srv) in enumerate(servers)):
+                break
+            if time.monotonic() > deadline:
+                fail("feed: the fan-out stalled")
+        fanout_s = time.perf_counter() - t
+        stats = [srv.stats() for _b, srv in servers]
+        lags = [srv.lag.quantiles() for _b, srv in servers]
+        frames = [(srv.deriver.frames_out, hashes[k].hexdigest())
+                  for k, (_b, srv) in enumerate(servers)]
+    finally:
+        for _b, srv in servers:
+            srv.close()
+    deadline = time.monotonic() + 120
+    while any(not c.eof for c in clients) and time.monotonic() < deadline:
+        if pump_clients(0.05) == 0 and all(not c.live or c.eof
+                                           for c in clients):
+            break
+    csel.close()
+    for c in clients:
+        c.sock.close()
+    if tuple(frames) != FEED_FRAMES:
+        fail(f"feed: the groups' derivers gave {frames}; the JAX package's "
+             f"FeedDeriver gives {FEED_FRAMES} over the same MatchOut.gK")
+    received = conflated = 0
+    for i, c in enumerate(clients):
+        blob = b"".join(c.buf)
+        bb = BookBuilder()
+        if bb.apply_buffer(blob) != len(blob) or bb.errors or bb.gaps \
+                or bb.dups:
+            fail(f"feed subscriber {i} (group {c.k}, {c.symbols}): "
+                 f"errors {bb.errors[:2]}, gaps {bb.gaps[:2]}, dups "
+                 f"{bb.dups}")
+        want = levels[c.k] if c.symbols is None else {
+            key: lv for key, lv in levels[c.k].items()
+            if key[0] in c.symbols}
+        if canonical_books(bb.book) != canonical_books(want):
+            fail(f"feed subscriber {i} (group {c.k}, {c.symbols}): books "
+                 f"differ from the card session's resting orders")
+        received += bb.frames
+        conflated += bool(bb.resyncs)
+    delivered = sum(s["delivered"] for s in stats)
+    wall = time.perf_counter() - t_phase
+    log(f"feed-groups: {len(clients)} subscribers ({FEED_AUDITORS} "
+        f"wildcard auditors per group) on {nsym} symbols over "
+        f"{ngroups} groups, connected in {connect_s:.2f} s; frames derived "
+        f"{[s['frames'] for s in stats]} (sha256 == the JAX package's "
+        f"FeedDeriver), delivered {delivered} in {fanout_s:.3f} s = "
+        f"{delivered / fanout_s:.0f} frames/s, received {received}; "
+        f"conflations {[s['conflations'] for s in stats]}, resyncs "
+        f"{[s['resyncs'] for s in stats]} ({conflated} subscribers "
+        f"resynced); feed_lag p50 "
+        f"{[round(q[0.5] * 1e3, 3) for q in lags]} ms p99 "
+        f"{[round(q[0.99] * 1e3, 3) for q in lags]} ms; every book == the "
+        f"card sessions' resting orders, 0 gaps, 0 dups; phase wall "
+        f"{wall:.1f} s (host clock)")
+    if wall > FEED_PHASE_LIMIT_S:
+        log(f"feed-groups: {wall:.1f} s is past the phase's "
+            f"{FEED_PHASE_LIMIT_S:.0f} s budget")
+
+
+def single_leader(SQ, lines, label):
+    """The single-leader card service (`MatchService(engine="seq",
+    pipeline=2)`) over `lines`. -> (MatchOut lines, B1 launches)."""
+    from kme_tpu_torch.bridge.broker import InProcessBroker
+    from kme_tpu_torch.bridge.provision import provision
+    from kme_tpu_torch.bridge.service import TOPIC_IN, TOPIC_OUT, MatchService
+
+    b = InProcessBroker()
+    provision(b)
+    for v in lines:
+        b.produce(TOPIC_IN, None, v)
+    svc = MatchService(b, engine="seq", compat="fixed", pipeline=2, **SERVE)
+    wall, launches = run_group(SQ, svc, len(lines), label)
+    svc.close()
+    out = log_lines(b, TOPIC_OUT)
+    log(f"{label}: {len(lines)} messages in {wall:.3f} s = "
+        f"{len(lines) / wall:.0f} msg/s ({launches} dispatches = "
+        f"launches), MatchOut {len(out)} lines (host clock)")
+    return out, launches
+
+
+def front_phase(SQ, gmsgs):
+    """Phase 13: the multi-leader front (see the module docstring) over
+    `gmsgs`, the payout-free zipf stream. -> B1 launches."""
+    import shutil
+    import tempfile
+
+    from kme_tpu_torch.bridge import front
+    from kme_tpu_torch.wire import dumps_order
+    from kme_tpu_torch.workload import cross_account_stream
+
+    lines = [dumps_order(m) for m in gmsgs]
+    root = tempfile.mkdtemp(prefix="kme_front_")
+    try:
+        t = time.perf_counter()
+        single, launches = single_leader(SQ, lines, "groups single leader")
+        if stream_digest(single) != GROUPS_SINGLE:
+            fail(f"groups single leader: MatchOut {stream_digest(single)}; "
+                 f"the JAX package gives {GROUPS_SINGLE}")
+        per_msg = per_message(single)
+        del single
+        prim2 = None
+        for n in (2, 4):
+            d, prim, groups = groups_run(SQ, front, lines, per_msg, n, root,
+                                         f"groups{n}", GROUPS_ZIPF[n])
+            launches += d
+            if n == 2:
+                prim2 = prim
+            del groups
+            log(f"phase 13a to groups{n} took "
+                f"{time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        cross = [dumps_order(m) for m in cross_account_stream(
+            **CROSS_STREAM)]
+        launches += cross_phase(SQ, front, cross, root)
+        log(f"phase 13b took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        prefix = lines[:GROUPS_CLI_PREFIX]
+        cli_root = os.path.join(root, "cli")
+        cli_phase(front, prefix, per_msg, prim2, cli_root)
+        log(f"phase 13c took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        per_lines = split_routes(front, prefix, 2)[2]
+        feed_phase(SQ, front, cli_root, per_lines)
+        log(f"phase 13d took {time.perf_counter() - t:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2571,7 +3368,15 @@ def main() -> int:
     log(f"phase 12 took {time.perf_counter() - t:.1f} s; launches by it: "
         f"B1 {b1_obs}, B4 {b4_obs}, B5 {b5_obs}")
 
-    # ---- 13. summary
+    # ---- 13. the multi-leader front and the feed; its launches of B1
+    # join the main paths'
+    t = time.perf_counter()
+    b1_front = front_phase(SQ, java_msgs)
+    b1_entry["launches"] += b1_front
+    log(f"phase 13 took {time.perf_counter() - t:.1f} s; B1 launches by "
+        f"it: {b1_front}")
+
+    # ---- 14. summary
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

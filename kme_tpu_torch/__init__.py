@@ -17,6 +17,10 @@ parser and MatchOut reconstructor in C++). Around them: checkpoints
 whose files restore across packages (`runtime/checkpoint.py`,
 `runtime/javasnap.py`), the host engines (`oracle/`, `native/oracle.py`)
 and the serving stack (`bridge/`: broker, TCP, `MatchService`, `serve`)
-with its CLI (`cli.py`). Entry points run on the card unless the caller
-passes `device="cpu"`.
+with its CLI (`cli.py`); the seq fleet and the sharded lanes engine
+(`parallel/`); the service's observability (`telemetry/`); the
+multi-leader front, its group services and live resharding
+(`bridge/front.py`, `bridge/reshard.py`); and the market-data feed
+(`feed/`). Entry points run on the card unless the caller passes
+`device="cpu"`.
 """

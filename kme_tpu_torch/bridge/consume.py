@@ -49,8 +49,10 @@ class DedupRing:
 
 def consume_lines(broker, offset: int = 0, follow: bool = True,
                   poll_timeout: float = 0.5, idle_exit: float = None,
-                  dedup: DedupRing = None, latency=None):
-    """Yield `<key> <value>` lines from MatchOut starting at `offset`.
+                  dedup: DedupRing = None, latency=None,
+                  topic: str = TOPIC_OUT):
+    """Yield `<key> <value>` lines from `topic` (MatchOut, or a group's
+    MatchOut.gK) starting at `offset`.
     follow=False stops at the current end; idle_exit stops after that
     many idle seconds. While following, a missing topic is polled for
     (subscribe-and-wait, like the reference consumer and
@@ -71,7 +73,7 @@ def consume_lines(broker, offset: int = 0, follow: bool = True,
     idle_since = time.monotonic()
     while True:
         try:
-            recs = broker.fetch(TOPIC_OUT, offset, 4096,
+            recs = broker.fetch(topic, offset, 4096,
                                 timeout=poll_timeout if follow else 0.0)
         except BrokerError as e:
             # only a not-yet-provisioned topic is waited for; anything
@@ -107,8 +109,11 @@ def consume_lines(broker, offset: int = 0, follow: bool = True,
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="kme-torch-consume", description=__doc__)
     p.add_argument("--broker", default="127.0.0.1:9092", metavar="HOST:PORT")
+    p.add_argument("--topic", default=TOPIC_OUT,
+                   help="the output topic to read (a multi-leader group "
+                        "K's is MatchOut.gK)")
     p.add_argument("--no-follow", action="store_true",
-                   help="stop at the current end of MatchOut")
+                   help="stop at the current end of the topic")
     p.add_argument("--idle-exit", type=float, default=None, metavar="SECS",
                    help="exit after this many seconds with no new records")
     p.add_argument("--no-dedup", action="store_true",
@@ -167,7 +172,7 @@ def main(argv=None) -> int:
     try:
         for line in consume_lines(client, follow=not args.no_follow,
                                   idle_exit=args.idle_exit, dedup=ring,
-                                  latency=lat):
+                                  latency=lat, topic=args.topic):
             print(line, flush=True)
             delivered += 1
             now = time.monotonic()

@@ -10,9 +10,9 @@ startup (else run kme-torch-provision first).
 
 The observability flags (journal, audit, SLO, span tracing, TSDB,
 profiler and captures, watchpoints, /metrics) are served as in the JAX
-package. `--kafka` and `--group`, whose modules the port does not have
-yet (UNPORTED_FLAGS), exit with an error naming the module they wait
-for."""
+package, and so is `--group K/N`, one group of the multi-leader
+deployment behind `kme-torch-front`. `--kafka`, whose module the port
+does not have yet (UNPORTED_FLAGS), exits with an error naming it."""
 
 from __future__ import annotations
 
@@ -23,7 +23,6 @@ import sys
 # needs); any other value than the default is refused
 UNPORTED_FLAGS = {
     "--kafka": ("kafka", None, "bridge/kafka.py"),
-    "--group": ("group", None, "bridge/front.py (the multi-leader front)"),
 }
 
 
@@ -279,8 +278,22 @@ def main(argv=None) -> int:
             print(f"kme-serve: {e}", file=sys.stderr)
             return 2
 
+    group = None
+    if args.group is not None:
+        try:
+            gk, gn = (int(x) for x in args.group.split("/", 1))
+        except ValueError:
+            print(f"kme-serve: --group wants K/N, got {args.group!r}",
+                  file=sys.stderr)
+            return 2
+        if not (0 <= gk < gn):
+            print(f"kme-serve: --group {gk}/{gn} out of range",
+                  file=sys.stderr)
+            return 2
+        group = (gk, gn)
+
     from kme_tpu_torch.bridge.broker import BrokerFenced, InProcessBroker
-    from kme_tpu_torch.bridge.provision import provision
+    from kme_tpu_torch.bridge.provision import group_topics, provision
     from kme_tpu_torch.bridge.service import MatchService
     from kme_tpu_torch.bridge.tcp import parse_addr, serve_broker
 
@@ -305,7 +318,9 @@ def main(argv=None) -> int:
     print(f"kme-serve: broker listening on {real_host}:{real_port}",
           file=sys.stderr, flush=True)
     if args.auto_provision:
-        provision(broker)
+        provision(broker, topics=(group_topics(group[0])
+                                  if group is not None and group[1] > 1
+                                  else None))
     # exactly-once is the DEFAULT served contract once durability is on
     # (the reference shipped with it commented out, KProcessor.java:29);
     # --at-least-once opts back into the historical behavior. REJ
@@ -344,7 +359,7 @@ def main(argv=None) -> int:
             audit=args.audit, audit_repro_dir=args.audit_repro_dir,
             annotate_rejects=args.annotate_rejects,
             exactly_once=exactly_once, pipeline=args.pipeline,
-            trace_spans=args.trace_spans, tsdb=args.tsdb,
+            group=group, trace_spans=args.trace_spans, tsdb=args.tsdb,
             profile=args.profile,
             profile_artifact=args.profile_artifact,
             capture_dir=args.capture_dir,

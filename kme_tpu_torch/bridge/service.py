@@ -47,8 +47,12 @@ metrics history (`tsdb=`), the host profiler, the device plane
 (`profile_artifact=`: the seq kernel's CUDA-event time and bytes per
 dispatch), trigger captures with a torch.profiler window, live
 watchpoints and, with a checkpoint dir, the control-plane event log.
-The multi-leader groups (`group=`) are not ported yet and refused at
-construction.
+
+Multi-leader groups (`group=(k, n)`, bridge/front.py): the service
+serves one symbol partition behind the front door — topics
+`MatchIn.gK` / `MatchOut.gK`, and the front-injected transfer legs
+diverted, stamped, to `Xfer.gK` with their `pending_reserve` ledger in
+the snapshot — on every engine.
 """
 
 from __future__ import annotations
@@ -64,18 +68,6 @@ TOPIC_IN = "MatchIn"    # topic.js:17
 TOPIC_OUT = "MatchOut"  # topic.js:21
 # seconds of torch.profiler trace a capture records on a card session
 _CAPTURE_WINDOW_S = 0.5
-
-# MatchService options whose modules the port does not have yet:
-# option -> the JAX package's module it needs
-UNPORTED = {
-    "group": "bridge/front.py (the multi-leader front)",
-}
-
-
-def unported(option: str, module: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{option} needs the JAX package's {module}, which kme_tpu_torch "
-        f"does not have yet (ROADMAP.md, Queue A item 6)")
 
 
 class MatchService:
@@ -97,6 +89,7 @@ class MatchService:
                  exactly_once: bool = False,
                  follower: bool = False,
                  pipeline: int = 0,
+                 group=None,
                  slo=None,
                  trace_spans: bool = False,
                  tsdb: Optional[str] = None,
@@ -104,14 +97,7 @@ class MatchService:
                  profile_artifact: Optional[str] = None,
                  capture_dir: Optional[str] = None,
                  capture_p99_us: Optional[int] = None,
-                 watch=None, clock=None, device="cuda",
-                 **options) -> None:
-        for k, v in options.items():
-            if k not in UNPORTED:
-                raise TypeError(f"MatchService got an unexpected keyword "
-                                f"argument {k!r}")
-            if v:
-                raise unported(k, UNPORTED[k])
+                 watch=None, clock=None, device="cuda") -> None:
         if engine not in ("lanes", "seq", "oracle", "native"):
             raise ValueError(f"unknown engine {engine!r}")
         if compat not in ("java", "fixed"):
@@ -126,8 +112,46 @@ class MatchService:
         from kme_tpu_torch.bridge.clock import WALL
 
         self.clock = clock or WALL
-        self.topic_in = TOPIC_IN
-        self.topic_out = TOPIC_OUT
+        # multi-leader shard group: group=(k, n) namespaces every
+        # durable artifact this service touches on the broker — its
+        # input/output topics become "MatchIn.g{k}"/"MatchOut.g{k}" and
+        # front-injected cross-shard transfer legs are diverted to a
+        # stamped per-group "Xfer.g{k}" topic (the durable dedup
+        # evidence) instead of the merged MatchOut feed. Lease, journal
+        # and checkpoint namespacing happens one level up: kme-torch-serve
+        # gives each group its own --checkpoint-dir root.
+        if group is not None:
+            gk, gn = int(group[0]), int(group[1])
+            if gn < 1 or not (0 <= gk < gn):
+                raise ValueError(f"group {gk}/{gn} out of range")
+        else:
+            gk, gn = 0, 1
+        self.group_id, self.group_count = gk, gn
+        grouped = group is not None and gn > 1
+        self.topic_in = f"{TOPIC_IN}.g{gk}" if grouped else TOPIC_IN
+        self.topic_out = f"{TOPIC_OUT}.g{gk}" if grouped else TOPIC_OUT
+        self.topic_xfer = f"Xfer.g{gk}" if grouped else None
+        # cross-shard balance-transfer ledger (checkpointed in the
+        # snapshot's extra meta so a resume reports continuous totals):
+        # legs = applied transfer legs, credits/debits = amounts moved
+        # in/out of this group's accounts, rejected = legs the engine
+        # refused (shadow-ledger shortfall at the front door),
+        # broadcasts = CREATE_BALANCE copies suppressed here
+        self._xfer = {"legs": 0, "credits": 0, "debits": 0,
+                      "rejected": 0, "broadcasts": 0}
+        self._xfer_mark = None
+        if grouped:
+            from kme_tpu_torch.bridge.front import _MARK_SUB
+
+            self._xfer_mark = _MARK_SUB
+            create = getattr(broker, "create_topic", None)
+            if create is not None:
+                from kme_tpu_torch.bridge.broker import BrokerError
+
+                try:
+                    create(self.topic_xfer)
+                except BrokerError:
+                    pass    # already provisioned
         self.engine_kind = engine
         self._compat = compat
         self.device = device
@@ -237,6 +261,8 @@ class MatchService:
             from kme_tpu_torch.telemetry import events as cpevents
 
             src = "follower" if self.follower else "serve"
+            if self.group_count > 1:
+                src = f"{src}.g{self.group_id}"
             try:
                 self.events = cpevents.open_log(
                     checkpoint_dir, src, clock=self.clock.time)
@@ -245,12 +271,13 @@ class MatchService:
             ctl = getattr(broker, "overload", None)
             if self.events is not None and ctl is not None:
                 ev = self.events
+                gid = self.group_id if self.group_count > 1 else None
                 names = type(ctl).STATE_NAMES
 
                 def _overload_event(prev, new):
                     ev.emit("overload.transition",
                             severity="warn" if new else "info",
-                            group=None, from_state=names[prev],
+                            group=gid, from_state=names[prev],
                             to_state=names[new],
                             backoff_ms=ctl.backoff_ms)
 
@@ -319,6 +346,16 @@ class MatchService:
                 self.out_seq = int(extra.get("out_seq", 0))
             except (TypeError, ValueError):
                 self.out_seq = 0
+            pending = extra.get("pending_reserve")
+            if isinstance(pending, dict):
+                # cross-shard transfer ledger survives the restart so
+                # replayed legs regenerate the same totals (the broker
+                # watermark suppresses their duplicate stamps)
+                for k in self._xfer:
+                    try:
+                        self._xfer[k] = int(pending.get(k, 0))
+                    except (TypeError, ValueError):
+                        pass
         if self.follower:
             return
         import inspect
@@ -537,6 +574,8 @@ class MatchService:
             from kme_tpu_torch.telemetry.tsdb import TSDB
 
             source = "follower" if self.follower else "serve"
+            if self.group_count > 1:
+                source = f"{source}.g{self.group_id}"
             try:
                 self.tsdb = TSDB(self._tsdb_arg, source=source)
             except (OSError, ValueError) as e:
@@ -654,6 +693,10 @@ class MatchService:
                 ("e2e", "broker admission to produce visible"),
                 ("consume", "broker admission to consumer delivery"),
             )}
+        if self.topic_xfer is not None:
+            self._lat["transfer"] = t.latency(
+                "transfer_rtt", "cross-shard transfer leg: durable "
+                "stamped produce to the group Xfer topic")
         # serve-side spans land on their own trace track when a
         # TraceRecorder is installed (kme-torch-serve --trace-out)
         self._ptimer = PhaseTimer(track="serve")
@@ -698,7 +741,7 @@ class MatchService:
             return
         from kme_tpu_torch.telemetry.dtrace import local_tid
 
-        g = 0       # the single leader is group 0
+        g = self.group_id
         if self.journal is not None:
             self.journal.record_latency(
                 [{"off": offs[i], "oid": oids[i],
@@ -905,6 +948,12 @@ class MatchService:
                     f"fenced: leader epoch {self.epoch} superseded by "
                     f"{cur}; refusing to checkpoint")
             extra.update(epoch=self.epoch, out_seq=self.out_seq)
+            if self.topic_xfer is not None:
+                # the pending_reserve ledger rides the snapshot so a
+                # resumed leader reports continuous cross-shard totals;
+                # the transfer LEGS themselves regenerate from MatchIn
+                # replay and dedup on their (epoch, out_seq) stamps
+                extra["pending_reserve"] = dict(self._xfer)
         if self._session is not None:
             from kme_tpu_torch.runtime.seqsession import SeqSession
 
@@ -1306,7 +1355,7 @@ class MatchService:
             lo = line_off.tolist()
             for i in range(len(lo) - 1):
                 key, _, value = text[lo[i]:lo[i + 1]].partition(" ")
-                self._produce_retry(self.topic_out, key, value, stamp=True)
+                self._produce_out(key, value)
         self._last_produce_s += _t.perf_counter() - t0
 
     def _publish_batch(self, nrecs: int, ndropped: int) -> None:
@@ -1422,6 +1471,38 @@ class MatchService:
                 t.gauge(name).set(v)
         if self.epoch is not None:
             t.gauge("leader_epoch").set(self.epoch)
+        if self.topic_xfer is not None:
+            self._publish_group_gauges()
+
+    def _publish_group_gauges(self) -> None:
+        """Per-group scale-out surface: identity, input lag behind the
+        group's own MatchIn topic, and the cross-shard transfer ledger.
+        Gauges (not counters) so a resumed leader republishes the
+        checkpointed totals without double counting."""
+        t = self.telemetry
+        gk = self.group_id
+        t.gauge("group_id").set(gk)
+        t.gauge("group_count").set(self.group_count)
+        end = getattr(self.broker, "end_offset", None)
+        if end is not None:
+            from kme_tpu_torch.bridge.broker import BrokerError
+
+            try:
+                t.gauge(f"group{gk}_lag",
+                        "input records admitted to this group's "
+                        "MatchIn topic but not yet applied").set(
+                    max(0, end(self.topic_in) - self.offset))
+            except BrokerError:
+                pass    # topic not provisioned yet
+        x = self._xfer
+        t.gauge("cross_shard_transfers_total",
+                "applied cross-shard balance-transfer legs").set(
+            x["legs"])
+        t.gauge("cross_shard_transfer_volume",
+                "cents moved across groups (credits+debits)").set(
+            x["credits"] + x["debits"])
+        t.gauge("cross_shard_rejected_total").set(x["rejected"])
+        t.gauge("balance_broadcasts_total").set(x["broadcasts"])
 
     def _produce_retry(self, topic: str, key, value,
                        stamp: bool = False) -> None:
@@ -1463,6 +1544,50 @@ class MatchService:
                 self.clock.sleep(delay)
                 delay = min(delay * 2, 1.0)
 
+    def _produce_out(self, key, value) -> None:
+        """Route one output line: organic records go to this group's
+        MatchOut stream; front-injected cross-shard lines (the
+        XFER_MARK passthrough stamp in `prev` — bridge/front.py) are
+        suppressed from the merged feed and land STAMPED on the
+        per-group Xfer topic instead, so every applied transfer leg
+        leaves one fenced `(epoch, out_seq)` row of durable dedup
+        evidence. Both paths consume the same out_seq cursor, keeping
+        the stamp stream deterministic across crash-replay."""
+        if self._xfer_mark is not None and self._xfer_mark in value:
+            self._produce_xfer(key, value)
+        else:
+            self._produce_retry(self.topic_out, key, value, stamp=True)
+
+    def _produce_xfer(self, key, value) -> None:
+        import json
+        import time as _t
+
+        t0 = _t.perf_counter()
+        self._produce_retry(self.topic_xfer, key, value, stamp=True)
+        lat = self._lat.get("transfer")
+        if lat is not None:
+            lat.observe(_t.perf_counter() - t0)
+        if key != "OUT":
+            return      # ledger counts each leg once, on its result
+        try:
+            msg = json.loads(value)
+            action, size = int(msg["action"]), int(msg["size"])
+        except (ValueError, KeyError, TypeError):
+            return
+        x = self._xfer
+        from kme_tpu_torch import opcodes as op
+
+        if action == op.TRANSFER:
+            x["legs"] += 1
+            if size >= 0:
+                x["credits"] += size
+            else:
+                x["debits"] -= size
+        elif action == op.CREATE_BALANCE:
+            x["broadcasts"] += 1
+        elif action == op.REJECT:
+            x["rejected"] += 1
+
     def _flow(self, phase: str, ordinal: Optional[int] = None) -> None:
         """Trace flow arrow endpoint for the current batch: "s" inside
         the engine span, "f" inside the produce span. Pipelined
@@ -1484,8 +1609,7 @@ class MatchService:
             for lines in out:
                 for ln in lines:
                     key, _, value = ln.partition(" ")
-                    self._produce_retry(self.topic_out, key, value,
-                                        stamp=True)
+                    self._produce_out(key, value)
         # accumulates across the branch paths that produce more than
         # once per step (native partial + REJ annotations)
         self._last_produce_s += _t.perf_counter() - t0

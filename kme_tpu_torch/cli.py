@@ -18,22 +18,21 @@
 - xray      — offset-addressed state, bisection, offline watchpoints
 - events    — the control-plane event timeline
 - agg       — the SLO plane over /metrics.json snapshots
+- front     — the multi-leader front door (bridge/front.py): split,
+              merge, verify, or route a stream to N group services
+- reshard   — the live N->M re-split over drained groups
+- feed      — the market-data fan-out tier (feed/server.py)
 
-The multi-leader modes (`trace --cluster`, `xray --cluster` and
-`--groups > 1`) wait for the front (bridge/front.py) and `prof --diff`
-for perfgate.py; they exit 2 naming the module. The JAX package's other
-commands (bench, supervise, chaos, front, ...) are not ported.
+`trace --cluster` and `xray --cluster` read a multi-leader run
+directory. `prof --diff` waits for perfgate.py and exits 2 naming it.
+The JAX package's other commands (bench, supervise, chaos, sim, ...)
+are not ported.
 """
 
 from __future__ import annotations
 
 import argparse
 import sys
-
-_NEEDS_FRONT = ("{flag} re-runs the multi-leader front's GroupRouter, "
-                "which needs the JAX package's bridge/front.py; "
-                "kme_tpu_torch does not have it yet (ROADMAP.md, Queue A "
-                "item 6)")
 
 
 def loadgen_main(argv=None) -> int:
@@ -781,7 +780,9 @@ def trace_main(argv=None) -> int:
     if args.self_check:
         return _trace_self_check()
     if args.cluster:
-        p.error(_NEEDS_FRONT.format(flag="--cluster"))
+        if args.state_root is None:
+            p.error("--cluster needs --state-root")
+        return _trace_cluster(args)
     if args.replay_repro is not None:
         from kme_tpu_torch.telemetry.audit import replay_repro
 
@@ -852,14 +853,56 @@ def trace_main(argv=None) -> int:
     return 0
 
 
+def _trace_cluster(args) -> int:
+    """kme-torch-trace --cluster: stitch per-order waterfalls across
+    front, groups, transfer legs and merge from a multi-leader run
+    directory (telemetry/dtrace.py). Exit 0 iff every admitted order
+    stitched to a complete waterfall."""
+    import json
+
+    from kme_tpu_torch.telemetry import dtrace
+
+    doc = dtrace.stitch_state_root(args.state_root,
+                                   input_path=args.input,
+                                   prefund=args.prefund)
+    if args.chrome_out is not None:
+        with open(args.chrome_out, "w") as f:
+            json.dump(dtrace.chrome_trace_doc(doc), f)
+        print(f"kme-torch-trace: Chrome trace written to {args.chrome_out}",
+              file=sys.stderr)
+    if args.order is not None:
+        o = dtrace.find_order(doc, args.order)
+        if o is None:
+            print(f"kme-torch-trace: no stitched order matches "
+                  f"{args.order!r}", file=sys.stderr)
+            return 1
+        print(dtrace.waterfall_text(o))
+        return 0
+    orders = doc["orders"]
+    if args.json:
+        for o in orders[:args.limit] if args.limit else orders:
+            print(json.dumps(o, sort_keys=True))
+    elif args.limit:
+        for o in orders[:args.limit]:
+            print(dtrace.waterfall_text(o))
+            print()
+    frac = (doc["stitched"] / doc["admitted"]) if doc["admitted"] else 0
+    legs = sum(len(o["legs"]) for o in orders)
+    print(f"kme-torch-trace: {doc['admitted']} orders admitted across "
+          f"{doc['groups']} groups, {doc['stitched']} stitched "
+          f"({frac:.2%}), {legs} transfer/broadcast legs linked, "
+          f"counters={doc['counters']}", file=sys.stderr)
+    return 0 if doc["admitted"] and doc["stitched"] == doc["admitted"] \
+        else (1 if doc["admitted"] else 2)
+
+
 def xray_main(argv=None) -> int:
     """Time-travel state inspection over the durable MatchIn log:
     materialize oracle state at any retained offset (nearest snapshot +
     deterministic replay), bisect the first divergent batch between a
-    journal and a fresh replay, and evaluate watchpoint predicates
-    offline. Strictly read-only: MatchIn and MatchOut bytes are never
-    touched. The cross-group cut (--cluster) waits for the multi-leader
-    front."""
+    journal and a fresh replay, evaluate watchpoint predicates offline,
+    and take a consistent cross-group cut. Strictly read-only: MatchIn
+    and MatchOut bytes are never touched."""
     p = argparse.ArgumentParser(prog="kme-torch-xray",
                                 description=xray_main.__doc__)
     p.add_argument("query", nargs="*", metavar="QUERY",
@@ -921,10 +964,6 @@ def xray_main(argv=None) -> int:
                         "ran with (--cluster; must match kme-front)")
     p.add_argument("--json", action="store_true")
     args = p.parse_args(argv)
-    if args.cluster:
-        p.error(_NEEDS_FRONT.format(flag="--cluster"))
-    if args.groups > 1:
-        p.error(_NEEDS_FRONT.format(flag="--groups > 1"))
     import json
 
     from kme_tpu_torch.telemetry import xray
@@ -940,6 +979,41 @@ def xray_main(argv=None) -> int:
                 for store, line in sorted(res["diff"].items()):
                     print(f"  {store}: {line}")
             return 0 if res["match"] else 1
+
+        if args.cluster:
+            if not args.state_root:
+                p.error("--cluster requires --state-root")
+            rep = xray.cluster_cut(
+                args.state_root, at=args.at, input_path=args.input,
+                prefund=args.prefund, book_slots=args.book_slots,
+                max_fills=args.max_fills)
+            if args.json:
+                print(json.dumps(rep, indent=1, sort_keys=True))
+            else:
+                print(f"cut @ {rep['watermark']} input lines "
+                      f"({len(rep['groups'])} groups)")
+                for k in sorted(rep["groups"]):
+                    g = rep["groups"][k]
+                    print(f"  group{k}: cut={g['cut']} "
+                          f"cash={g['cash']} margin={g['open_margin']} "
+                          f"accounts={g['accounts']} "
+                          f"resting={g['resting_orders']} "
+                          f"(anchor={g['anchor']} "
+                          f"replayed={g['replayed']})")
+                print(f"  pending transfer reserve: "
+                      f"{rep['pending_reserve_total']} "
+                      f"(shortfalls={rep['transfer_shortfalls']})")
+                print(f"  cluster cash+reserve={rep['cluster']['cash']}"
+                      f" margin={rep['cluster']['open_margin']} "
+                      f"gross={rep['cluster']['gross']}")
+                print(f"  single-leader  cash="
+                      f"{rep['single_leader']['cash']} "
+                      f"margin={rep['single_leader']['open_margin']} "
+                      f"gross={rep['single_leader']['gross']}")
+                print("  conserved: "
+                      + ("yes" if rep["conserved"]
+                         else f"NO — {rep['delta']}"))
+            return 0 if rep["conserved"] else 1
 
         # Point queries and bisection both need the log location.
         log_dir = args.log_dir
@@ -1061,6 +1135,33 @@ def provision_main(argv=None) -> int:
     return _main(argv)
 
 
+def front_main(argv=None) -> int:
+    """Multi-leader front door: split MatchIn into per-group substreams
+    (cross-shard balance transfers injected), merge per-group MatchOut
+    streams into the canonical global feed, verify vs the oracle, or
+    route a stream to N group services over TCP."""
+    from kme_tpu_torch.bridge.front import main as _main
+
+    return _main(argv)
+
+
+def reshard_main(argv=None) -> int:
+    """Live N->M group re-split over drained leaders: fence the old
+    epochs durably, migrate book/position state through the checkpoint
+    codec, settle balances with stamped exactly-once transfer legs."""
+    from kme_tpu_torch.bridge.reshard import main as _main
+
+    return _main(argv)
+
+
+def feed_main(argv=None) -> int:
+    """Market-data fan-out server: book deltas, depth snapshots,
+    subscriber filtering, conflation."""
+    from kme_tpu_torch.feed.server import main as _main
+
+    return _main(argv)
+
+
 def top_main(argv=None) -> int:
     """Live operations dashboard over the /metrics.json surfaces of a
     leader, an optional standby, and the supervisor state file."""
@@ -1083,14 +1184,16 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m kme_tpu_torch.cli")
     p.add_argument("command", choices=(
         "serve", "loadgen", "consume", "provision", "trace", "prof",
-        "top", "xray", "events", "agg"))
+        "top", "xray", "events", "agg", "front", "reshard", "feed"))
     args, rest = p.parse_known_args(argv)
     try:
         return {"serve": serve_main, "loadgen": loadgen_main,
                 "consume": consume_main, "provision": provision_main,
                 "trace": trace_main, "prof": prof_main, "top": top_main,
                 "xray": xray_main, "events": events_main,
-                "agg": agg_main}[args.command](rest)
+                "agg": agg_main, "front": front_main,
+                "reshard": reshard_main,
+                "feed": feed_main}[args.command](rest)
     except BrokenPipeError:
         # downstream closed the pipe (e.g. `| head`): point both std
         # streams at devnull so interpreter-shutdown flushes cannot

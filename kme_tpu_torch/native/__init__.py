@@ -50,7 +50,7 @@ build_logs: dict = {}
 
 HOST_SRCS = tuple(os.path.join(_HERE, f) for f in
                   ("kme_host.cpp", "kme_oracle.cpp", "kme_wire.cpp",
-                   "kme_router.cpp"))
+                   "kme_router.cpp", "kme_front.cpp"))
 HOST_CXX = "g++"
 HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 
@@ -276,6 +276,25 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         "kme_parse_emit": ([c.c_void_p], c.c_int64),
         "kme_parse_emit_buf": ([c.c_void_p], c.c_void_p),
         "kme_parse_emit_off": ([c.c_void_p], P64),
+        # native front-door acceptor (kme_front.cpp): validate + route
+        # + plan in one call per batch
+        "kme_front_new": ([], c.c_void_p),
+        "kme_front_free": ([c.c_void_p], None),
+        "kme_front_accept": ([c.c_void_p, c.c_char_p, c.c_int64,
+                              c.c_int32, c.c_int64, c.c_int64,
+                              c.c_void_p, c.c_void_p, c.c_int32],
+                             c.c_int64),
+        "kme_front_groups": ([c.c_void_p], P32),
+        "kme_front_plan_k": ([c.c_void_p], c.c_int64),
+        "kme_front_err_off": ([c.c_void_p], c.c_int64),
+        "kme_front_col": ([c.c_void_p, c.c_int32], P64),
+        "kme_front_hnext": ([c.c_void_p], c.POINTER(c.c_uint8)),
+        "kme_front_hprev": ([c.c_void_p], c.POINTER(c.c_uint8)),
+        "kme_front_tid": ([c.c_void_p], P64),
+        "kme_front_htid": ([c.c_void_p], c.POINTER(c.c_uint8)),
+        "kme_front_json": ([c.c_void_p], c.c_int64),
+        "kme_front_json_buf": ([c.c_void_p], c.c_void_p),
+        "kme_front_json_off": ([c.c_void_p], P64),
     }
     for name, (argtypes, restype) in sigs.items():
         fn = getattr(lib, name)

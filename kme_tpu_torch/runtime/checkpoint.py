@@ -618,13 +618,29 @@ def save_oracle(ckpt_dir: str, oracle, offset: int,
     return path
 
 
+def _port_unpickler(f):
+    """An Unpickler that resolves the JAX package's classes to the
+    port's copies (`kme_tpu.oracle.engine.OracleEngine` ->
+    `kme_tpu_torch.oracle.engine.OracleEngine`), so an oracle snapshot
+    either package wrote loads here without importing `kme_tpu`."""
+    import pickle
+
+    class _Unpickler(pickle.Unpickler):
+        def find_class(self, module, name):
+            if module == "kme_tpu" or module.startswith("kme_tpu."):
+                module = "kme_tpu_torch" + module[len("kme_tpu"):]
+            return super().find_class(module, name)
+
+    return _Unpickler(f)
+
+
 def load_oracle_file(path: str):
     """Restore ONE oracle snapshot file (digest-verified). Raises on
     corruption — callers own the fallback-to-older decision."""
-    import pickle
+    import io
 
     with open(path, "rb") as f:
-        blob = pickle.load(f)
+        blob = _port_unpickler(f).load()
     if blob.get("version") != 1 or blob.get("kind") != "oracle":
         raise ValueError("unsupported snapshot")
     if "engine_pkl" in blob:
@@ -634,7 +650,7 @@ def load_oracle_file(path: str):
                 f"content digest mismatch (stored "
                 f"{str(blob.get('digest'))[:12]}…, computed "
                 f"{got[:12]}…): corrupt snapshot")
-        return pickle.loads(blob["engine_pkl"])
+        return _port_unpickler(io.BytesIO(blob["engine_pkl"])).load()
     return blob["engine"]   # pre-digest snapshot format
 
 
@@ -684,8 +700,6 @@ def snapshot_extra(ckpt_dir: str, offset: int) -> dict:
     The caller already loaded the snapshot itself, so failures here
     degrade to an empty cursor (epoch 0 / out_seq 0), which the broker's
     recovered watermark still keeps duplicate-free."""
-    import pickle
-
     npz = snapshot_path(ckpt_dir, offset)
     if os.path.exists(npz):
         try:
@@ -706,7 +720,7 @@ def snapshot_extra(ckpt_dir: str, offset: int) -> dict:
     if os.path.exists(pkl):
         try:
             with open(pkl, "rb") as f:
-                blob = pickle.load(f)
+                blob = _port_unpickler(f).load()
             return dict(blob.get("extra") or {})
         except Exception:
             return {}

@@ -353,52 +353,79 @@ def make_seq_router(num_lanes: int, num_accounts: int,
 
 
 class _Staging:
-    """The card's side of the host path: a ring of pinned host buffers
-    for the message planes, a copy stream for their H2D copies, and a
-    side stream for the rare second-round output copies."""
+    """The card's side of the host path: a ring of staging slots, each a
+    pinned host buffer and a device buffer for the message planes, a copy
+    stream for their H2D copies, and a side stream for the rare
+    second-round output copies.
 
-    def __init__(self, device: torch.device) -> None:
+    The ring's first three slots (pipeline depth 2 and the batch being
+    staged) are allocated with the session, for one chunk of `batch`
+    messages, so that no batch pays for an allocation: a device block
+    allocated on a fresh copy stream costs a cudaMalloc, and on the first
+    submit of a pipeline nothing hides it (one slow allocation there
+    outweighs a hundred stagings hidden under the card's work;
+    `stage_ab.py` times both designs)."""
+
+    def __init__(self, device: torch.device, planes: int, batch: int
+                 ) -> None:
         self.device = device
         self.copy = torch.cuda.Stream(device)
         self.side = torch.cuda.Stream(device)
-        # [pinned int32 buffer, event of the last copy out of it]
-        self.ring: List[list] = []
+        # [pinned host buffer, device buffer, event of the last copy out
+        # of the host buffer, event behind the last work that read the
+        # device buffer]
+        self.ring: List[list] = [self._slot(planes * batch)
+                                 for _ in range(3)]
         self.turn = 0
+        self._last: Optional[list] = None
+
+    def _slot(self, n: int) -> list:
+        with torch.cuda.stream(self.copy):
+            dev = torch.empty(n, dtype=torch.int32, device=self.device)
+        return [torch.empty(n, dtype=torch.int32, pin_memory=True), dev,
+                None, None]
 
     def stage(self, planes: List[np.ndarray], inflight: int
               ) -> List[torch.Tensor]:
         """Copy the (K, B) int32 planes into a ring slot and from there
         to the card on the copy stream; the current (compute) stream
         waits for that copy. -> the planes on the card."""
-        # pipeline depth + 1 slots: one per batch in flight and this one
-        while len(self.ring) < inflight + 2:
-            self.ring.append([None, None])
-        slot = self.ring[self.turn % len(self.ring)]
-        self.turn += 1
-        if slot[1] is not None:
-            # the slot's last copy has long been issued; a slot is
-            # written again only after it has completed
-            slot[1].synchronize()
+        compute = torch.cuda.current_stream(self.device)
+        if self._last is not None:
+            # the kernels that read the last slot's planes are queued on
+            # the compute stream by now: its next copy waits for them
+            self._last[3] = torch.cuda.Event()
+            self._last[3].record(compute)
         K, B = planes[0].shape
         n = len(planes) * K * B
-        if slot[0] is None or slot[0].numel() < n:
-            slot[0] = torch.empty(n, dtype=torch.int32, pin_memory=True)
+        # pipeline depth + 1 slots: one per batch in flight and this one
+        while len(self.ring) < inflight + 2:
+            self.ring.append(self._slot(n))
+        slot = self.ring[self.turn % len(self.ring)]
+        self.turn += 1
+        if slot[2] is not None:
+            # the slot's last copy has long been issued; its host buffer
+            # is written again only after that copy has completed
+            slot[2].synchronize()
+        if slot[0].numel() < n:
+            slot[:2] = self._slot(n)[:2]
         host = slot[0][:n].view(len(planes), K, B)
         hv = host.numpy()
         for j, plane in enumerate(planes):
             hv[j] = plane
-        compute = torch.cuda.current_stream(self.device)
+        dev = slot[1][:n].view(len(planes), K, B)
         with torch.cuda.stream(self.copy):
-            # allocated on the copy stream, read on the compute stream:
-            # record_stream keeps the allocator from handing the block out
-            # again before the kernels queued there have read it
-            dev = torch.empty((len(planes), K, B), dtype=torch.int32,
-                              device=self.device)
+            if slot[3] is not None:
+                self.copy.wait_event(slot[3])
             dev.copy_(host, non_blocking=True)
-            slot[1] = torch.cuda.Event()
-            slot[1].record(self.copy)
+            slot[2] = torch.cuda.Event()
+            slot[2].record(self.copy)
+        # allocated on the copy stream, read on the compute stream:
+        # record_stream keeps the allocator from handing the block out
+        # again before the kernels queued there have read it
         dev.record_stream(compute)
-        compute.wait_event(slot[1])
+        compute.wait_event(slot[2])
+        self._last = slot
         return list(dev.unbind(0))
 
 
@@ -458,7 +485,8 @@ class SeqSession:
         self.last_reasons = None
         self._use_native_wire = True
         self._recon = None          # native reconstructor handle
-        self._staging = (_Staging(self.device)
+        self._staging = (_Staging(self.device, len(SQ.msg_fields(cfg)),
+                                  cfg.batch)
                          if self.device.type == "cuda" else None)
         # ("submit"|"collect", pipeline-batch-idx, t0, t1) wall windows
         # of the pipelined path, for measured-overlap reporting

@@ -14,9 +14,9 @@ reads the other's journals, repro dumps, stores and event logs:
 - journal: append-only lifecycle journal (jsonl/binary) + readers
 - audit: shadow-ledger invariant auditor over the journal; its
   `check_engine` reads the state the card's kernels left behind
-- dtrace: deterministic trace ids, span collection, waterfalls and the
-  kme-torch-agg aggregation (the multi-leader stitch waits for the
-  front, bridge/front.py)
+- dtrace: deterministic trace ids, span collection, the multi-leader
+  stitch over the front's routing (bridge/front.py), waterfalls and the
+  kme-torch-agg aggregation
 - slo: error-budget objectives over the live latency histograms
 - top: the kme-torch-top live operations dashboard
 - tsdb: on-disk metrics history (fixed-width binary segments)

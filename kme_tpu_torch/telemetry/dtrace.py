@@ -2,12 +2,9 @@
 across front, groups, transfer legs and merge (kme-torch-trace --cluster), and
 the aggregated cluster SLO plane (kme-torch-agg).
 
-The port's copy of `kme_tpu/telemetry/dtrace.py`, single-leader part:
-the trace ids (bit-identical, with a private copy of the front's
-splitmix64 finalizer), span collection, waterfalls, Chrome trace docs
-and the kme-torch-agg aggregation. `route_map`, `stitch` and
-`stitch_state_root` re-run the multi-leader front's `GroupRouter`,
-which the port does not have yet: they raise naming it.
+The port of `kme_tpu/telemetry/dtrace.py`: the same trace ids, bit for
+bit, over the port's own front (`bridge/front.py`), so either package's
+journals stitch here.
 
 Dapper's model (Sigelman et al. 2010 — PAPERS.md) is a tree of spans
 joined by a trace id that is MINTED at the edge and CARRIED through
@@ -69,8 +66,11 @@ import json
 import os
 from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
-from kme_tpu_torch.telemetry.journal import SPAN_KINDS  # noqa: F401
+from kme_tpu_torch import opcodes as op
+from kme_tpu_torch.bridge.front import (GroupRouter, _mix64, is_internal_line)
+from kme_tpu_torch.telemetry.journal import SPAN_KINDS, read_events
 from kme_tpu_torch.telemetry.registry import LAT_N_BUCKETS, LatencyHistogram
+from kme_tpu_torch.wire import parse_order
 
 # distinct salts keep the three id spaces (global trace, group-local
 # span join key, client-carried correlation) from colliding
@@ -78,25 +78,6 @@ TRACE_SALT = 0x44545243      # "DTRC"
 LOCAL_SALT = 0x4C4F434C      # "LOCL"
 CLIENT_SALT = 0x434C4E54     # "CLNT"
 _MASK63 = (1 << 63) - 1      # ids stay positive int64 (journal packs <q)
-_MASK = (1 << 64) - 1
-
-
-def _mix64(z: int) -> int:
-    """splitmix64 finalizer: a copy of the multi-leader front's
-    (`kme_tpu/bridge/front.py` `_mix64`, itself the twin of mix64 in its
-    native router). The ids below must stay bit-identical to the JAX
-    package's."""
-    z = (z + 0x9E3779B97F4A7C15) & _MASK
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK
-    return z ^ (z >> 31)
-
-
-def _needs_front(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} re-runs the multi-leader front's GroupRouter, which "
-        f"needs the JAX package's bridge/front.py; kme_tpu_torch does not "
-        f"have it yet (ROADMAP.md, Queue A item 6)")
 
 
 def _tid_mix(salt: int, a: int, b: int, c: int) -> int:
@@ -139,7 +120,7 @@ def client_trace_id(seq: int, aid: int, oid: int) -> int:
 
 def _mix64_np(z):
     """Vectorized splitmix64 finalizer over a numpy uint64 array —
-    bit-identical to _mix64 (uint64 arithmetic wraps mod 2^64
+    bit-identical to front._mix64 (uint64 arithmetic wraps mod 2^64
     exactly like the scalar's explicit masking)."""
     import numpy as np
 
@@ -173,10 +154,49 @@ def client_trace_ids(seq0: int, aids, oids) -> List[int]:
 
 
 def route_map(lines: Sequence[str], ngroups: int,
-              transfers: bool = True, prefund: int = 8):
-    """Where every input line's rows landed after the deterministic
-    front split (group, local index, injected legs). Needs the front."""
-    raise _needs_front("route_map")
+              transfers: bool = True, prefund: int = 8
+              ) -> Tuple[List[dict], GroupRouter]:
+    """Re-run the deterministic front split and record, for every input
+    line, WHERE its rows landed: the primary row's (group, local index)
+    and every injected leg's (group, local index, kind, child tid).
+
+    Leg kinds follow route_line's emission order, which is part of the
+    durable stream contract: a cross-shard BUY/SELL injects the home
+    group's debit leg first (xfer_reserve) then the symbol group's
+    credit leg (xfer_settle); CREATE_BALANCE broadcasts are "route"
+    legs. Returns (entries, router) — entries[k] may be None for a
+    malformed line (dropped before routing, like the service does)."""
+    router = GroupRouter(ngroups, transfers=transfers, prefund=prefund)
+    li = [0] * max(1, ngroups)
+    entries: List[Optional[dict]] = []
+    for off, line in enumerate(lines):
+        try:
+            routed = router.route_line(line)
+            m = parse_order(line)
+        except ValueError:
+            entries.append(None)
+            continue
+        tid = trace_id(off, m.aid, m.oid)
+        legs: List[dict] = []
+        prim: Optional[Tuple[int, int]] = None
+        for g, ln in routed:
+            idx = li[g]
+            li[g] += 1
+            if is_internal_line(ln):
+                if m.action in (op.BUY, op.SELL):
+                    kind = ("xfer_reserve" if not legs
+                            else "xfer_settle")
+                else:
+                    kind = "route"
+                legs.append({"g": g, "li": idx, "kind": kind,
+                             "tid": child_tid(tid, len(legs) + 1)})
+            else:
+                prim = (g, idx)
+        assert prim is not None, "input line carries the internal marker"
+        entries.append({"off": off, "tid": tid, "aid": m.aid,
+                        "oid": m.oid, "act": m.action,
+                        "g": prim[0], "li": prim[1], "legs": legs})
+    return entries, router
 
 
 # ---------------------------------------------------------------------------
@@ -234,6 +254,15 @@ def collect_group_spans(events: Iterable[dict], group: int
     return spans
 
 
+def _find_journal(gdir: str) -> Optional[str]:
+    for rel in ("state/journal.bin", "state/journal.jsonl",
+                "journal.bin", "journal.jsonl"):
+        p = os.path.join(gdir, rel)
+        if os.path.exists(p):
+            return p
+    return None
+
+
 def discover_groups(state_root: str) -> List[Tuple[int, str]]:
     """[(k, groupdir)] for every `group{k}` child of a chaos/cluster run
     directory, ordered by k."""
@@ -258,16 +287,128 @@ def stitch(lines: Sequence[str],
            group_events: Dict[int, List[dict]],
            ngroups: int, transfers: bool = True, prefund: int = 8,
            front_events: Optional[List[dict]] = None) -> dict:
-    """Merge per-group journals into per-order cluster waterfalls (the
-    doc `find_order`, `waterfall_text` and `chrome_trace_doc` read).
-    Needs the front."""
-    raise _needs_front("stitch")
+    """Merge per-group journals into per-order cluster waterfalls.
+
+    Returns {"orders": [...], "admitted": n, "stitched": n,
+    "groups": n, "counters": router counters}. An order is ADMITTED
+    when its primary group journaled any span for its row, and STITCHED
+    when the full service pipeline (ingress..produce) plus every
+    injected transfer leg resolved. orders[k]["spans"] is waterfall
+    order; synthesized positional spans (front_accept/route/merge — the
+    split and merge are deterministic functions, not runtime hops)
+    carry `synthetic: True` and zero width."""
+    entries, router = route_map(lines, ngroups, transfers=transfers,
+                                prefund=prefund)
+    by_group: Dict[int, Dict[Tuple[int, str], dict]] = {
+        g: collect_group_spans(evs, g)
+        for g, evs in group_events.items()}
+    front_idx: Dict[Tuple[int, str], dict] = {}
+    for ev in front_events or ():
+        if ev.get("e") == "span":
+            key = (ev.get("off", -1), ev.get("kind"))
+            front_idx.setdefault(key, ev)
+
+    orders: List[dict] = []
+    admitted = stitched = 0
+    for ent in entries:
+        if ent is None:
+            continue
+        g, li = ent["g"], ent["li"]
+        gspans = by_group.get(g, {})
+        stages = {k: gspans.get((li, k)) for k in _STAGES}
+        if not any(stages.values()):
+            continue        # never reached its group (not admitted)
+        admitted += 1
+        spans: List[dict] = []
+
+        def _positional(kind, t, tid, ptid, grp):
+            real = front_idx.get((ent["off"], kind))
+            if real is not None:
+                return dict(real, tid=tid, ptid=ptid, g=grp)
+            return {"kind": kind, "g": grp, "off": ent["off"],
+                    "oid": ent["oid"], "tid": tid, "ptid": ptid,
+                    "t0": t, "t1": t, "synthetic": True}
+
+        legs_ok = True
+        for leg in ent["legs"]:
+            lspans = by_group.get(leg["g"], {})
+            lst = [lspans.get((leg["li"], k)) for k in _STAGES]
+            present = [s for s in lst if s]
+            if not present:
+                legs_ok = False
+                continue
+            spans.append({"kind": leg["kind"], "g": leg["g"],
+                          "off": ent["off"], "oid": ent["oid"],
+                          "tid": leg["tid"], "ptid": ent["tid"],
+                          "li": leg["li"],
+                          "t0": min(s["t0"] for s in present),
+                          "t1": max(s["t1"] for s in present)})
+        complete = all(stages.values())
+        for k in _STAGES:
+            s = stages[k]
+            if s is None:
+                continue
+            spans.append({"kind": k, "g": g, "off": ent["off"],
+                          "oid": ent["oid"], "tid": ent["tid"],
+                          "ptid": ent["tid"], "li": li,
+                          "t0": s["t0"], "t1": s["t1"]})
+        # order extent covers the legs too: independent groups run on
+        # their own wall clocks, so a leg can land outside the primary
+        # pipeline's window — the renderer must scale to the full span
+        t_in = min(sp["t0"] for sp in spans)
+        t_out = max(sp["t1"] for sp in spans)
+        spans.insert(0, _positional("route", t_in, ent["tid"],
+                                    ent["tid"], -1))
+        spans.insert(0, _positional("front_accept", t_in, ent["tid"],
+                                    0, -1))
+        spans.append(_positional("merge", t_out, ent["tid"],
+                                 ent["tid"], -1))
+        if complete and legs_ok:
+            stitched += 1
+        # the group-LOCAL join keys (what exemplars/journals carry —
+        # the service never sees the global front offset)
+        ltids = [local_tid(g, li)] + [local_tid(lg["g"], lg["li"])
+                                      for lg in ent["legs"]]
+        orders.append({"off": ent["off"], "tid": ent["tid"],
+                       "aid": ent["aid"], "oid": ent["oid"],
+                       "g": g, "li": li, "legs": ent["legs"],
+                       "ltids": ltids,
+                       "complete": complete and legs_ok,
+                       "t0": t_in, "t1": t_out, "spans": spans})
+    return {"groups": ngroups, "admitted": admitted,
+            "stitched": stitched, "orders": orders,
+            "counters": dict(router.counters)}
 
 
 def stitch_state_root(state_root: str, input_path: Optional[str] = None,
                       transfers: bool = True, prefund: int = 8) -> dict:
-    """Stitch a multi-leader run directory. Needs the front."""
-    raise _needs_front("stitch_state_root")
+    """Stitch a chaos/cluster run directory: `group{k}/` children hold
+    each group's journal (chaos layout `group{k}/state/journal.bin`);
+    the front's input stream is `front.in` at the root (or
+    `input_path`). Groups whose journal is missing contribute no spans
+    — their orders simply count as not admitted."""
+    groups = discover_groups(state_root)
+    if not groups:
+        raise FileNotFoundError(
+            f"no group*/ directories under {state_root}")
+    if input_path is None:
+        input_path = os.path.join(state_root, "front.in")
+    with open(input_path) as f:
+        lines = [ln.strip() for ln in f if ln.strip()]
+    group_events: Dict[int, List[dict]] = {}
+    for k, gdir in groups:
+        jp = _find_journal(gdir)
+        if jp is not None:
+            group_events[k] = [ev for ev in read_events(jp)
+                               if ev.get("e") in ("span", "lat")]
+    ngroups = max(k for k, _ in groups) + 1
+    front_jp = os.path.join(state_root, "front.trace")
+    front_events = (list(read_events(front_jp))
+                    if os.path.exists(front_jp) else None)
+    doc = stitch(lines, group_events, ngroups, transfers=transfers,
+                 prefund=prefund, front_events=front_events)
+    doc["state_root"] = state_root
+    return doc
 
 
 def find_order(doc: dict, spec: str) -> Optional[dict]:
@@ -578,8 +719,7 @@ def render_agg(doc: dict) -> str:
 
 __all__ = [
     "SPAN_KINDS", "trace_id", "local_tid", "child_tid",
-    "client_trace_id", "client_trace_ids", "route_map",
-    "collect_group_spans", "stitch",
+    "client_trace_id", "client_trace_ids", "route_map", "collect_group_spans", "stitch",
     "stitch_state_root", "discover_groups", "find_order",
     "waterfall_text", "chrome_trace_doc", "merge_latencies",
     "aggregate", "load_snapshots", "render_agg",

@@ -3,9 +3,8 @@ watchpoints (kme-torch-xray).
 
 The port's copy of `kme_tpu/telemetry/xray.py`. Replays run through the
 port's own oracle, broker log reader and snapshot loaders, so either
-package's durable logs and snapshots anchor here. `cluster_cut` re-runs
-the multi-leader front's `GroupRouter`, which the port does not have
-yet: it raises naming it.
+package's durable logs and snapshots anchor here; `cluster_cut` re-runs
+the port's multi-leader front (`bridge/front.py`).
 
 The engine is a deterministic state machine over a durable input log
 (the SMR framing): any historical state is `nearest retained snapshot
@@ -767,6 +766,23 @@ def replay_bisect_repro(path: str) -> dict:
 # cluster mode: consistent cut + global cash conservation
 
 
+def _open_margin(engine) -> int:
+    """Worst-case notional margin of resting orders (fixed mode: buys
+    reserve price per unit, sells 100 - price). Position netting can
+    make the actual escrow smaller, but the quantity is computed
+    identically on both sides of the conservation check from resting
+    order sets that byte-match — so agreement is exact."""
+    from kme_tpu_torch import opcodes as op
+
+    total = 0
+    for rec in engine.orders.values():
+        if rec.action == op.BUY:
+            total += rec.size * rec.price
+        else:
+            total += rec.size * (100 - rec.price)
+    return int(total)
+
+
 def cluster_cut(state_root: str, at: Optional[int] = None,
                 input_path: Optional[str] = None,
                 prefund: int = 8, transfers: bool = True,
@@ -774,10 +790,85 @@ def cluster_cut(state_root: str, at: Optional[int] = None,
                 max_fills: Optional[int] = None) -> dict:
     """Materialize every group of a multi-group run at a consistent
     cut and check global cash conservation against the single-leader
-    oracle. The cut re-runs the front's GroupRouter over the merged
-    input: it needs the JAX package's bridge/front.py, which the port
-    does not have yet."""
-    raise NotImplementedError(
-        "cluster_cut re-runs the multi-leader front's GroupRouter, which "
-        "needs the JAX package's bridge/front.py; kme_tpu_torch does not "
-        "have it yet (ROADMAP.md, Queue A item 6)")
+    oracle at the same merge watermark.
+
+    The cut: `at` is a merged-input offset (default: the whole input).
+    Re-running the front's deterministic GroupRouter over the input
+    prefix yields each group's local substream length — exactly the
+    per-group MatchIn.g{k} offsets the live front had produced when its
+    merge watermark stood at `at` (both transfer legs of every grant
+    ride the same input line, so the cut never splits a transfer).
+
+    Conservation: sum of group balances must equal the single-leader
+    oracle's balance sum byte-for-byte, and likewise with open-order
+    margin added back (internal transfer pairs net to zero; the
+    router's unconsumed pending_reserve residuals are plain balance at
+    the granted group and are reported per (aid, group))."""
+    from kme_tpu_torch.bridge.front import GroupRouter
+    from kme_tpu_torch.oracle import OracleEngine
+    from kme_tpu_torch.telemetry import dtrace
+
+    groups = dtrace.discover_groups(state_root)
+    if not groups:
+        raise XrayError(f"no group*/ directories under {state_root}")
+    n = max(k for k, _d in groups) + 1
+    in_path = input_path or os.path.join(state_root, "front.in")
+    if not os.path.exists(in_path):
+        raise XrayError(
+            f"no merged input log at {in_path} (pass --input)")
+    with open(in_path) as f:
+        lines = [ln.rstrip("\n") for ln in f if ln.strip()]
+    watermark = len(lines) if at is None else min(int(at), len(lines))
+
+    router = GroupRouter(n, transfers=transfers, prefund=prefund)
+    per = router.split(lines[:watermark])
+    cuts = [len(p) for p in per]
+
+    kw = {}
+    if book_slots is not None:
+        kw = {"book_slots": book_slots, "max_fills": max_fills or 16}
+    single = OracleEngine("fixed", **kw)
+    for ln in lines[:watermark]:
+        msg = _parse_replay(ln)
+        if msg is not None:
+            single.process(msg)
+    single_cash = int(sum(single.balances.values()))
+    single_margin = _open_margin(single)
+
+    report: dict = {"state_root": state_root, "watermark": watermark,
+                    "groups": {}, "cuts": cuts}
+    cluster_cash = cluster_margin = 0
+    for k, gdir in groups:
+        ckd = (os.path.join(gdir, "state")
+               if os.path.isdir(os.path.join(gdir, "state")) else gdir)
+        log_dir = os.path.join(ckd, "broker-log")
+        eng, anchor, replayed = materialize(
+            log_dir, cuts[k] if k < len(cuts) else 0,
+            topic=f"MatchIn.g{k}", ckpt_dir=ckd, allow_cold=True,
+            book_slots=book_slots, max_fills=max_fills)
+        cash = int(sum(eng.balances.values()))
+        margin = _open_margin(eng)
+        cluster_cash += cash
+        cluster_margin += margin
+        report["groups"][str(k)] = {
+            "cut": cuts[k] if k < len(cuts) else 0, "cash": cash,
+            "open_margin": margin, "accounts": len(eng.balances),
+            "resting_orders": len(eng.orders), "anchor": anchor,
+            "replayed": replayed}
+
+    pending = {f"{aid}:g{g}": int(v)
+               for (aid, g), v in sorted(router.reserve.items()) if v}
+    cluster_view = {"cash": cluster_cash, "open_margin": cluster_margin,
+                    "gross": cluster_cash + cluster_margin}
+    single_view = {"cash": single_cash, "open_margin": single_margin,
+                   "gross": single_cash + single_margin}
+    report.update(
+        cluster=cluster_view, single_leader=single_view,
+        pending_reserve=pending,
+        pending_reserve_total=int(sum(router.reserve.values())),
+        transfer_shortfalls=router.counters[
+            "transfer_shortfall_total"],
+        conserved=(json.dumps(cluster_view, **_J)
+                   == json.dumps(single_view, **_J)),
+        delta=cluster_view["gross"] - single_view["gross"])
+    return report

@@ -2,7 +2,8 @@
 generator (exchange_test.js).
 
 The port's own copy of `WorkloadGen`, `harness_stream`,
-`zipf_symbol_stream`, `zipf_hot_stream` and `payout_storm_stream` from
+`zipf_symbol_stream`, `zipf_hot_stream`, `payout_storm_stream` and
+`cross_account_stream` from
 `kme_tpu/workload.py`: for a seed they yield
 the same streams (tests/test_torch_port.py holds them equal), so the
 port's smoke run and benchmarks need no `kme_tpu` import.
@@ -295,6 +296,44 @@ def payout_storm_stream(num_events: int, num_symbols: int,
             continue
         sid = bisect.bisect_left(cdf, gen.rng.random())
         aid = gen._uniform(num_accounts)
+        msgs.append(_trade_or_cancel(gen, aid, sid, gen._uniform(1000)))
+    return msgs
+
+
+def cross_account_stream(num_events: int, num_symbols: int,
+                         num_accounts: int, ngroups: int,
+                         seed: int = 0, cross_frac: float = 0.5,
+                         zipf_a: float = 1.2,
+                         deposit: int = 10_000_000) -> List[OrderMsg]:
+    """Transfer-path sizing profile for the multi-leader topology
+    (bridge/front.py): Zipf-skewed symbol arrival where a configurable
+    fraction of orders is FORCED onto a non-home account — an account
+    whose home group (rendezvous hash of aid) differs from the order's
+    symbol group — so every such order costs the front door a
+    reserve->settle transfer pair. cross_frac=1.0 is the degenerate
+    worst case (100% cross-shard). Seed-deterministic; with ngroups=1
+    there are no non-home accounts and the stream degenerates to plain
+    Zipf traffic."""
+    from kme_tpu_torch.bridge.front import account_group, symbol_group
+
+    gen = WorkloadGen(num_accounts, num_symbols, seed=seed, validate=True,
+                      payout_opcode_bug=False)
+    msgs = _funded(gen, num_accounts, num_symbols, deposit)
+    # account pools keyed by home group: same[g] lives on g, cross[g]
+    # anywhere else (empty pools fall back to the full range)
+    same = {g: [] for g in range(ngroups)}
+    cross = {g: [] for g in range(ngroups)}
+    for aid in range(num_accounts):
+        h = account_group(aid, ngroups)
+        for g in range(ngroups):
+            (same if g == h else cross)[g].append(aid)
+    cdf = _zipf_cdf(num_symbols, zipf_a)
+    for _ in range(num_events):
+        sid = bisect.bisect_left(cdf, gen.rng.random())
+        g = symbol_group(sid, ngroups)
+        pool = cross[g] if gen.rng.random() < cross_frac else same[g]
+        aid = (pool[gen._uniform(len(pool))] if pool
+               else gen._uniform(num_accounts))
         msgs.append(_trade_or_cancel(gen, aid, sid, gen._uniform(1000)))
     return msgs
 

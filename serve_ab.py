@@ -106,21 +106,24 @@ def one(tree: str) -> dict:
             "stamp_orders_s": None if stamp is None else stamp[0]}
 
 
-def main(argv) -> int:
+def main(argv, one=one, script=__file__, doc=__doc__) -> int:
+    """Run `one` for each tree in `argv`, each in a process of its own
+    started as `script --one TREE`; `stage_ab.py` shares this driver."""
     if len(argv) == 2 and argv[0] == "--one":
         print(json.dumps(one(argv[1])))
         return 0
     if not argv or any(a.startswith("-") for a in argv):
-        print(__doc__, file=sys.stderr)
+        print(doc, file=sys.stderr)
         return 2
     rc = 0
     for tree in argv:
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+        r = subprocess.run([sys.executable, os.path.abspath(script),
                             "--one", tree], stdout=subprocess.PIPE,
                            text=True)
         out = r.stdout.strip().splitlines()
         if r.returncode or not out:
-            print(f"serve_ab: {tree} failed (exit {r.returncode})",
+            print(f"{os.path.basename(script)}: {tree} failed "
+                  f"(exit {r.returncode})",
                   file=sys.stderr)
             rc = 1
             continue

@@ -280,13 +280,18 @@ def test_exactly_once_stamps_survive_a_crash(engine, tmp_path):
 
 
 def test_unported_options_raise(tmp_path):
-    """Only the multi-leader group waits for its module: the
-    observability options construct (the ported modules), `group`
-    refuses to run, and kme-torch-serve refuses only --kafka and
-    --group."""
+    """Only Kafka waits for its module: the observability options and
+    the multi-leader group construct (the ported modules), and
+    kme-torch-serve refuses only --kafka, naming bridge/kafka.py, while
+    --group K/N serves."""
     b = _broker(InProcessBroker, [])
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        SV.MatchService(b, engine="oracle", group=(0, 2))
+    svc = SV.MatchService(b, engine="oracle", group=(1, 2))
+    assert (svc.topic_in, svc.topic_out, svc.topic_xfer) == (
+        "MatchIn.g1", "MatchOut.g1", "Xfer.g1")
+    assert "Xfer.g1" in b.topics()
+    svc.close()
+    with pytest.raises(ValueError, match="out of range"):
+        SV.MatchService(b, engine="oracle", group=(2, 2))
     with pytest.raises(TypeError, match="unexpected keyword"):
         SV.MatchService(b, engine="oracle", kafka="k:1")
     svc = SV.MatchService(b, engine="oracle",
@@ -306,11 +311,14 @@ def test_unported_options_raise(tmp_path):
     assert svc._session.shards == 2 and svc._session.dev_cfg.width == 0
     from kme_tpu_torch.bridge import serve
 
-    assert set(serve.UNPORTED_FLAGS) == {"--kafka", "--group"}
-    for argv in (["--kafka", "k:1"], ["--group", "0/2"]):
-        with pytest.raises(SystemExit) as e:
-            serve.main(argv)
-        assert e.value.code == 2
+    assert set(serve.UNPORTED_FLAGS) == {"--kafka"}
+    with pytest.raises(SystemExit) as e:
+        serve.main(["--kafka", "k:1"])
+    assert e.value.code == 2
+    assert serve.main(["--group", "0/2", "--engine", "oracle", "--listen",
+                       "127.0.0.1:0", "--auto-provision",
+                       "--idle-exit", "0.2"]) == 0
+    assert serve.main(["--group", "2/2", "--engine", "oracle"]) == 2
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             SV.MatchService(b, engine="seq")

@@ -10,8 +10,8 @@ function from the same pre-state, across state swaps, with its launches
 counted per replay; the seq session's pipelined serving on the card
 (submit/collect at depths 2 and 3, the pinned staging ring wrapping, the
 second-round output copy) against its serial path and the CPU session;
-and the service (seq pipelined, seq java, lanes) on the card against the
-same service on the CPU, with snapshots restored from the card onto the
+and the service (seq pipelined, seq java, lanes, and a group of a
+multi-leader deployment) on the card against the same service on the CPU, with snapshots restored from the card onto the
 CPU and back; the seq fleet (its shards on their own CUDA streams) in
 both dispatch modes against the same fleet on the CPU, with a race probe
 that patches accounts across shards in every window; the sharded
@@ -499,6 +499,37 @@ def test_pinned_ring_wraps_many_times(cuda_device):
 
 
 @pytest.mark.cuda
+def test_staging_ring_is_allocated_with_the_session(cuda_device):
+    """The ring's first three slots exist, sized for one batch, before
+    any submit; at depth 2 every batch's planes are views of a slot's
+    own device buffer, so no staging allocates."""
+    cfg = SQ.SeqConfig(**KW)
+    msgs = _pipe_stream("fixed")
+    parts = [msgs[lo:lo + cfg.batch] for lo in range(0, len(msgs), cfg.batch)]
+    ses = SeqSession(cfg)
+    ring = ses._staging.ring
+    n = len(SQ.msg_fields(cfg)) * cfg.batch
+    assert len(ring) == 3
+    assert all(s[0].is_pinned() and s[0].numel() == n and
+               s[1].is_cuda and s[1].numel() == n for s in ring)
+    bufs = [(s[0].data_ptr(), s[1].data_ptr()) for s in ring]
+    ptrs = []
+    orig = ses._staging.stage
+
+    def stage(planes, inflight):
+        out = orig(planes, inflight)
+        ptrs.append(out[0].data_ptr())
+        return out
+
+    ses._staging.stage = stage
+    cpu = SeqSession(cfg, device="cpu")
+    want = b"".join(cpu.process_wire_buffer(p)[0] for p in parts)
+    assert _pipelined(ses, parts, 2) == want
+    assert [(s[0].data_ptr(), s[1].data_ptr()) for s in ring] == bufs
+    assert ptrs == [bufs[i % 3][1] for i in range(len(parts))]
+
+
+@pytest.mark.cuda
 def test_forced_hint_runs_the_overflow_copy(cuda_device, monkeypatch):
     """With the first fetch cut to one fill group per call, calls with
     more fills take the side stream's second-round copy; the bytes do
@@ -555,6 +586,54 @@ def test_card_service_equals_cpu_service(cuda_device, mode):
                               payout_opcode_bug=False, validate=True)
     values = [dumps_order(m) for m in msgs]
     assert _serve(values, "cuda", **kw) == _serve(values, "cpu", **kw)
+
+
+def _serve_group(values, device, k, n, root=None, **kw):
+    """Group k of n behind the front: (MatchOut.gK, Xfer.gK) records as
+    (epoch, out_seq, key, value), exactly once when `root` is given."""
+    from kme_tpu_torch.bridge.broker import InProcessBroker
+    from kme_tpu_torch.bridge.provision import group_topics, provision
+    from kme_tpu_torch.bridge.service import MatchService
+
+    b = InProcessBroker()
+    topics = group_topics(k)
+    provision(b, topics=topics)
+    for v in values:
+        b.produce(topics[0], None, v)
+    if root is not None:
+        kw.update(exactly_once=True, checkpoint_dir=root)
+    svc = MatchService(b, device=device, group=(k, n), **dict(
+        dict(batch=128, symbols=16, accounts=128, slots=128, max_fills=32),
+        **kw))
+    assert svc.run(max_messages=len(values), poll_timeout=0.05) == \
+        len(values)
+    xfer = dict(svc._xfer)
+    svc.close()
+    return [[(r.epoch, r.out_seq, r.key, r.value)
+             for r in b.fetch(t, 0, 1 << 30)] for t in topics[1:]], xfer
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pipeline", [0, 2])
+def test_card_grouped_service_equals_cpu_service(cuda_device, pipeline,
+                                                 tmp_path):
+    """Each group of a two-group deployment served by the seq engine on
+    the card equals the same group on the CPU: MatchOut.gK, the stamped
+    Xfer.gK transfer legs and the transfer ledger."""
+    from kme_tpu_torch.bridge import front
+    from kme_tpu_torch.wire import dumps_order
+    from kme_tpu_torch.workload import cross_account_stream
+
+    lines = [dumps_order(m) for m in cross_account_stream(
+        1500, 16, 64, 2, seed=3, cross_frac=0.7)]
+    per, router = front.split_lines(lines, 2)
+    assert router.counters["cross_shard_transfers_total"] > 0
+    for k in range(2):
+        got = _serve_group(per[k], "cuda", k, 2, str(tmp_path / f"c{k}"),
+                           engine="seq", pipeline=pipeline)
+        want = _serve_group(per[k], "cpu", k, 2, str(tmp_path / f"h{k}"),
+                            engine="seq", pipeline=pipeline)
+        assert got == want and got[1]["legs"] > 0
 
 
 @pytest.mark.cuda

@@ -8,7 +8,9 @@ JAX package's.
   the JAX package's;
 - the kme-agg functions (merged quantiles, the aggregate, its
   rendering) equal the JAX package's on the two services' snapshots;
-- what needs the multi-leader front raises naming it.
+- over one grouped run directory (two port seq services on the CPU
+  behind the port's front), `route_map`, `stitch` and
+  `stitch_state_root` equal the JAX package's.
 Exact equality throughout.
 """
 
@@ -42,8 +44,12 @@ def test_trace_ids_equal_jax(a, b, c):
     for salt in (PD.TRACE_SALT, PD.LOCAL_SALT, PD.CLIENT_SALT):
         assert PD._tid_mix(salt, a, b, c) == JD._tid_mix(salt, a, b, c)
     from kme_tpu.bridge.front import _mix64
+    from kme_tpu_torch.bridge import front as PF
 
-    assert PD._mix64(a & PD._MASK) == _mix64(a & PD._MASK)
+    # the port's dtrace mixes with the port's front, as the JAX package's
+    # dtrace with its front
+    assert PD._mix64 is PF._mix64
+    assert PD._mix64(a & PF._MASK) == _mix64(a & PF._MASK)
 
 
 @settings(max_examples=40, deadline=None)
@@ -133,13 +139,69 @@ def test_aggregate_equal_jax(tmp_path):
 
 
 def test_front_dependent_functions_raise():
-    for fn, args in ((PD.route_map, (["x"], 2)),
-                     (PD.stitch, (["x"], {}, 2)),
-                     (PD.stitch_state_root, ("/nonexistent",))):
-        with pytest.raises(NotImplementedError, match="bridge/front.py"):
-            fn(*args)
+    """The cluster half runs on the port's front: a malformed line maps
+    to no route, and only a run dir without groups raises."""
+    entries, router = PD.route_map(["x"], 2)
+    assert entries == [None] == JD.route_map(["x"], 2)[0]
+    assert PD.stitch(["x"], {}, 2)["admitted"] == 0
+    with pytest.raises(FileNotFoundError, match="no group"):
+        PD.stitch_state_root("/nonexistent")
     assert PD.SPAN_KINDS == JD.SPAN_KINDS
     assert PD.discover_groups("/nonexistent") == []
+
+
+def grouped_run_dir(root, ngroups=2, events=300, seed=11):
+    """A multi-leader run directory (`front.in`, `front.trace` and
+    `group{k}/state/` with a journal, persisted broker log and
+    checkpoints): the port's front splits a cross-account stream and
+    one port seq service per group serves it on the CPU."""
+    import os
+
+    from kme_tpu_torch.bridge import front
+    from kme_tpu_torch.bridge.provision import group_topics, provision
+    from kme_tpu_torch.workload import cross_account_stream
+
+    lines = [dumps_order(m) for m in cross_account_stream(
+        events, 16, 12, ngroups, seed=seed, cross_frac=1.0)]
+    os.makedirs(root)
+    with open(os.path.join(root, "front.in"), "w") as f:
+        f.write("".join(ln + "\n" for ln in lines))
+    front.write_front_trace(os.path.join(root, "front.trace"), lines,
+                            ngroups)
+    per, _router = front.split_lines(lines, ngroups)
+    for k in range(ngroups):
+        gdir = os.path.join(root, f"group{k}", "state")
+        br = InProcessBroker(persist_dir=os.path.join(gdir, "broker-log"))
+        provision(br, topics=group_topics(k))
+        for ln in per[k]:
+            br.produce(f"MatchIn.g{k}", None, ln)
+        svc = SV.MatchService(br, engine="seq", batch=64, symbols=16,
+                              accounts=64, slots=128, max_fills=16,
+                              group=(k, ngroups), checkpoint_dir=gdir,
+                              checkpoint_every=128,
+                              journal=os.path.join(gdir, "journal.bin"),
+                              trace_spans=True, device="cpu")
+        assert svc.run(max_messages=len(per[k])) == len(per[k])
+        svc.close()
+        br.sync()
+    return lines
+
+
+def test_cluster_stitch_equals_jax(tmp_path):
+    root = str(tmp_path / "run")
+    lines = grouped_run_dir(root)
+    entries, router = PD.route_map(lines, 2)
+    jentries, jrouter = JD.route_map(lines, 2)
+    assert entries == jentries and router.counters == jrouter.counters
+    assert any(e["legs"] for e in entries)
+    doc = PD.stitch_state_root(root)
+    assert doc["admitted"] == len(lines) == doc["stitched"]
+    assert doc == JD.stitch_state_root(root)
+    o = doc["orders"][-1]
+    assert PD.find_order(doc, f"{o['aid']}:{o['oid']}") == \
+        JD.find_order(doc, f"{o['aid']}:{o['oid']}")
+    assert PD.waterfall_text(o) == JD.waterfall_text(o)
+    assert PD.chrome_trace_doc(doc) == JD.chrome_trace_doc(doc)
 
 
 @pytest.mark.parametrize("seed", range(4))

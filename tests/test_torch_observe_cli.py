@@ -246,20 +246,24 @@ def test_query_tools_read_the_serve(served, capsys):
 
 
 def test_unported_modes_exit_naming_the_module(capsys, tmp_path):
-    assert set(PSERVE.UNPORTED_FLAGS) == {"--kafka", "--group"}
+    """`prof --diff` and `--kafka` still wait for their modules; the
+    multi-leader modes are ported and only refuse a missing run dir."""
+    assert set(PSERVE.UNPORTED_FLAGS) == {"--kafka"}
     for fn, argv, mod in (
-            (PCLI.trace_main, ["--cluster", "--state-root", "x"],
-             "bridge/front.py"),
-            (PCLI.xray_main, ["--cluster", "--state-root", "x"],
-             "bridge/front.py"),
-            (PCLI.xray_main, ["state", "--groups", "2", "--log-dir", "x"],
-             "bridge/front.py"),
             (PCLI.prof_main, ["--diff", "a", "b"], "perfgate.py"),
             (PSERVE.main, ["--kafka", "k:1"], "bridge/kafka.py"),
-            (PSERVE.main, ["--group", "0/2"], "bridge/front.py")):
+            (PCLI.trace_main, ["--cluster"], "--cluster needs --state-root"),
+            (PSERVE.main, ["--group", "0/2", "--engine", "nope"],
+             "invalid choice")):
         with pytest.raises(SystemExit) as e:
             fn(argv)
         assert e.value.code == 2
         assert mod in capsys.readouterr().err
+    empty = str(tmp_path / "none")
+    os.makedirs(empty)
+    assert PCLI.xray_main(["--cluster", "--state-root", empty]) == 2
+    assert "no group*/ directories" in capsys.readouterr().err
+    assert PSERVE.main(["--group", "1/1"]) == 2
+    assert "out of range" in capsys.readouterr().err
     assert PSERVE.main(["--watch", "balance[1]"]) == 2
     assert "unparseable watch predicate" in capsys.readouterr().err

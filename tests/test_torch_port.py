@@ -67,6 +67,7 @@ def _port_sources():
                 yield os.path.join(dirpath, f)
     yield os.path.join(ROOT, "chip_smoke.py")
     yield os.path.join(ROOT, "serve_ab.py")
+    yield os.path.join(ROOT, "stage_ab.py")
 
 
 def test_port_imports_without_jax_or_kme_tpu():
@@ -95,7 +96,11 @@ def test_port_imports_without_jax_or_kme_tpu():
               "kme_tpu_torch.bridge.consume", "kme_tpu_torch.bridge.lease",
               "kme_tpu_torch.bridge.provision",
               "kme_tpu_torch.bridge.serve", "kme_tpu_torch.bridge.service",
-              "kme_tpu_torch.bridge.tcp", "kme_tpu_torch.cli"):
+              "kme_tpu_torch.bridge.tcp", "kme_tpu_torch.cli",
+              "kme_tpu_torch.bridge.front", "kme_tpu_torch.bridge.reshard",
+              "kme_tpu_torch.feed", "kme_tpu_torch.feed.frames",
+              "kme_tpu_torch.feed.derive", "kme_tpu_torch.feed.snapshot",
+              "kme_tpu_torch.feed.server", "kme_tpu_torch.feed.client"):
         assert m in mods
 
 
@@ -185,9 +190,14 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 
 @pytest.mark.parametrize("kind", ["zipf", "zipf_payout", "harness",
                                   "harness_valid", "zipf_hot",
-                                  "payout_storm"])
+                                  "payout_storm", "cross_account"])
 def test_copied_workload_streams_equal(kind):
-    if kind in ("zipf_hot", "payout_storm"):
+    if kind == "cross_account":
+        kw = dict(num_symbols=9, num_accounts=30, ngroups=3, seed=4,
+                  cross_frac=0.6)
+        a = JWL.cross_account_stream(800, **kw)
+        b = WL.cross_account_stream(800, **kw)
+    elif kind in ("zipf_hot", "payout_storm"):
         name = f"{kind}_stream"
         kw = dict(num_symbols=9, num_accounts=30, seed=4)
         a = getattr(JWL, name)(800, **kw)

@@ -10,7 +10,9 @@ JAX package's.
   replay across packages;
 - the watch grammar, the offline evaluation, `resolve_trace` and the
   watch captures equal the JAX package's;
-- `cluster_cut` raises naming the front.
+- `cluster_cut` over one grouped run directory (port seq services on
+  the CPU behind the port's front) equals the JAX package's at two cuts
+  and conserves cash.
 Exact equality throughout.
 """
 
@@ -175,5 +177,27 @@ def test_watch_engine_and_captures_equal_jax(tmp_path):
 
 
 def test_cluster_cut_needs_the_front(tmp_path):
-    with pytest.raises(NotImplementedError, match="bridge/front.py"):
+    """The cut re-runs the port's front; only a run dir without groups
+    or without the merged input is refused."""
+    with pytest.raises(PX.XrayError, match="no group"):
         PX.cluster_cut(str(tmp_path))
+    os.makedirs(tmp_path / "group0")
+    with pytest.raises(PX.XrayError, match="no merged input"):
+        PX.cluster_cut(str(tmp_path))
+
+
+def test_cluster_cut_equals_jax(tmp_path):
+    from test_torch_dtrace import grouped_run_dir
+
+    root = str(tmp_path / "run")
+    lines = grouped_run_dir(root)
+    for at in (None, len(lines) * 3 // 5):
+        rep = PX.cluster_cut(root, at=at, book_slots=128, max_fills=16)
+        assert rep["conserved"], rep["delta"]
+        assert rep["transfer_shortfalls"] == 0
+        assert rep == JX.cluster_cut(root, at=at, book_slots=128,
+                                     max_fills=16)
+    from kme_tpu_torch.cli import xray_main
+
+    assert xray_main(["--cluster", "--state-root", root, "--book-slots",
+                      "128", "--max-fills", "16"]) == 0
