@@ -5,7 +5,8 @@
 Drives the port's main paths — wire JSON -> a session -> the CUDA
 kernels -> MatchOut lines — at full width (the seq fleet and the sharded
 lanes engine too, phase 11; the service with its observability on, phase
-12; a multi-leader deployment of group services and the feed, phase 13),
+12; a multi-leader deployment of group services and the feed, phase 13;
+the failover drills, a hot standby and a supervisor, phase 14),
 and holds each kernel bit for
 bit against its plain PyTorch version. Four paths: three through
 SeqSession and the seq_step kernel, one per configuration, each three
@@ -194,7 +195,31 @@ Phases, in order; any failure exits non-zero:
    group's frame bytes the JAX package's `FeedDeriver`'s (FEED_FRAMES);
    frames derived and delivered, conflations, resyncs, `feed_lag`. Its
    launches of B1 join the kernels line;
-14. summary: one `kernels` JSON line, the card line, then the device line
+14. the failover drills, at the serve defaults over the zipf stream: (a)
+   in process, a pipelined exactly-once `MatchService(engine="seq")` with
+   snapshots every 32,768 runs to 60,416 messages of a persisted broker
+   log, writes its leader heartbeat and is dropped without teardown; a
+   `Replica(engine="seq", device="cuda")` restores the 32,768 snapshot on
+   the card, follows the log to 59,392 (one batch short of the leader's
+   heartbeat) and holds there; a pid-less promote.json promotes it
+   (epoch 2, the old one fenced) and it serves the rest: launches =
+   dispatches in each incarnation (leader, follower, promoted), the
+   durable MatchOut's lines deduped by their stamps B1's, no stamp
+   twice, `dup_suppressed_total` > 0, the `failover_seconds` gauge set;
+   (b) `python -m kme_tpu_torch.cli supervise --standby` over
+   `kme-torch-serve` children on the card, the leader SIGKILLed at
+   60,416 by the `serve.kill` fault (once across incarnations), the
+   stream produced over TCP in two parts, the second after the
+   standby's first heartbeat, resuming from the endpoint's end offset
+   after the kill; while both children run, each holds the card's device
+   node and the card's context count has grown by two; the supervisor
+   exits 0 with one recovery, promoted, and its `failover_seconds`; (c)
+   the same without `--standby`: a cold restart from the 32,768
+   snapshot. (b) and (c): B1's MatchOut deduped, no stamp twice, a
+   produce stamped with epoch 1 against the reloaded log fenced; each
+   child's seconds to its first heartbeat, the recovery seconds. 14a's
+   launches of B1 join the kernels line;
+15. summary: one `kernels` JSON line, the card line, then the device line
    last.
 
 `plain_ms` in the kernels line is the plain version's time per call:
@@ -202,8 +227,8 @@ host-clock time on the CPU for the seq kernel's entries (its plain
 version is a Python interpreter of the kernel), CUDA-event time on the
 card for the row copies and the rows-in-use kernel (whose plain versions
 are torch ops). `seq_step` (B1) counts the launches of phase 4's main
-path, of the fleet's runs (11a, 11b), of phase 12 (a-c) and of phase
-13's in-process services (a, b); its
+path, of the fleet's runs (11a, 11b), of phase 12 (a-c), of phase
+13's in-process services (a, b) and of phase 14a's three incarnations; its
 `max_abs_err` includes phase 11c's. `seq_rows_in_use` is the prologue of the deep-book
 configurations of the seq kernel; its `launches` are those of the B3 main
 path, its `max_abs_err` is over every state of phases 3b-3d that it was
@@ -349,6 +374,17 @@ GROUPS_CROSS = (
 FEED_FRAMES = (
     (17_687, "45451af100260cf89ef8dd83b5c34bba8dba9350dd6486b97d647ea2f42dcb92"),
     (8_078, "ef62641f9ca1e2787458b88e9215b8f5e4f94484201a1aa0de49c13439c187f2"))
+# phase 14 (snapshots every SERVE_CKPT_EVERY): the failover drills' kill
+# point (59 batches of 1024) and the input produced before (b) waits for
+# the standby's first heartbeat; the supervisor's poll, the grace it gives
+# a child to its first heartbeat (a card child pays the torch import, the
+# CUDA context, the kernel library load and the snapshot restore first:
+# PERF.md has the measured start-up) and the serve children's idle exit
+FAILOVER_KILL_AT = 60_416
+FAILOVER_PART1 = 40_960
+SUPERVISE_POLL = 0.1
+SUPERVISE_GRACE = 30.0
+FAILOVER_IDLE_EXIT = 15
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 
 
@@ -3088,6 +3124,398 @@ def front_phase(SQ, gmsgs):
         shutil.rmtree(root, ignore_errors=True)
     return launches
 
+# ---------------------------------------------------------------------------
+# phase 14: the failover drills
+
+
+def durable_rows(ck_dir):
+    """The rows of a checkpoint root's durable MatchOut log."""
+    with open(os.path.join(ck_dir, "broker-log", "MatchOut.log"), "rb") as f:
+        return [json.loads(ln) for ln in f]
+
+
+def rows_checked(rows, b1, label):
+    """No (epoch, out_seq) stamp twice in the durable MatchOut rows, and
+    their lines, deduped by DedupRing, equal to B1's. -> rows per epoch."""
+    from kme_tpu_torch.bridge.consume import DedupRing
+
+    if any(len(r) != 4 or r[2] is None for r in rows):
+        fail(f"{label}: an unstamped row in the exactly-once MatchOut log")
+    stamps = {(r[2], r[3]) for r in rows}
+    if len(stamps) != len(rows):
+        fail(f"{label}: {len(rows) - len(stamps)} stamps appear twice in "
+             f"the durable MatchOut log")
+    ring = DedupRing(capacity=len(rows) + 1)
+    got = stream_digest([f"{r[0]} {r[1]}" for r in rows
+                         if not ring.is_dup(r[2], r[3])])
+    if got != b1:
+        fail(f"{label}: deduped MatchOut {got[0]} lines sha256 {got[1]}; B1 "
+             f"gives {b1[0]} lines sha256 {b1[1]}")
+    return dict(collections.Counter(r[2] for r in rows))
+
+
+def stale_epoch_fenced(ck_dir, label):
+    """A produce stamped with epoch 1 against the reloaded durable logs
+    must be fenced."""
+    from kme_tpu_torch.bridge.broker import BrokerFenced, InProcessBroker
+    from kme_tpu_torch.bridge.service import TOPIC_OUT
+
+    b = InProcessBroker(persist_dir=os.path.join(ck_dir, "broker-log"))
+    try:
+        b.produce(TOPIC_OUT, "OUT", "stale", epoch=1, out_seq=1 << 40)
+    except BrokerFenced:
+        return
+    fail(f"{label}: a produce stamped with epoch 1 was not fenced")
+
+
+def follow_and_promote(SQ, values, root, b1, kw, cut, device, label):
+    """Phase 14a: `values` into a persisted broker log; a pipelined
+    exactly-once leader runs to the kill point, writes its leader
+    heartbeat and is dropped without teardown; a `Replica` restores its
+    snapshot, follows to one batch short of the kill point and holds
+    there, then a pid-less promote.json promotes it and it serves the
+    rest. -> B1 launches (leader, follower, promoted)."""
+    import threading
+
+    import torch
+    from kme_tpu_torch.bridge import lease
+    from kme_tpu_torch.bridge.broker import InProcessBroker
+    from kme_tpu_torch.bridge.provision import provision
+    from kme_tpu_torch.bridge.replica import Replica
+    from kme_tpu_torch.bridge.service import TOPIC_IN, MatchService
+
+    ckpt_every, kill_at, _ = cut
+    ck_dir = os.path.join(root, "a")
+    b = InProcessBroker(persist_dir=os.path.join(ck_dir, "broker-log"))
+    provision(b)
+    for v in values:
+        b.produce(TOPIC_IN, None, v)
+    leader = MatchService(b, engine="seq", compat="fixed", pipeline=2,
+                          checkpoint_dir=ck_dir, exactly_once=True,
+                          checkpoint_every=ckpt_every, device=device, **kw)
+    zero_launches(SQ.LAUNCHES)
+    t = time.perf_counter()
+    leader.run(max_messages=kill_at, poll_timeout=0.05)
+    lead_wall = time.perf_counter() - t
+    d_lead = seq_launches_checked(SQ, leader, f"{label} leader")
+    if (leader.offset, leader._last_ckpt_offset) != (kill_at, ckpt_every):
+        fail(f"{label}: the leader stopped at {leader.offset} with its "
+             f"snapshot at {leader._last_ckpt_offset}; want {kill_at}, "
+             f"{ckpt_every}")
+    leader._write_heartbeat(os.path.join(ck_dir, "serve.health"),
+                            leader.offset)
+    del leader, b                   # the leader dies: no teardown
+
+    hold = kill_at - kw["batch"]
+    t = time.perf_counter()
+    rep = Replica(ck_dir, listen="127.0.0.1:0", engine="seq",
+                  compat="fixed", checkpoint_every=ckpt_every, poll=0.05,
+                  health_every=0.5, max_messages=len(values) - hold,
+                  health_file=os.path.join(ck_dir, "standby.health"),
+                  device=device, **kw)
+    build_s = time.perf_counter() - t
+    if rep.svc.offset != ckpt_every:
+        fail(f"{label}: the standby restored offset {rep.svc.offset}, the "
+             f"snapshot is at {ckpt_every}")
+    ses = rep.svc._session
+    rc = [None]
+    th = threading.Thread(target=lambda: rc.__setitem__(0, rep.run()),
+                          daemon=True)
+    zero_launches(SQ.LAUNCHES)
+    t = time.perf_counter()
+    th.start()
+    deadline = time.monotonic() + 300
+    while rep.svc.offset < hold:
+        if not th.is_alive() or time.monotonic() > deadline:
+            fail(f"{label}: the follower stopped at {rep.svc.offset} of "
+                 f"{hold}")
+        time.sleep(0.005)
+    catch_up = time.perf_counter() - t
+    time.sleep(0.5)
+    if rep.svc.offset != hold or rep.follow.discarded == 0:
+        fail(f"{label}: the follower went on to {rep.svc.offset} (hold at "
+             f"{hold}), {rep.follow.discarded} outputs discarded")
+    torch.cuda.synchronize()
+    d_follow = ses.dispatches
+    if SQ.LAUNCHES["fixed"] != d_follow or d_follow == 0:
+        fail(f"{label} follower: {SQ.LAUNCHES['fixed']} kernel launches for "
+             f"{d_follow} dispatches")
+    zero_launches(SQ.LAUNCHES)
+    with open(rep.promote_file, "w") as f:
+        json.dump({"failed_at": time.time()}, f)
+    t = time.perf_counter()
+    th.join(timeout=600)
+    prom_wall = time.perf_counter() - t
+    if th.is_alive() or rc[0] != 0:
+        fail(f"{label}: the promoted standby returned {rc[0]}")
+    torch.cuda.synchronize()
+    d_prom = ses.dispatches - d_follow
+    if SQ.LAUNCHES["fixed"] != d_prom or d_prom == 0:
+        fail(f"{label} promoted: {SQ.LAUNCHES['fixed']} kernel launches for "
+             f"{d_prom} dispatches")
+    gauges = rep.svc.telemetry.snapshot()["gauges"]
+    epoch = lease.current_epoch(ck_dir)
+    if epoch != 2 or gauges.get("leader_epoch") != 2 \
+            or gauges.get("dup_suppressed_total", 0) <= 0 \
+            or gauges.get("failover_seconds") is None:
+        fail(f"{label}: epoch {epoch}, gauges leader_epoch "
+             f"{gauges.get('leader_epoch')} dup_suppressed_total "
+             f"{gauges.get('dup_suppressed_total')} failover_seconds "
+             f"{gauges.get('failover_seconds')}")
+    per_epoch = rows_checked(durable_rows(ck_dir), b1, label)
+    log(f"{label}: leader {kill_at} messages in {lead_wall:.3f} s ({d_lead} "
+        f"dispatches = launches); standby built and restored offset "
+        f"{ckpt_every} in {build_s:.3f} s; follower caught up to {hold} "
+        f"(kill point - one batch) in {catch_up:.3f} s ({d_follow} "
+        f"dispatches = launches) and held; promotion (promote.json to "
+        f"serving, the failover_seconds gauge) {gauges['failover_seconds']} "
+        f"s; promoted run {len(values) - hold} messages in {prom_wall:.3f} s "
+        f"({d_prom} dispatches = launches); {gauges['dup_suppressed_total']} "
+        f"replayed records suppressed; epoch 2; MatchOut rows per epoch "
+        f"{per_epoch}, deduped == B1's, no stamp twice (host clock)")
+    return d_lead + d_follow + d_prom
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+class FirstSeen:
+    """Records the wall time each of `paths` first exists (polled every
+    10 ms on a thread of its own)."""
+
+    def __init__(self, paths):
+        import threading
+
+        self.at = {}
+        self._stop = threading.Event()
+        self._paths = list(paths)
+        self._th = threading.Thread(target=self._run, daemon=True)
+        self._th.start()
+
+    def _run(self):
+        while not self._stop.wait(0.01):
+            for p in self._paths:
+                if p not in self.at and os.path.exists(p):
+                    self.at[p] = time.time()
+
+    def wait(self, path, timeout, proc, label):
+        deadline = time.monotonic() + timeout
+        while path not in self.at:
+            if proc.poll() is not None or time.monotonic() > deadline:
+                fail(f"{label}: no {os.path.basename(path)} (supervisor rc "
+                     f"{proc.poll()})")
+            time.sleep(0.01)
+
+    def stop(self):
+        self._stop.set()
+        self._th.join()
+
+
+def produce_resuming(addr, values, stop, proc, label):
+    """Produce `values` up to `stop` to MatchIn at `addr` in batches of
+    4096, each (re)connection resuming from the broker's end offset: the
+    log then holds each message once whichever leader owns the endpoint.
+    -> reconnections."""
+    from kme_tpu_torch.bridge.broker import BrokerError
+    from kme_tpu_torch.bridge.service import TOPIC_IN
+    from kme_tpu_torch.bridge.tcp import TcpBroker
+
+    host, port = addr
+    client, pos, reconnects = None, None, -1
+    deadline = time.monotonic() + 300
+    while pos is None or pos < stop:
+        if proc.poll() is not None or time.monotonic() > deadline:
+            fail(f"{label}: producing stopped at {pos} of {stop} "
+                 f"(supervisor rc {proc.poll()})")
+        try:
+            if client is None:
+                client = TcpBroker(host, port)
+                pos = client.end_offset(TOPIC_IN)
+                reconnects += 1
+            n = min(4096, stop - pos)
+            if n > 0:
+                client.produce_batch(TOPIC_IN, [(None, v) for v in
+                                                values[pos:pos + n]])
+            pos += n
+        except (OSError, BrokerError):
+            # the leader died under the connection, or no leader owns
+            # the endpoint yet
+            if client is not None:
+                with contextlib.suppress(OSError):
+                    client.close()
+            client = None
+            time.sleep(0.05)
+    client.close()
+    return reconnects
+
+
+def gpu_apps():
+    """`nvidia-smi --query-compute-apps=pid,used_memory`: (the processes
+    holding a context on the card, its raw output)."""
+    r = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                        "--format=csv"], capture_output=True, text=True,
+                       timeout=60)
+    if r.returncode != 0:
+        fail(f"nvidia-smi --query-compute-apps failed: {r.stderr.strip()}")
+    out = r.stdout.strip()
+    return len(out.splitlines()) - 1, out
+
+
+def card_nodes(pid):
+    """The card's device nodes (/dev/nvidiaN) that process `pid` holds
+    open: a process with a CUDA context on the card holds its node."""
+    import re
+
+    nodes = set()
+    with contextlib.suppress(OSError):
+        for fd in os.listdir(f"/proc/{pid}/fd"):
+            with contextlib.suppress(OSError):
+                target = os.readlink(f"/proc/{pid}/fd/{fd}")
+                if re.fullmatch(r"/dev/nvidia\d+", target):
+                    nodes.add(target)
+    return sorted(nodes)
+
+
+def supervised_drill(values, root, b1, cut, standby, serve_extra, label):
+    """Phase 14b (`standby`) or 14c: `kme-torch-supervise` over
+    `kme-torch-serve` children at the serve defaults, the leader killed at
+    the kill point by the `serve.kill` fault (once across incarnations);
+    the stream produced over TCP in two parts, the second after the
+    standby's first heartbeat, resuming across the kill. -> facts for the
+    log."""
+    import signal
+
+    ckpt_every, kill_at, part1 = cut
+    ck = os.path.join(root, label)
+    os.makedirs(ck)
+    port = free_port()
+    env = dict(os.environ, PYTHONPATH=ROOT,
+               KME_FAULTS=f"serve.kill:at={kill_at}",
+               KME_FAULTS_STATE=os.path.join(root, label + ".faults"))
+    cmd = ([sys.executable, "-m", "kme_tpu_torch.cli", "supervise",
+            "--checkpoint-dir", ck] + (["--standby"] if standby else [])
+           + ["--poll", str(SUPERVISE_POLL), "--grace", str(SUPERVISE_GRACE),
+              "--", "--listen", f"127.0.0.1:{port}", "--engine", "seq",
+              "--pipeline", "2", "--checkpoint-every", str(ckpt_every),
+              "--auto-provision", "--idle-exit", str(FAILOVER_IDLE_EXIT),
+              "--health-every", "0.1"] + list(serve_extra))
+    hb, sb = os.path.join(ck, "serve.health"), os.path.join(ck,
+                                                            "standby.health")
+    errpath = os.path.join(root, label + ".stderr")
+    apps0 = gpu_apps()[0] if standby else None
+    seen = FirstSeen([hb, sb])
+    t0 = time.perf_counter()
+    with open(errpath, "w") as errf:
+        sup = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=errf,
+                               stderr=subprocess.STDOUT,
+                               start_new_session=True)
+    facts = {}
+    try:
+        seen.wait(hb, 120, sup, label)
+        reconnects = produce_resuming(("127.0.0.1", port), values, part1,
+                                      sup, label)
+        if standby:
+            seen.wait(sb, 120, sup, label)
+            with open(hb) as f:
+                lead_pid = json.load(f)["pid"]
+            with open(sb) as f:
+                sb_pid = json.load(f)["pid"]
+            # nvidia-smi names the processes by pids of another pid
+            # namespace here, so a child is known by the card's device
+            # node it holds open, and the context count must have grown
+            # by the two children
+            napps, apps = gpu_apps()
+            nodes = {pid: card_nodes(pid) for pid in (lead_pid, sb_pid)}
+            if napps < apps0 + 2 or not all(nodes.values()):
+                fail(f"{label}: the leader ({lead_pid}) and the standby "
+                     f"({sb_pid}) are not both on the card: device nodes "
+                     f"{nodes}, {napps} compute apps (before the "
+                     f"supervisor: {apps0}): {apps!r}")
+            facts["gpu_apps"] = (f"{apps0} -> {napps}; leader {lead_pid} "
+                                 f"holds {nodes[lead_pid]}, standby "
+                                 f"{sb_pid} holds {nodes[sb_pid]}")
+        reconnects += produce_resuming(("127.0.0.1", port), values,
+                                       len(values), sup, label)
+        rc = sup.wait(timeout=600)
+        wall = time.perf_counter() - t0
+    finally:
+        seen.stop()
+        if sup.poll() is None:
+            with contextlib.suppress(ProcessLookupError):
+                os.killpg(sup.pid, signal.SIGKILL)
+            sup.wait()
+    with open(errpath) as f:
+        err = f.read().splitlines()
+    if rc != 0:
+        fail(f"{label}: the supervisor exited {rc}: {err[-12:]}")
+    with open(os.path.join(ck, "supervisor.json")) as f:
+        state = json.load(f)
+    recs = state["recoveries"]
+    if len(recs) != 1 or recs[0]["fingerprint"] != "exit:-9" \
+            or bool(recs[0].get("promoted")) != standby \
+            or (standby and recs[0].get("failover_seconds") is None):
+        fail(f"{label}: supervisor.json recoveries {recs}")
+    per_epoch = rows_checked(durable_rows(ck), b1, label)
+    stale_epoch_fenced(ck, label)
+    with open(os.path.join(ck, "events-supervisor.jsonl")) as f:
+        events = [json.loads(ln) for ln in f]
+    spawn = {e["kind"]: e["ts"] / 1e6 for e in reversed(events)}
+    facts.update({
+        "wall_s": round(wall, 3),
+        "first_heartbeat_s": round(seen.at[hb] - spawn["supervisor.spawn"],
+                                   3),
+        "recovery": recs[0], "rows_per_epoch": per_epoch,
+        "reconnects": reconnects, "kinds": [e["kind"] for e in events]})
+    if standby:
+        facts["standby_first_heartbeat_s"] = round(
+            seen.at[sb] - spawn["supervisor.standby_spawn"], 3)
+    log(f"{label}: " + json.dumps(facts))
+    log(f"{label}: deduped MatchOut == B1's, no stamp twice, a produce "
+        f"stamped with epoch 1 fenced; said "
+        f"{[e for e in err if 'PROMOTED' in e or 'recovered' in e]}")
+    return facts
+
+
+def failover_phase(SQ, values, b1, card, kw=None, cut=None, device="cuda",
+                   serve_extra=()):
+    """Phase 14: the failover drills (see the module docstring) over
+    `values`, the zipf stream's JSON; `b1` = phase 4's (MatchOut lines,
+    sha256). -> B1 launches of 14a."""
+    import shutil
+    import tempfile
+
+    kw = kw or SERVE
+    cut = cut or (SERVE_CKPT_EVERY, FAILOVER_KILL_AT, FAILOVER_PART1)
+    root = tempfile.mkdtemp(prefix="kme_failover_")
+    try:
+        t = time.perf_counter()
+        launches = follow_and_promote(SQ, values, root, b1, kw, cut, device,
+                                      "follow-promote")
+        log(f"phase 14a took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        hot = supervised_drill(values, root, b1, cut, True, serve_extra,
+                               "supervised-failover")
+        log(f"phase 14b took {time.perf_counter() - t:.1f} s")
+        t = time.perf_counter()
+        cold = supervised_drill(values, root, b1, cut, False, serve_extra,
+                                "supervised-cold")
+        log(f"phase 14c took {time.perf_counter() - t:.1f} s")
+        log(f"failover: hot {hot['recovery']['failover_seconds']} s "
+            f"(detection to the promoted standby's first heartbeat) against "
+            f"cold {cold['recovery']['recovered_in']} s (detection to the "
+            f"restarted child's first heartbeat); a card child's first "
+            f"heartbeat {hot['first_heartbeat_s']}, "
+            f"{cold['first_heartbeat_s']} s after its spawn (--grace "
+            f"{SUPERVISE_GRACE}); card {card}")
+        return launches
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
 
 def main() -> int:
     try:
@@ -3376,7 +3804,16 @@ def main() -> int:
     log(f"phase 13 took {time.perf_counter() - t:.1f} s; B1 launches by "
         f"it: {b1_front}")
 
-    # ---- 14. summary
+    # ---- 14. the failover drills; 14a's launches of B1 join the main
+    # paths'
+    t = time.perf_counter()
+    b1_failover = failover_phase(SQ, [dumps_order(m) for m in zipf],
+                                 (b1_lines, b1_sha), card)
+    b1_entry["launches"] += b1_failover
+    log(f"phase 14 took {time.perf_counter() - t:.1f} s; B1 launches by "
+        f"14a: {b1_failover}")
+
+    # ---- 15. summary
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,12 @@ stack.
                 forwards the IN/OUT record stream to MatchOut.
 - provision.py/serve.py/consume.py — the CLI roles.
 - clock.py, lease.py — the time seam and the leader-epoch lease.
+- replica.py  — the hot-standby replica (kme-torch-standby): follows
+                the leader's durable MatchIn log one batch behind,
+                takes over at the next epoch when promoted.
+- supervise.py — kme-torch-supervise: restarts a failed serve child or
+                promotes the standby; `--groups N|auto` runs a pair per
+                group under autoscale.py's split/merge policy.
 """
 
 from kme_tpu_torch.bridge.broker import BrokerError, InProcessBroker, Record

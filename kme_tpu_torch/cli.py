@@ -22,11 +22,16 @@
               merge, verify, or route a stream to N group services
 - reshard   — the live N->M re-split over drained groups
 - feed      — the market-data fan-out tier (feed/server.py)
+- supervise — failure detection and restart of serve, with a hot
+              standby (`--standby`) and multi-leader groups
+              (`--groups N|auto`, the autoscale policy)
+- standby   — the hot-standby replica: follows the leader's durable
+              input on the card and takes over when promoted
 
 `trace --cluster` and `xray --cluster` read a multi-leader run
 directory. `prof --diff` waits for perfgate.py and exits 2 naming it.
-The JAX package's other commands (bench, supervise, chaos, sim, ...)
-are not ported.
+The JAX package's other commands (bench, chaos, sim, ...) are not
+ported.
 """
 
 from __future__ import annotations
@@ -1162,6 +1167,22 @@ def feed_main(argv=None) -> int:
     return _main(argv)
 
 
+def supervise_main(argv=None) -> int:
+    """Failure detection + supervised restart of kme-torch-serve."""
+    from kme_tpu_torch.bridge.supervise import main as _main
+
+    return _main(argv)
+
+
+def standby_main(argv=None) -> int:
+    """Hot-standby replica: tail the leader's durable input, stay one
+    batch behind, take over (next leader epoch, old one fenced) when
+    kme-torch-supervise writes the promote file."""
+    from kme_tpu_torch.bridge.replica import main as _main
+
+    return _main(argv)
+
+
 def top_main(argv=None) -> int:
     """Live operations dashboard over the /metrics.json surfaces of a
     leader, an optional standby, and the supervisor state file."""
@@ -1184,7 +1205,8 @@ def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m kme_tpu_torch.cli")
     p.add_argument("command", choices=(
         "serve", "loadgen", "consume", "provision", "trace", "prof",
-        "top", "xray", "events", "agg", "front", "reshard", "feed"))
+        "top", "xray", "events", "agg", "front", "reshard", "feed",
+        "supervise", "standby"))
     args, rest = p.parse_known_args(argv)
     try:
         return {"serve": serve_main, "loadgen": loadgen_main,
@@ -1193,7 +1215,8 @@ def main(argv=None) -> int:
                 "xray": xray_main, "events": events_main,
                 "agg": agg_main, "front": front_main,
                 "reshard": reshard_main,
-                "feed": feed_main}[args.command](rest)
+                "feed": feed_main, "supervise": supervise_main,
+                "standby": standby_main}[args.command](rest)
     except BrokenPipeError:
         # downstream closed the pipe (e.g. `| head`): point both std
         # streams at devnull so interpreter-shutdown flushes cannot

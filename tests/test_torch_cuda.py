@@ -12,7 +12,8 @@ counted per replay; the seq session's pipelined serving on the card
 second-round output copy) against its serial path and the CPU session;
 and the service (seq pipelined, seq java, lanes, and a group of a
 multi-leader deployment) on the card against the same service on the CPU, with snapshots restored from the card onto the
-CPU and back; the seq fleet (its shards on their own CUDA streams) in
+CPU and back; a hot-standby replica on the card that follows a dead
+leader and is promoted, against a CPU service; the seq fleet (its shards on their own CUDA streams) in
 both dispatch modes against the same fleet on the CPU, with a race probe
 that patches accounts across shards in every window; the sharded
 lanes engine's captured step against the CPU; and the observability
@@ -634,6 +635,71 @@ def test_card_grouped_service_equals_cpu_service(cuda_device, pipeline,
         want = _serve_group(per[k], "cpu", k, 2, str(tmp_path / f"h{k}"),
                             engine="seq", pipeline=pipeline)
         assert got == want and got[1]["legs"] > 0
+
+
+@pytest.mark.cuda
+def test_card_replica_follows_and_promotes(cuda_device, tmp_path):
+    """A hot standby on the card: a pipelined exactly-once leader dies
+    after its snapshot; an in-process `Replica(device="cuda")` restores
+    it, follows one batch short of the leader's heartbeat, holds, is
+    promoted by a pid-less promote.json and serves the rest. Its durable
+    MatchOut, deduped by its stamps (none twice), equals a CPU
+    service's on the same stream."""
+    import json
+    import threading
+    import time
+
+    from kme_tpu_torch.bridge.broker import InProcessBroker
+    from kme_tpu_torch.bridge.consume import DedupRing
+    from kme_tpu_torch.bridge.provision import provision
+    from kme_tpu_torch.bridge.replica import Replica
+    from kme_tpu_torch.bridge.service import TOPIC_IN, MatchService
+    from kme_tpu_torch.wire import dumps_order
+
+    kw = dict(engine="seq", compat="fixed", batch=128, symbols=8,
+              accounts=128, slots=128, max_fills=32)
+    values = [dumps_order(m) for m in harness_stream(
+        1200, seed=3, num_symbols=4, num_accounts=8,
+        payout_opcode_bug=False, validate=True)]
+    ck = str(tmp_path / "ck")
+    b = InProcessBroker(persist_dir=str(tmp_path / "ck" / "broker-log"))
+    provision(b)
+    for v in values:
+        b.produce(TOPIC_IN, None, v)
+    leader = MatchService(b, pipeline=2, checkpoint_dir=ck,
+                          exactly_once=True, checkpoint_every=384,
+                          device="cuda", **kw)
+    leader.run(max_messages=640, poll_timeout=0.05)
+    assert (leader.offset, leader._last_ckpt_offset) == (640, 384)
+    leader._write_heartbeat(str(tmp_path / "ck" / "serve.health"),
+                            leader.offset)
+    del leader, b
+    rep = Replica(ck, listen="127.0.0.1:0", checkpoint_every=384,
+                  poll=0.02, health_every=0.05,
+                  max_messages=len(values) - 512, device="cuda", **kw)
+    assert rep.svc.offset == 384
+    assert rep.svc._session.state["bal_lo"].is_cuda
+    rc = [None]
+    th = threading.Thread(target=lambda: rc.__setitem__(0, rep.run()),
+                          daemon=True)
+    th.start()
+    deadline = time.monotonic() + 120
+    while rep.svc.offset < 512 and time.monotonic() < deadline:
+        time.sleep(0.01)
+    time.sleep(0.2)
+    assert rep.svc.offset == 512                # the one-batch holdback
+    with open(rep.promote_file, "w") as f:
+        json.dump({"failed_at": time.time()}, f)
+    th.join(timeout=120)
+    assert rc[0] == 0
+    gauges = rep.svc.telemetry.snapshot()["gauges"]
+    assert gauges["leader_epoch"] == 2 and gauges["dup_suppressed_total"] > 0
+    with open(tmp_path / "ck" / "broker-log" / "MatchOut.log") as f:
+        rows = [json.loads(ln) for ln in f]
+    assert len({(r[2], r[3]) for r in rows}) == len(rows)
+    ring = DedupRing()
+    got = [f"{r[0]} {r[1]}" for r in rows if not ring.is_dup(r[2], r[3])]
+    assert got == _serve(values, "cpu", **kw)
 
 
 @pytest.mark.cuda

@@ -98,6 +98,9 @@ def test_port_imports_without_jax_or_kme_tpu():
               "kme_tpu_torch.bridge.serve", "kme_tpu_torch.bridge.service",
               "kme_tpu_torch.bridge.tcp", "kme_tpu_torch.cli",
               "kme_tpu_torch.bridge.front", "kme_tpu_torch.bridge.reshard",
+              "kme_tpu_torch.bridge.replica",
+              "kme_tpu_torch.bridge.supervise",
+              "kme_tpu_torch.bridge.autoscale",
               "kme_tpu_torch.feed", "kme_tpu_torch.feed.frames",
               "kme_tpu_torch.feed.derive", "kme_tpu_torch.feed.snapshot",
               "kme_tpu_torch.feed.server", "kme_tpu_torch.feed.client"):
