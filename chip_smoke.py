@@ -6,7 +6,8 @@ Drives the port's main paths — wire JSON -> a session -> the CUDA
 kernels -> MatchOut lines — at full width (the seq fleet and the sharded
 lanes engine too, phase 11; the service with its observability on, phase
 12; a multi-leader deployment of group services and the feed, phase 13;
-the failover drills, a hot standby and a supervisor, phase 14),
+the failover drills, a hot standby and a supervisor, phase 14; the chaos
+harness's drills against supervised card children, phase 15),
 and holds each kernel bit for
 bit against its plain PyTorch version. Four paths: three through
 SeqSession and the seq_step kernel, one per configuration, each three
@@ -219,7 +220,35 @@ Phases, in order; any failure exits non-zero:
    produce stamped with epoch 1 against the reloaded log fenced; each
    child's seconds to its first heartbeat, the recovery seconds. 14a's
    launches of B1 join the kernels line;
-15. summary: one `kernels` JSON line, the card line, then the device line
+15. the chaos drills: `python -m kme_tpu_torch.cli chaos --engine seq`
+   as a subprocess, three times, its serve children running B1 on the
+   card at the serve defaults (1024 symbols, 4096 accounts, 128 slots,
+   1024-message batches, 16 fills) with snapshots every 3072 messages
+   (CHAOS_CKPT_EVERY says why):
+   (a) the default gauntlet over the harness stream (20,000 events at the
+   reference harness's 10 accounts and 3 symbols), every fault class of
+   `default_schedule` (broker fetch and produce errors, a partial TCP
+   frame, a torn and a bit-flipped card snapshot, a torn journal tail, a
+   SIGKILL at 10,000, a stuck loop at 15,000): `verify_stream` holds, 2
+   or more restarts, every rule fired; the supervisor's recoveries and
+   which snapshots each restore skipped; (b) `--scenario failover` over
+   the same stream: the standby promoted within 2.0 s, the deduped
+   MatchOut byte-exact with `dup_suppressed_total` > 0, the stale epoch
+   fenced; (c) `--scenario payout-storm-wide --events 10000` at the
+   profile's registry scale (1000 symbols, 64 accounts; chaos sizes that
+   child at 1000 symbols and 128 accounts) against the adaptive overload
+   controller at `--overload-high-lag 16` (STORM_HIGH_LAG says why):
+   parity over the admitted stream, no stamp twice, 1 or more
+   shed, cancels and payouts shed at a strictly lower rate than new
+   orders, p99 under 2000 ms, 10 records/s or more. Each drill's report
+   must say ok; every child named in a heartbeat must have held the
+   card's device node, the card's context count must have grown (by two
+   while 15b's leader and standby run), and the last leader heartbeat
+   must count batches and kernel-counted messages. Prints restarts,
+   `recovery_seconds`, `failover_seconds`, sheds by class, the p99 and
+   each drill's wall. B1's launches in those child processes are not
+   counted in this process, so they are not on the kernels line;
+16. summary: one `kernels` JSON line, the card line, then the device line
    last.
 
 `plain_ms` in the kernels line is the plain version's time per call:
@@ -385,6 +414,29 @@ FAILOVER_PART1 = 40_960
 SUPERVISE_POLL = 0.1
 SUPERVISE_GRACE = 30.0
 FAILOVER_IDLE_EXIT = 15
+# phase 15: `kme-torch-chaos` drills against serve children running B1 at
+# the serve defaults (1024-message batches, 16 fills; chaos's own default
+# batch of 64 is tuned for its host-only oracle). 15a/15b: the harness
+# stream at the reference harness's shape (chaos's --accounts 10
+# --symbols 3), snapshots every 3072 messages: chaos's default of 60 would
+# write a ~74 MB card snapshot after every 1024-message batch, and at 3072
+# no sound snapshot follows the damaged second (torn) and third
+# (bit-flipped) before serve.kill lands at 10,000, so that restore walks
+# the damaged ones back to the first (at 2048 a fourth, sound snapshot
+# can land before the kill, as it did on the card: PERF.md §6). 15c: the
+# payout storm at its registry scale (1000 symbols, 64 accounts) with the
+# same snapshot cadence. Its shedding watermark is 16, not chaos's 48: a
+# card child drains the storm's lag so fast that at 48 it shed 6 of
+# 13,128 records, one of them a new order (PERF.md §6), and the
+# fairness verdict (cancels and payouts shed strictly less often than
+# new orders) would rest on that one record
+CHAOS_EVENTS = 20_000
+CHAOS_CKPT_EVERY = 3072
+CHAOS_SERVE = ("--batch", "1024", "--max-fills", "16")
+STORM = "payout-storm-wide"
+STORM_EVENTS = 10_000
+STORM_HIGH_LAG = 16
+CHAOS_LIMIT_S = 420
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 
 
@@ -3517,6 +3569,201 @@ def failover_phase(SQ, values, b1, card, kw=None, cut=None, device="cuda",
         shutil.rmtree(root, ignore_errors=True)
 
 
+# phase 15: the chaos drills
+
+
+class CardChildren:
+    """Watches the serve and standby heartbeat files of a chaos run on a
+    thread of its own: every 20 ms, the pid each names and the card's
+    device nodes that pid holds open (a process with a CUDA context on
+    the card holds its node); every 0.5 s, the count of processes with a
+    context on the card (`nvidia-smi --query-compute-apps`)."""
+
+    def __init__(self, paths, card):
+        import threading
+
+        self.paths, self.card = list(paths), card
+        self.pids, self.on_card, self.errors = set(), {}, []
+        self.apps0 = gpu_apps()[0] if card else None
+        self.apps_max = self.apps0
+        self._stop = threading.Event()
+        self._th = threading.Thread(target=self._run, daemon=True)
+        self._th.start()
+
+    def _run(self):
+        next_smi = 0.0
+        while not self._stop.wait(0.02):
+            for path in self.paths:
+                try:
+                    with open(path) as f:
+                        pid = int(json.load(f)["pid"])
+                except (OSError, ValueError, KeyError, TypeError):
+                    continue
+                self.pids.add(pid)
+                nodes = card_nodes(pid) if self.card else []
+                if nodes:
+                    self.on_card.setdefault(pid, nodes)
+            if self.card and time.monotonic() >= next_smi:
+                next_smi = time.monotonic() + 0.5
+                r = subprocess.run(
+                    ["nvidia-smi", "--query-compute-apps=pid",
+                     "--format=csv,noheader"], capture_output=True,
+                    text=True, timeout=60)
+                if r.returncode != 0:
+                    self.errors.append(r.stderr.strip())
+                else:
+                    self.apps_max = max(self.apps_max,
+                                        len(r.stdout.strip().splitlines()))
+
+    def stop(self):
+        self._stop.set()
+        self._th.join()
+
+
+def chaos_drill(root, label, argv, card, device="cuda", min_apps=1):
+    """One `python -m kme_tpu_torch.cli chaos --engine seq` run as a
+    subprocess, its children watched (CardChildren). Fails unless its
+    report says ok, every child named in a heartbeat held the card's
+    device node, the context count grew by `min_apps`, and the last
+    leader heartbeat counts service batches and kernel-counted messages.
+    -> (report, wall seconds, the run's stderr lines)."""
+    import signal
+
+    run_dir = os.path.join(root, label)
+    state = os.path.join(run_dir, "state")
+    cmd = [sys.executable, "-m", "kme_tpu_torch.cli", "chaos", "--engine",
+           "seq", "--device", device, "--seed", "0", "--dir", run_dir,
+           "--timeout", str(CHAOS_LIMIT_S), *CHAOS_SERVE, *argv]
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("KME_FAULTS", "KME_FAULTS_STATE")}
+    env["PYTHONPATH"] = ROOT
+    errpath = os.path.join(root, label + ".stderr")
+    watch = CardChildren([os.path.join(state, "serve.health"),
+                          os.path.join(state, "standby.health")],
+                         card=device != "cpu")
+    t0 = time.perf_counter()
+    with open(errpath, "w") as errf:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=errf,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+    try:
+        rc = proc.wait(timeout=CHAOS_LIMIT_S + 120)
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        wall = time.perf_counter() - t0
+        watch.stop()
+        # chaos's children share its session: stop whatever is left
+        with contextlib.suppress(ProcessLookupError):
+            os.killpg(proc.pid, signal.SIGKILL)
+        proc.wait()
+    with open(errpath) as f:
+        err = f.read().splitlines()
+    try:
+        with open(os.path.join(run_dir, "chaos-report.json")) as f:
+            report = json.load(f)
+    except (OSError, ValueError):
+        report = {"ok": False, "failures": ["no readable report"]}
+    if rc != 0 or not report.get("ok"):
+        fail(f"{label}: chaos exited {rc}, failures "
+             f"{report.get('failures')}: {err[-20:]}")
+    if device != "cpu":
+        off = sorted(watch.pids - set(watch.on_card))
+        if not watch.pids or off or watch.errors:
+            fail(f"{label}: children {sorted(watch.pids)} seen, these never "
+                 f"held the card's device node: {off}; nvidia-smi errors "
+                 f"{watch.errors[:2]}")
+        if watch.apps_max < watch.apps0 + min_apps:
+            fail(f"{label}: {watch.apps_max} processes with a context on the "
+                 f"card at most, {watch.apps0} before the run; want "
+                 f"{min_apps} more")
+    with open(os.path.join(state, "serve.health")) as f:
+        counters = json.load(f)["metrics"]["counters"]
+    if counters.get("service_batches", 0) <= 0 or counters.get("msgs", 0) <= 0:
+        fail(f"{label}: the last leader heartbeat counts no batch or no "
+             f"kernel-counted message: {counters}")
+    log(f"{label}: children {sorted(watch.pids)} each held "
+        f"{sorted({n for v in watch.on_card.values() for n in v})}; "
+        f"processes with a card context {watch.apps0} -> {watch.apps_max}; "
+        f"last leader heartbeat: {counters['service_batches']} batches, "
+        f"{counters['msgs']} messages counted by the kernel")
+    return report, wall, err
+
+
+def recoveries_seen(report, err):
+    """The supervisor's recoveries (fingerprint, recovered_in) and what
+    each restore said about the snapshots it walked."""
+    recs = [(r.get("fingerprint"), r.get("recovered_in"))
+            for r in report["supervisor"].get("recoveries", [])]
+    restores = [ln for ln in err if "skipping unreadable snapshot" in ln
+                or "resumed from snapshot" in ln]
+    return recs, restores
+
+
+def chaos_phase(card, device="cuda"):
+    """Phase 15 (see the module docstring): 15a the default gauntlet, 15b
+    failover, 15c one storm, each `kme-torch-chaos --engine seq` against
+    children on `device` (`cpu` rehearses it with the plain versions, the
+    card checks left out). -> {drill: wall seconds}."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="kme_chaos_")
+    walls = {}
+    try:
+        ckpt = ["--checkpoint-every", str(CHAOS_CKPT_EVERY)]
+        # 15a: every fault class
+        rep, walls["15a"], err = chaos_drill(
+            root, "chaos-default", ["--events", str(CHAOS_EVENTS), *ckpt],
+            card, device)
+        fired = rep["fault_fires"]
+        rules = rep["schedule"].count(";")
+        if rep["restarts_total"] < 2 or len(fired) != rules \
+                or not all(n >= 1 for n in fired.values()):
+            fail(f"15a: restarts {rep['restarts_total']}, fault fires "
+                 f"{fired} of the {rules} rules of {rep['schedule']}")
+        recs, restores = recoveries_seen(rep, err)
+        # the schedule asks for three: the torn journal append and
+        # serve.kill end the child (exit:-9), serve.stuck stalls it
+        unasked = len(recs) - 3
+        log(f"15a: {json.dumps(rep['verify'])}; restarts "
+            f"{rep['restarts_total']} {recs} ({max(0, unasked)} beyond the "
+            f"schedule's three), recovery_seconds {rep['recovery_seconds']}, "
+            f"fault fires {fired}, producer {rep['producer']}, wall "
+            f"{walls['15a']:.1f} s")
+        for ln in restores:
+            log(f"15a restore: {ln}")
+        # 15b: hot-standby failover
+        rep, walls["15b"], err = chaos_drill(
+            root, "chaos-failover", ["--scenario", "failover", "--events",
+                                     str(CHAOS_EVENTS), *ckpt], card,
+            device, min_apps=2)
+        fo = rep["failover"]
+        log(f"15b: failover_seconds {fo['failover_seconds']} (bound 2.0), "
+            f"dup_suppressed_total {fo['dup_suppressed_total']}, "
+            f"leader_epoch {fo['leader_epoch']}, stale_epoch_fenced "
+            f"{fo['stale_epoch_fenced']}, {json.dumps(rep['verify'])}, "
+            f"recovery_seconds {rep['recovery_seconds']}, wall "
+            f"{walls['15b']:.1f} s")
+        # 15c: the settlement storm at the adaptive overload controller
+        rep, walls["15c"], err = chaos_drill(
+            root, "chaos-storm", ["--scenario", STORM, "--events",
+                                  str(STORM_EVENTS), *ckpt,
+                                  "--overload-high-lag", str(STORM_HIGH_LAG)],
+            card, device)
+        log(f"15c: {STORM} at --overload-high-lag {STORM_HIGH_LAG}: offered "
+            f"{rep['offered']}, admitted {rep['admitted']}, shed "
+            f"{rep['shed']} by class {rep['shed_by_class']} of "
+            f"{rep['offered_by_class']} (rates "
+            f"{rep['shed_rates_by_class']}), p99 {rep['slo']['p99_ms']} ms, "
+            f"{rep['slo']['tput']} records/s, parity {json.dumps(rep['parity'])}, "
+            f"controller {rep['controller_gauges']}, wall "
+            f"{walls['15c']:.1f} s; card {card}")
+        return walls
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -3813,7 +4060,13 @@ def main() -> int:
     log(f"phase 14 took {time.perf_counter() - t:.1f} s; B1 launches by "
         f"14a: {b1_failover}")
 
-    # ---- 15. summary
+    # ---- 15. the chaos drills: `kme-torch-chaos` against children that
+    # run B1 on the card (their launches are not counted in this process)
+    t = time.perf_counter()
+    walls = chaos_phase(card)
+    log(f"phase 15 took {time.perf_counter() - t:.1f} s ({walls})")
+
+    # ---- 16. summary
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

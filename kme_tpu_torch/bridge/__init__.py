@@ -17,6 +17,9 @@ stack.
 - supervise.py — kme-torch-supervise: restarts a failed serve child or
                 promotes the standby; `--groups N|auto` runs a pair per
                 group under autoscale.py's split/merge policy.
+- chaos.py    — kme-torch-chaos: seeded fault-injection drills and
+                overload storms against supervised serve children,
+                verified byte for byte against the oracle.
 """
 
 from kme_tpu_torch.bridge.broker import BrokerError, InProcessBroker, Record

@@ -5,8 +5,11 @@ The port of `kme_tpu/bridge/serve.py`, with the same argument set plus
 `--device`. `kme-torch-serve` hosts both the broker and the engine: it
 listens on --listen for the bridge's TCP broker protocol (provisioner /
 load generator / consumer connect there) and runs the MatchService poll
-loop in the foreground. Use --auto-provision to create the topics at
-startup (else run kme-torch-provision first).
+loop in the foreground. Unlike `kme-serve` it binds the listener only
+once the engine is built (a snapshot restored, the state on the card),
+so no record is admitted to wait out the engine's start-up. Use
+--auto-provision to create the topics at startup (else run
+kme-torch-provision first).
 
 The observability flags (journal, audit, SLO, span tracing, TSDB,
 profiler and captures, watchpoints, /metrics) are served as in the JAX
@@ -313,10 +316,6 @@ def main(argv=None) -> int:
     broker = InProcessBroker(persist_dir=log_dir, max_lag=args.max_lag,
                              overload=overload)
     host, port = parse_addr(args.listen)
-    srv, broker = serve_broker(host, port, broker)
-    real_host, real_port = srv.server_address[:2]
-    print(f"kme-serve: broker listening on {real_host}:{real_port}",
-          file=sys.stderr, flush=True)
     if args.auto_provision:
         provision(broker, topics=(group_topics(group[0])
                                   if group is not None and group[1] > 1
@@ -340,7 +339,7 @@ def main(argv=None) -> int:
 
         tracer = TraceRecorder()
         install(tracer)   # PhaseTimers pick it up process-wide
-    svc = msrv = None
+    svc = msrv = srv = None
     rc = 0
     try:
         svc = MatchService(
@@ -372,6 +371,14 @@ def main(argv=None) -> int:
                 "min_ops": args.slo_min_ops,
                 "min_records_per_s": args.slo_min_records_per_sec}),
             device=args.device)
+        # listen only once the engine is built: a record admitted before
+        # would wait out the engine's start-up (on the card the CUDA
+        # context, the state and a snapshot restore: seconds) inside its
+        # admission-to-output latency
+        srv = serve_broker(host, port, broker)[0]
+        real_host, real_port = srv.server_address[:2]
+        print(f"kme-serve: broker listening on {real_host}:{real_port}",
+              file=sys.stderr, flush=True)
         if args.metrics_port is not None:
             from kme_tpu_torch.telemetry import start_metrics_server
 
@@ -415,8 +422,9 @@ def main(argv=None) -> int:
             tracer.save(args.trace_out)
             print(f"kme-serve: trace written to {args.trace_out}",
                   file=sys.stderr)
-        srv.shutdown()
-        srv.server_close()
+        if srv is not None:
+            srv.shutdown()
+            srv.server_close()
         if hasattr(broker, "close"):
             broker.close()
     return rc

@@ -987,8 +987,7 @@ class MatchService:
     # ------------------------------------------------------------------
 
     def _parse(self, value: str):
-        from kme_tpu_torch.runtime.sequencer import EnvelopeError
-        from kme_tpu_torch.wire import parse_order
+        from kme_tpu_torch.wire import EnvelopeError, parse_order
 
         try:
             m = parse_order(value)

@@ -436,7 +436,12 @@ class Supervisor:
                     break
                 tick = self._hb_tick()
                 if tick != last_tick:
-                    if last_tick is not None:
+                    # an incarnation's loop counts its ticks from 0 (its
+                    # heartbeat file is removed before the spawn), so a
+                    # first sight of a tick past 0 means a step already
+                    # returned: a loop that hangs before this supervisor
+                    # saw two ticks is still caught
+                    if last_tick is not None or (tick or 0) > 0:
                         armed = True
                     last_tick, tick_since = tick, now
                 elif self._hb_closing():

@@ -27,11 +27,14 @@
               (`--groups N|auto`, the autoscale policy)
 - standby   — the hot-standby replica: follows the leader's durable
               input on the card and takes over when promoted
+- chaos     — fault-injection drills and overload storms against
+              supervised serve children (bridge/chaos.py), which run
+              the seq engine on the card unless `--device cpu` or
+              `--engine oracle` says otherwise
 
 `trace --cluster` and `xray --cluster` read a multi-leader run
 directory. `prof --diff` waits for perfgate.py and exits 2 naming it.
-The JAX package's other commands (bench, chaos, sim, ...) are not
-ported.
+The JAX package's other commands (bench, sim, ...) are not ported.
 """
 
 from __future__ import annotations
@@ -1183,6 +1186,17 @@ def standby_main(argv=None) -> int:
     return _main(argv)
 
 
+def chaos_main(argv=None) -> int:
+    """Deterministic fault-injection drills against supervised serve
+    children: every fault class, hot-standby failover, the multi-leader
+    and feed drills, live resharding and the overload storms, each
+    verified byte for byte. Runs the seq engine on the card unless told
+    `--device cpu` or `--engine oracle`."""
+    from kme_tpu_torch.bridge.chaos import main as _main
+
+    return _main(argv)
+
+
 def top_main(argv=None) -> int:
     """Live operations dashboard over the /metrics.json surfaces of a
     leader, an optional standby, and the supervisor state file."""
@@ -1206,7 +1220,7 @@ def main(argv=None) -> int:
     p.add_argument("command", choices=(
         "serve", "loadgen", "consume", "provision", "trace", "prof",
         "top", "xray", "events", "agg", "front", "reshard", "feed",
-        "supervise", "standby"))
+        "supervise", "standby", "chaos"))
     args, rest = p.parse_known_args(argv)
     try:
         return {"serve": serve_main, "loadgen": loadgen_main,
@@ -1216,7 +1230,8 @@ def main(argv=None) -> int:
                 "agg": agg_main, "front": front_main,
                 "reshard": reshard_main,
                 "feed": feed_main, "supervise": supervise_main,
-                "standby": standby_main}[args.command](rest)
+                "standby": standby_main,
+                "chaos": chaos_main}[args.command](rest)
     except BrokenPipeError:
         # downstream closed the pipe (e.g. `| head`): point both std
         # streams at devnull so interpreter-shutdown flushes cannot

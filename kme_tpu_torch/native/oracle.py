@@ -72,7 +72,7 @@ class NativeOracleEngine:
         the completed prefix — the byte-faithful service path (the
         reference forwards every record before its thread dies)."""
         from kme_tpu_torch.oracle import javalong as jl
-        from kme_tpu_torch.runtime.sequencer import EnvelopeError
+        from kme_tpu_torch.wire import EnvelopeError
 
         n = len(msgs)
         cols = {k: [] for k in ("action", "oid", "aid", "sid", "price",

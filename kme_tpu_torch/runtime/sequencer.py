@@ -29,17 +29,11 @@ import numpy as np
 from kme_tpu_torch import opcodes as op
 from kme_tpu_torch.engine import lanes as L
 from kme_tpu_torch.utils import jlong
-from kme_tpu_torch.wire import OrderMsg
+from kme_tpu_torch.wire import EnvelopeError, OrderMsg
 
 
 class CapacityError(RuntimeError):
     """The workload exceeds a static device capacity (symbols, accounts)."""
-
-
-class EnvelopeError(RuntimeError):
-    """A wire value falls outside the Jackson-parseable envelope (int32
-    price/size) — input on which the reference's deserializer throws and
-    its Streams thread dies (KProcessor.java:513-517)."""
 
 
 @dataclasses.dataclass

@@ -78,6 +78,15 @@ FRAME_SIZE_TRACED = FRAME_SIZE + _TID_WORD.size   # 80
 _FRAME_HDR = struct.Struct("<BBBBI")
 
 
+class EnvelopeError(RuntimeError):
+    """A wire value falls outside the Jackson-parseable envelope (int32
+    price/size) — input on which the reference's deserializer throws and
+    its Streams thread dies (KProcessor.java:513-517). Defined here, not
+    in runtime/sequencer (which re-exports it), so the service's parse
+    path imports no engine module: those pull in torch, seconds of import
+    that a host-engine service would otherwise pay in its first batch."""
+
+
 class WireFrameError(ValueError):
     """A binary frame failed validation. `reason` is one of
     "truncated", "bad_magic", "version_skew", "bad_kind",

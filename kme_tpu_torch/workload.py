@@ -2,11 +2,13 @@
 generator (exchange_test.js).
 
 The port's own copy of `WorkloadGen`, `harness_stream`,
-`zipf_symbol_stream`, `zipf_hot_stream`, `payout_storm_stream` and
-`cross_account_stream` from
-`kme_tpu/workload.py`: for a seed they yield
-the same streams (tests/test_torch_port.py holds them equal), so the
-port's smoke run and benchmarks need no `kme_tpu` import.
+`zipf_symbol_stream`, `zipf_hot_stream`, `payout_storm_stream`,
+`cancel_heavy_stream`, `cross_account_stream`, the five storm profiles
+(`STORM_PROFILES`, `storm_stream`, `storm_windows`) and
+`spliced_stream` from `kme_tpu/workload.py`: for a seed they yield the
+same streams, and the profiles the same burst windows
+(tests/test_torch_port.py holds them equal), so the port's smoke run,
+chaos harness and benchmarks need no `kme_tpu` import.
 
 Faithful details of the reference distribution:
   - seeding preamble: per account CREATE_BALANCE + TRANSFER of
@@ -29,7 +31,7 @@ from __future__ import annotations
 import bisect
 import math
 import random
-from typing import Iterator, List
+from typing import Callable, Iterator, List, NamedTuple, Sequence, Tuple
 
 from kme_tpu_torch import opcodes as op
 from kme_tpu_torch.wire import OrderMsg
@@ -300,6 +302,32 @@ def payout_storm_stream(num_events: int, num_symbols: int,
     return msgs
 
 
+def _buy_or_sell(gen: WorkloadGen, aid: int, sid: int) -> OrderMsg:
+    """A buy or a sell, one chance in two, at N(50, 10) price and size."""
+    make = gen.create_buy if gen.rng.random() < 0.5 else gen.create_sell
+    return make(aid, sid, gen._normal_param(50, 10), gen._normal_param(50, 10))
+
+
+def cancel_heavy_stream(num_events: int, num_symbols: int, num_accounts: int,
+                        seed: int = 0, cancel_ratio: float = 0.8,
+                        deposit: int = 10_000_000) -> List[OrderMsg]:
+    """BASELINE.md's bursty cancel/replace config: attempts a cancel with
+    probability cancel_ratio whenever the open-order pool is non-empty.
+    Steady-state cancels are structurally bounded near 50% of events (each
+    cancel consumes one prior resting submit), matching the reference
+    harness's own cancel-vs-submit equilibrium (exchange_test.js:106-117)."""
+    gen = WorkloadGen(num_accounts, num_symbols, seed=seed, validate=True)
+    msgs = _funded(gen, num_accounts, num_symbols, deposit)
+    for _ in range(num_events):
+        if gen.rng.random() < cancel_ratio and gen.open_orders:
+            msgs.append(gen.create_cancel())
+        else:
+            aid = gen._uniform(num_accounts)
+            sid = gen._uniform(num_symbols)
+            msgs.append(_buy_or_sell(gen, aid, sid))
+    return msgs
+
+
 def cross_account_stream(num_events: int, num_symbols: int,
                          num_accounts: int, ngroups: int,
                          seed: int = 0, cross_frac: float = 0.5,
@@ -391,3 +419,336 @@ def deep_book_stream(depth: int, num_accounts: int = 64, sid: int = 5,
         msgs += rest(depth // 10, buy=False) + rest(depth // 40, buy=True)
         msgs += take(depth // 40)
     return msgs
+
+
+# ---------------------------------------------------------------------------
+# adversarial storm profiles. Each is a pure function of its arguments;
+# its burst windows are absolute message-index ranges offered at a
+# multiple of the base pacing (wire messages carry no timestamps, so rate
+# lives in the producer). The chaos harness paces with these windows; the
+# overload controller's simulation (bridge/broker.py simulate_overload)
+# replays the same windows. Every profile opens with `_funded`'s flat
+# preamble of 2*accounts + symbols messages, so the windows follow from
+# the profile's arguments alone.
+
+
+def _preamble_len(num_accounts: int, num_symbols: int) -> int:
+    return 2 * num_accounts + num_symbols
+
+
+def _burst_ranges(num_events: int, bursts: int,
+                  frac: float) -> List[Tuple[int, int]]:
+    """`bursts` evenly-spaced event-index ranges, each ~frac of the
+    stream (the same arithmetic shape as payout_storm_stream's
+    storm_at, so window placement is deterministic)."""
+    width = max(1, int(num_events * frac))
+    out: List[Tuple[int, int]] = []
+    for i in range(bursts):
+        c = (i + 1) * num_events // (bursts + 1)
+        lo = max(0, c - width // 2)
+        out.append((lo, min(num_events, lo + width)))
+    return out
+
+
+def _settle_all(gen: WorkloadGen, num_symbols: int,
+                success=None) -> List[OrderMsg]:
+    """A PAYOUT of every symbol, each followed by its re-ADD; a coin
+    flip per symbol decides the side unless `success` is given."""
+    msgs: List[OrderMsg] = []
+    for sid in range(num_symbols):
+        ok = gen.rng.random() < 0.5 if success is None else success
+        msgs.append(gen.create_payout(sid, ok))
+        msgs.append(gen.create_symbol(sid))
+    return msgs
+
+
+def payout_storm_wide_stream(num_events: int, num_symbols: int,
+                             num_accounts: int, seed: int = 0,
+                             deposit: int = 10_000_000) -> List[OrderMsg]:
+    """The event boundary itself: steady Zipf trading until ONE contiguous
+    burst settles the ENTIRE symbol space (real PAYOUT per symbol, each
+    immediately re-ADDed). At full scale that is ~1k symbols' worth of
+    barrier ops arriving back-to-back — the all-at-once settlement shape
+    KProcessor.java:148-165 implies but the reference harness never
+    generates. One message per steady event, so the storm block sits at
+    exactly preamble + num_events//2."""
+    gen = WorkloadGen(num_accounts, num_symbols, seed=seed, validate=True,
+                      payout_opcode_bug=False)
+    msgs = _funded(gen, num_accounts, num_symbols, deposit)
+    cdf = _zipf_cdf(num_symbols, 1.2)
+    storm_k = max(1, num_events // 2)
+    for k in range(num_events):
+        if k == storm_k:
+            msgs += _settle_all(gen, num_symbols)
+        sid = bisect.bisect_left(cdf, gen.rng.random())
+        aid = gen._uniform(num_accounts)
+        msgs.append(_trade_or_cancel(gen, aid, sid, gen._uniform(1000)))
+    return msgs
+
+
+def flash_crowd_stream(num_events: int, num_symbols: int,
+                       num_accounts: int, seed: int = 0,
+                       bursts: int = 3, burst_frac: float = 0.08,
+                       hot_frac: float = 0.9,
+                       deposit: int = 10_000_000) -> List[OrderMsg]:
+    """Flash crowd: a breaking-news spike. Outside the burst windows the
+    stream is ordinary Zipf trading; inside them everyone piles onto
+    symbol 0 (probability hot_frac), the order mix collapses to pure
+    buy/sell (nobody cancels during a rush), and the flow comes from a
+    small flooder clique (num_accounts//8 accounts) — the per-account
+    fairness adversary. The producer offers these windows at ~100x
+    pacing (storm_windows), which is what makes it a rate storm."""
+    gen = WorkloadGen(num_accounts, num_symbols, seed=seed, validate=True,
+                      payout_opcode_bug=False)
+    msgs = _funded(gen, num_accounts, num_symbols, deposit)
+    cdf = _zipf_cdf(num_symbols, 1.2)
+    ranges = _burst_ranges(num_events, bursts, burst_frac)
+    flooders = max(1, num_accounts // 8)
+    for k in range(num_events):
+        if any(lo <= k < hi for lo, hi in ranges):
+            sid = (0 if gen.rng.random() < hot_frac
+                   else bisect.bisect_left(cdf, gen.rng.random()))
+            msgs.append(_buy_or_sell(gen, gen._uniform(flooders), sid))
+            continue
+        sid = bisect.bisect_left(cdf, gen.rng.random())
+        aid = gen._uniform(num_accounts)
+        msgs.append(_trade_or_cancel(gen, aid, sid, gen._uniform(1000)))
+    return msgs
+
+
+def cancel_storm_stream(num_events: int, num_symbols: int,
+                        num_accounts: int, seed: int = 0,
+                        cancel_ratio: float = 0.75,
+                        bogus_frac: float = 0.85,
+                        deposit: int = 10_000_000) -> List[OrderMsg]:
+    """Cancel blizzard (HFT quote-stuffing shape): ~3/4 of events are
+    cancels, and most of those target oids that were never submitted —
+    driving the engine's rej_cancel ratio to ~10x the reference
+    harness's steady state. The remaining events are fresh buy/sell
+    flow, so cancels and new orders arrive interleaved — the stream the
+    priority-aware shedder must split (cancels drain the book: admit;
+    new orders grow it: shed)."""
+    gen = WorkloadGen(num_accounts, num_symbols, seed=seed, validate=True,
+                      payout_opcode_bug=False)
+    msgs = _funded(gen, num_accounts, num_symbols, deposit)
+    for _ in range(num_events):
+        if gen.rng.random() < cancel_ratio:
+            if gen.rng.random() < bogus_frac or not gen.open_orders:
+                # a cancel for an oid nobody submitted: always rej_cancel
+                msgs.append(OrderMsg(
+                    action=op.CANCEL,
+                    oid=math.floor(gen.rng.random() * (2 ** 53 - 1)),
+                    aid=gen._uniform(num_accounts)))
+            else:
+                msgs.append(gen.create_cancel())
+            continue
+        aid = gen._uniform(num_accounts)
+        sid = gen._uniform(num_symbols)
+        msgs.append(_buy_or_sell(gen, aid, sid))
+    return msgs
+
+
+def hot_book_stream(num_events: int, num_symbols: int,
+                    num_accounts: int, seed: int = 0,
+                    hot_frac: float = 0.97,
+                    deposit: int = 10_000_000) -> List[OrderMsg]:
+    """One-symbol pathology: hot_frac of ALL flow lands on symbol 0 with
+    a tight price band (N(50, 3) — nearly every arrival crosses), and
+    cancels are rare so the book only deepens. Unlike zipf-hot there is
+    no warm cold-set for a rebalancer to migrate: a single book takes
+    the whole storm, which no symbol-sharding layout can split — the
+    overload controller is the only defense left."""
+    if num_symbols < 2:
+        raise ValueError("hot-book needs >= 2 symbols (hot + background)")
+    gen = WorkloadGen(num_accounts, num_symbols, seed=seed, validate=True,
+                      payout_opcode_bug=False)
+    msgs = _funded(gen, num_accounts, num_symbols, deposit)
+    for _ in range(num_events):
+        sid = (0 if gen.rng.random() < hot_frac
+               else 1 + gen._uniform(num_symbols - 1))
+        aid = gen._uniform(num_accounts)
+        e = gen._uniform(1000)
+        if e < 950:
+            make = gen.create_buy if e < 475 else gen.create_sell
+            msgs.append(make(aid, sid, gen._normal_param(50, 3),
+                             gen._normal_param(50, 10)))
+        else:
+            msgs.append(gen.create_cancel())
+    return msgs
+
+
+def liquidation_cascade_stream(num_events: int, num_symbols: int,
+                               num_accounts: int, seed: int = 0,
+                               cascades: int = 2,
+                               deposit: int = 40_000) -> List[OrderMsg]:
+    """Balance-exhaustion cascade: accounts are funded thinly (~16
+    orders' margin), the mix is buy-heavy so margin locks up fast, and
+    at each cascade point EVERY symbol is settled long-side (PAYOUT
+    success=True, then re-ADDed) while orders are still resting — the
+    mass-liquidation-against-open-interest interaction. Losers come out
+    of each cascade with exhausted balances, so the post-cascade flow
+    turns into a rej_risk wave. One message per steady event: cascade
+    block c sits at exactly preamble + (c+1)*num_events//(cascades+1)
+    + 2*num_symbols*c."""
+    if cascades < 1:
+        raise ValueError("liquidation-cascade needs cascades >= 1")
+    gen = WorkloadGen(num_accounts, num_symbols, seed=seed, validate=True,
+                      payout_opcode_bug=False)
+    msgs = _funded(gen, num_accounts, num_symbols, deposit)
+    cdf = _zipf_cdf(num_symbols, 1.2)
+    cascade_at = {max(1, (i + 1) * num_events // (cascades + 1))
+                  for i in range(cascades)}
+    for k in range(num_events):
+        if k in cascade_at:
+            msgs += _settle_all(gen, num_symbols, success=True)
+        sid = bisect.bisect_left(cdf, gen.rng.random())
+        aid = gen._uniform(num_accounts)
+        e = gen._uniform(1000)
+        if e < 900:
+            make = gen.create_buy if e < 650 else gen.create_sell
+            msgs.append(make(aid, sid, gen._normal_param(50, 10),
+                             gen._normal_param(50, 10)))
+        else:
+            msgs.append(gen.create_cancel())
+    return msgs
+
+
+class StormProfile(NamedTuple):
+    """Registry row: generator + full-scale defaults + burst windows.
+
+    windows(num_events, num_symbols, num_accounts) returns absolute
+    message-index ranges [(lo, hi, mult), ...]: offer messages in
+    [lo, hi) at mult x the base pacing."""
+
+    name: str
+    summary: str
+    symbols: int
+    accounts: int
+    fn: Callable[..., List[OrderMsg]]
+    windows: Callable[[int, int, int], List[Tuple[int, int, int]]]
+
+
+def _w_payout_wide(ev: int, sy: int, ac: int) -> List[Tuple[int, int, int]]:
+    lo = _preamble_len(ac, sy) + max(1, ev // 2)
+    return [(lo, lo + 2 * sy, 100)]
+
+
+def _w_flash_crowd(ev: int, sy: int, ac: int) -> List[Tuple[int, int, int]]:
+    pre = _preamble_len(ac, sy)
+    return [(pre + lo, pre + hi, 100)
+            for lo, hi in _burst_ranges(ev, 3, 0.08)]
+
+
+def _w_cancel_storm(ev: int, sy: int, ac: int) -> List[Tuple[int, int, int]]:
+    pre = _preamble_len(ac, sy)
+    return [(pre + lo, pre + hi, 20)
+            for lo, hi in _burst_ranges(ev, 2, 0.10)]
+
+
+def _w_hot_book(ev: int, sy: int, ac: int) -> List[Tuple[int, int, int]]:
+    pre = _preamble_len(ac, sy)
+    return [(pre + lo, pre + hi, 10)
+            for lo, hi in _burst_ranges(ev, 1, 0.20)]
+
+
+def _w_cascade(ev: int, sy: int, ac: int) -> List[Tuple[int, int, int]]:
+    pre = _preamble_len(ac, sy)
+    out = []
+    for c in range(2):
+        lo = pre + max(1, (c + 1) * ev // 3) + 2 * sy * c
+        out.append((lo, lo + 2 * sy + max(1, ev // 20), 50))
+    return out
+
+
+STORM_PROFILES = {
+    "payout-storm-wide": StormProfile(
+        "payout-storm-wide",
+        "settle the entire symbol space (~1k symbols) in one contiguous "
+        "PAYOUT+re-ADD burst mid-stream",
+        1000, 64, payout_storm_wide_stream, _w_payout_wide),
+    "flash-crowd": StormProfile(
+        "flash-crowd",
+        "100x-rate burst windows where a small flooder clique piles "
+        "onto one symbol (per-account fairness adversary)",
+        64, 64, flash_crowd_stream, _w_flash_crowd),
+    "cancel-storm": StormProfile(
+        "cancel-storm",
+        "~75% cancels, mostly for never-submitted oids: rej_cancel at "
+        "~10x the reference harness ratio, interleaved with fresh flow",
+        16, 32, cancel_storm_stream, _w_cancel_storm),
+    "hot-book": StormProfile(
+        "hot-book",
+        "97% of flow on ONE tight-priced symbol — the pathology no "
+        "symbol-sharding layout can split",
+        8, 32, hot_book_stream, _w_hot_book),
+    "liquidation-cascade": StormProfile(
+        "liquidation-cascade",
+        "thin funding + buy-heavy flow, then mass long-side settlement "
+        "against open interest: a rej_risk exhaustion wave",
+        32, 48, liquidation_cascade_stream, _w_cascade),
+}
+
+
+def storm_stream(name: str, num_events: int, *, num_symbols: int = None,
+                 num_accounts: int = None, seed: int = 0) -> List[OrderMsg]:
+    """Generate a named storm profile (registry defaults unless the
+    caller scales symbols/accounts down, e.g. for CI)."""
+    p = STORM_PROFILES[name]
+    return p.fn(num_events,
+                p.symbols if num_symbols is None else num_symbols,
+                p.accounts if num_accounts is None else num_accounts,
+                seed=seed)
+
+
+def storm_windows(name: str, num_events: int, num_symbols: int = None,
+                  num_accounts: int = None) -> List[Tuple[int, int, int]]:
+    """Burst windows for a named profile at the given scale: absolute
+    message-index ranges [(lo, hi, mult), ...]."""
+    p = STORM_PROFILES[name]
+    return p.windows(num_events,
+                     p.symbols if num_symbols is None else num_symbols,
+                     p.accounts if num_accounts is None else num_accounts)
+
+
+def spliced_stream(num_events: int, seed: int = 0,
+                   splices: Sequence[Tuple[int, str, int]] = (),
+                   num_accounts: int = 10,
+                   num_symbols: int = 3,
+                   prefund_cash: int = 0) -> List[OrderMsg]:
+    """Generative scenario composition: the reference harness baseline
+    with named storm bursts spliced in at stream positions. `splices` is
+    [(at, profile, n), ...] — insert an `n`-event `profile` burst
+    (STORM_PROFILES) before baseline position `at`. Bursts keep their
+    registry symbol/account spaces, so a spliced storm brings its own
+    preamble and collides with the baseline's id space only where the
+    registry says it does; everything stays a pure function of
+    (num_events, seed, splices), which is what lets a shrunk fault
+    schedule regenerate its input byte-identically.
+
+    `prefund_cash` > 0 prepends a CREATE_BALANCE + TRANSFER(cash) pair
+    for every account the composed stream can touch (baseline space ∪
+    spliced profiles' registry spaces). Grouped serving's parity
+    contract requires the funded envelope — the front's shadow-cash
+    margin bound is a conservative LOWER bound that never models
+    releases, so a depleted account can see a cross-shard grant fall
+    short and the group engine reject what the single oracle accepts
+    (`transfer_shortfall_total`). The deposits ride IN the stream, seen
+    identically by the oracle and the cluster."""
+    base = harness_stream(num_events, seed=seed,
+                          num_accounts=num_accounts,
+                          num_symbols=num_symbols)
+    # apply back-to-front so earlier positions stay valid
+    for at, name, n in sorted(splices, key=lambda s: s[0], reverse=True):
+        burst = storm_stream(name, n, seed=seed ^ 0x5EED)
+        at = max(0, min(len(base), int(at)))
+        base[at:at] = burst
+    if prefund_cash > 0:
+        space = max([num_accounts]
+                    + [STORM_PROFILES[name].accounts
+                       for _, name, _ in splices])
+        base[0:0] = [m for aid in range(space)
+                     for m in (OrderMsg(action=op.CREATE_BALANCE,
+                                        aid=aid),
+                               OrderMsg(action=op.TRANSFER, aid=aid,
+                                        size=int(prefund_cash)))]
+    return base

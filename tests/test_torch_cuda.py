@@ -13,7 +13,8 @@ second-round output copy) against its serial path and the CPU session;
 and the service (seq pipelined, seq java, lanes, and a group of a
 multi-leader deployment) on the card against the same service on the CPU, with snapshots restored from the card onto the
 CPU and back; a hot-standby replica on the card that follows a dead
-leader and is promoted, against a CPU service; the seq fleet (its shards on their own CUDA streams) in
+leader and is promoted, against a CPU service; the chaos harness's
+failover drill against supervised children on the card; the seq fleet (its shards on their own CUDA streams) in
 both dispatch modes against the same fleet on the CPU, with a race probe
 that patches accounts across shards in every window; the sharded
 lanes engine's captured step against the CPU; and the observability
@@ -700,6 +701,37 @@ def test_card_replica_follows_and_promotes(cuda_device, tmp_path):
     ring = DedupRing()
     got = [f"{r[0]} {r[1]}" for r in rows if not ring.is_dup(r[2], r[3])]
     assert got == _serve(values, "cpu", **kw)
+
+
+@pytest.mark.cuda
+def test_card_chaos_failover(cuda_device, tmp_path):
+    """`kme-torch-chaos --scenario failover --engine seq` as a user runs
+    it: the supervised leader and its hot standby run B1 on the card
+    (chaos's default `--device cuda`), the leader is SIGKILLed mid-stream
+    and the standby promoted; the report must say ok (promotion within
+    2.0 s, deduped MatchOut byte-exact, dedup exercised, stale epoch
+    fenced)."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    native.build("seq_step")        # the children load it, not build it
+    native.load_library()
+    run_dir = str(tmp_path / "run")
+    proc = subprocess.run(
+        [sys.executable, "-m", "kme_tpu_torch.cli", "chaos", "--scenario",
+         "failover", "--engine", "seq", "--seed", "0", "--events", "2000",
+         "--dir", run_dir, "--timeout", "300"],
+        cwd=root, capture_output=True, text=True, timeout=420)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    with open(os.path.join(run_dir, "chaos-report.json")) as f:
+        report = json.load(f)
+    assert report["ok"] and not report["failures"], report["failures"]
+    assert report["engine"] == "seq"
+    assert report["failover"]["promotions"] >= 1
+    assert report["verify"]["epochs"][-1] >= 2
 
 
 @pytest.mark.cuda

@@ -101,6 +101,7 @@ def test_port_imports_without_jax_or_kme_tpu():
               "kme_tpu_torch.bridge.replica",
               "kme_tpu_torch.bridge.supervise",
               "kme_tpu_torch.bridge.autoscale",
+              "kme_tpu_torch.bridge.chaos",
               "kme_tpu_torch.feed", "kme_tpu_torch.feed.frames",
               "kme_tpu_torch.feed.derive", "kme_tpu_torch.feed.snapshot",
               "kme_tpu_torch.feed.server", "kme_tpu_torch.feed.client"):
@@ -193,9 +194,42 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
 
 @pytest.mark.parametrize("kind", ["zipf", "zipf_payout", "harness",
                                   "harness_valid", "zipf_hot",
-                                  "payout_storm", "cross_account"])
+                                  "payout_storm", "cross_account",
+                                  "cancel_heavy", "spliced",
+                                  "spliced_prefund", "storm_windows"]
+                         + [f"storm:{n}" for n in sorted(JWL.STORM_PROFILES)])
 def test_copied_workload_streams_equal(kind):
-    if kind == "cross_account":
+    if kind == "storm_windows":
+        # every profile's burst windows, at its registry scale and cut
+        # down, for several stream lengths
+        for name in JWL.STORM_PROFILES:
+            for ev, sy, ac in ((2000, None, None), (800, 8, 16),
+                               (301, 3, 5)):
+                assert WL.storm_windows(name, ev, sy, ac) == \
+                    JWL.storm_windows(name, ev, sy, ac), (name, ev)
+        return
+    if kind.startswith("storm:"):
+        name = kind.split(":", 1)[1]
+        a = JWL.storm_stream(name, 700, num_symbols=9, num_accounts=30,
+                             seed=4)
+        b = WL.storm_stream(name, 700, num_symbols=9, num_accounts=30,
+                            seed=4)
+        assert a and len(a) == len(b)
+        # the registry scale too (its own symbols and accounts)
+        a += JWL.storm_stream(name, 300, seed=2)
+        b += WL.storm_stream(name, 300, seed=2)
+    elif kind.startswith("spliced"):
+        kw = dict(seed=3, splices=[(40, "flash-crowd", 200),
+                                   (400, "cancel-storm", 150),
+                                   (250, "liquidation-cascade", 90)],
+                  prefund_cash=50_000 if kind == "spliced_prefund" else 0)
+        a = JWL.spliced_stream(600, **kw)
+        b = WL.spliced_stream(600, **kw)
+    elif kind == "cancel_heavy":
+        kw = dict(num_symbols=9, num_accounts=30, seed=4)
+        a = JWL.cancel_heavy_stream(800, **kw)
+        b = WL.cancel_heavy_stream(800, **kw)
+    elif kind == "cross_account":
         kw = dict(num_symbols=9, num_accounts=30, ngroups=3, seed=4,
                   cross_frac=0.6)
         a = JWL.cross_account_stream(800, **kw)

@@ -196,6 +196,20 @@ def test_frozen_tick_is_a_stall_even_with_fresh_heartbeat(tmp_path):
     assert h.sup.fingerprints == {"stall": 1}
 
 
+def test_stall_after_ticks_the_supervisor_never_saw_advance(tmp_path):
+    """The loop ticked before the supervisor's first look and froze
+    there (a fast host-engine child replaying its log into a stuck
+    step): its tick is past 0, so a step returned and the detector arms.
+    `kme_tpu`'s supervisor arms only on a tick it saw change, and waits
+    on such a child forever."""
+    h = Harness(tmp_path, stall_after=3.0, stale_after=10_000)
+    h._pending[1].exit_after, h._pending[1].rc = 1.0, 0
+    h.age = lambda: 0.1                        # beater thread alive
+    h.tick = lambda: 7 if len(h.spawned) < 2 else int(h.now * 10)
+    assert h.sup.run() == 0
+    assert h.sup.fingerprints == {"stall": 1}
+
+
 def test_no_heartbeat_within_grace_fails(tmp_path):
     h = Harness(tmp_path, grace=4.0)
     h._pending[1].exit_after, h._pending[1].rc = 1.0, 0
