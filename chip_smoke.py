@@ -7,7 +7,9 @@ kernels -> MatchOut lines — at full width (the seq fleet and the sharded
 lanes engine too, phase 11; the service with its observability on, phase
 12; a multi-leader deployment of group services and the feed, phase 13;
 the failover drills, a hot standby and a supervisor, phase 14; the chaos
-harness's drills against supervised card children, phase 15),
+harness's drills against supervised card children, phase 15; its
+multi-leader and feed drills, the Kafka transport and the host-only
+tools, phase 16),
 and holds each kernel bit for
 bit against its plain PyTorch version. Four paths: three through
 SeqSession and the seq_step kernel, one per configuration, each three
@@ -248,7 +250,32 @@ Phases, in order; any failure exits non-zero:
    `recovery_seconds`, `failover_seconds`, sheds by class, the p99 and
    each drill's wall. B1's launches in those child processes are not
    counted in this process, so they are not on the kernels line;
-16. summary: one `kernels` JSON line, the card line, then the device line
+16. the other failover drills, the Kafka transport and the host-only
+   tools (the constants' comment says what each runs at): (a)
+   `kme-torch-chaos --scenario shard-failover` over 20,000 events, two
+   group leaders and the busiest group's hot standby on the card, the
+   victim SIGKILLed mid-substream: promoted within 2.0 s, every survivor
+   restart-free with its busy-window rate during the outage measured
+   (not exempt) and dipped under 10%, the merged MatchOut byte-exact
+   against `verify_groups`, no stamp twice, the stale epoch fenced; each
+   group's children hold the card's device node and the context count
+   grows by 3; printed: the survivors' rates, each child's seconds to
+   its first heartbeat, every group's heartbeats (own clock, offset,
+   `device_ms_per_batch`) around the outage and the host's CPU busy
+   share; (b)
+   `--scenario feed-failover` over 20,000 events: promoted within 2.0
+   s, the feed reconnected, every subscriber's book byte-exact with 0
+   gaps and 0 duplicates; children on the card as in (a); (c)
+   `kme_tpu_torch.bridge.serve.main([... "--kafka" ...])` in process
+   over the first 20,000 zipf messages, the seq engine on the card at
+   the serve defaults, the Kafka cluster an in-memory stand-in for the
+   aiokafka client installed in `sys.modules` for this phase only: its
+   MatchOut must be phase 4's B1 lines for those messages, launches =
+   dispatches (on the kernels line); (d) `python -m kme_tpu_torch.cli
+   sim --seed N --json` for each of SIM_DIGESTS (the recorded digests of
+   both packages' CPU runs) and `... oracle --compat java` over the java
+   stream (the java oracle's `183a22c6…`);
+17. summary: one `kernels` JSON line, the card line, then the device line
    last.
 
 `plain_ms` in the kernels line is the plain version's time per call:
@@ -257,7 +284,8 @@ version is a Python interpreter of the kernel), CUDA-event time on the
 card for the row copies and the rows-in-use kernel (whose plain versions
 are torch ops). `seq_step` (B1) counts the launches of phase 4's main
 path, of the fleet's runs (11a, 11b), of phase 12 (a-c), of phase
-13's in-process services (a, b) and of phase 14a's three incarnations; its
+13's in-process services (a, b), of phase 14a's three incarnations and of
+16c's Kafka-served service; its
 `max_abs_err` includes phase 11c's. `seq_rows_in_use` is the prologue of the deep-book
 configurations of the seq kernel; its `launches` are those of the B3 main
 path, its `max_abs_err` is over every state of phases 3b-3d that it was
@@ -437,6 +465,28 @@ STORM = "payout-storm-wide"
 STORM_EVENTS = 10_000
 STORM_HIGH_LAG = 16
 CHAOS_LIMIT_S = 420
+# phase 16a: shard-failover at chaos's defaults for its topology (2
+# groups, prefund 8 as the front's, half the orders from a non-home
+# account, a hot standby for the busiest group, the victim) over
+# CHAOS_EVENTS, with phase 15's serve arguments and snapshot cadence;
+# every card child gets SUPERVISE_GRACE to its first heartbeat (start-up:
+# PERF.md §6) and an idle exit of 10 s, not chaos's 5: the drill holds
+# every group's input until all three children are up, and a leader that
+# is up first must not idle out meanwhile. 16b: feed-failover over
+# CHAOS_EVENTS likewise. 16c: the Kafka-served prefix of the zipf stream
+SHARD_GROUPS = 2
+SHARD_CROSS_FRAC = 0.5
+SHARD_IDLE_EXIT = 10
+KAFKA_PREFIX = LANES_PREFIX
+# phase 16d: `kme-torch-sim --seed N` at its defaults (400 events, 2
+# groups) -> (trace_digest, out_digest), what CPU runs of both packages'
+# simulators give (tests/test_torch_sim.py recomputes them)
+SIM_DIGESTS = {
+    5: ("4c5b12cc8706716f9972c9f39cdd1718887dd6e0106ab31ac9f76bc4148e063d",
+        "787f5943dbe82032fc487fc221e247c6c576c26b69bbdfed9602dd630aa8db63"),
+    13: ("5f27962e9bf03131bb7537937f9551d323be873465c1fab92ea1c3179a78d2c5",
+         "79f7a07ed89a3f2ef84dea7279ff6942aea8496c3f7150caf256b17891a92f9a"),
+}
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 
 
@@ -540,11 +590,12 @@ def check_batches(SQ, cfg, chunks, checks, label, after=None):
     return state, max_err, plain_ms, outs
 
 
-def main_path(SQ, ses, msgs, label):
+def main_path(SQ, ses, msgs, label, keep=None):
     """The stream end to end through process_wire's Python line builder
     (`_use_native_wire` off) with every launch count set to 0 just before
-    and read just after. -> (MatchOut lines, sha256, host wall s, launches
-    by configuration)."""
+    and read just after; the first KAFKA_PREFIX messages' lines are
+    appended to `keep` (a list, one entry per message) when it is given.
+    -> (MatchOut lines, sha256, host wall s, launches by configuration)."""
     import torch
 
     ses._use_native_wire = False    # the Python line builder
@@ -557,6 +608,8 @@ def main_path(SQ, ses, msgs, label):
     t = time.perf_counter()
     for lo in range(0, len(msgs), ses.cfg.batch):
         for lines in ses.process_wire(msgs[lo:lo + ses.cfg.batch]):
+            if keep is not None and len(keep) < KAFKA_PREFIX:
+                keep.append(lines)
             for ln in lines:
                 hasher.update(ln.encode())
                 hasher.update(b"\n")
@@ -3576,14 +3629,20 @@ class CardChildren:
     """Watches the serve and standby heartbeat files of a chaos run on a
     thread of its own: every 20 ms, the pid each names and the card's
     device nodes that pid holds open (a process with a CUDA context on
-    the card holds its node); every 0.5 s, the count of processes with a
-    context on the card (`nvidia-smi --query-compute-apps`)."""
+    the card holds its node), and each new heartbeat of a path as (its
+    own wall time, input offset, `device_ms_per_batch`), with the wall
+    time the path first existed; every 0.5 s, the count of processes with
+    a context on the card (`nvidia-smi --query-compute-apps`) and the
+    host's CPU time counters (/proc/stat: total and idle jiffies)."""
 
     def __init__(self, paths, card):
         import threading
 
         self.paths, self.card = list(paths), card
         self.pids, self.on_card, self.errors = set(), {}, []
+        self.first = {}
+        self.beats = {p: [] for p in self.paths}
+        self.load = []
         self.apps0 = gpu_apps()[0] if card else None
         self.apps_max = self.apps0
         self._stop = threading.Event()
@@ -3596,15 +3655,29 @@ class CardChildren:
             for path in self.paths:
                 try:
                     with open(path) as f:
-                        pid = int(json.load(f)["pid"])
+                        hb = json.load(f)
+                    pid = int(hb["pid"])
                 except (OSError, ValueError, KeyError, TypeError):
                     continue
+                self.first.setdefault(path, time.time())
+                beats = self.beats[path]
+                if not beats or beats[-1][0] != hb.get("time"):
+                    gauges = hb.get("metrics", {}).get("gauges", {})
+                    beats.append((hb.get("time"), hb.get("offset"),
+                                  gauges.get("device_ms_per_batch")))
                 self.pids.add(pid)
                 nodes = card_nodes(pid) if self.card else []
                 if nodes:
                     self.on_card.setdefault(pid, nodes)
-            if self.card and time.monotonic() >= next_smi:
-                next_smi = time.monotonic() + 0.5
+            if time.monotonic() < next_smi:
+                continue
+            next_smi = time.monotonic() + 0.5
+            with contextlib.suppress(OSError, ValueError), \
+                    open("/proc/stat") as f:
+                jiffies = [int(x) for x in f.readline().split()[1:]]
+                self.load.append((time.time(), sum(jiffies),
+                                  jiffies[3] + jiffies[4]))
+            if self.card:
                 r = subprocess.run(
                     ["nvidia-smi", "--query-compute-apps=pid",
                      "--format=csv,noheader"], capture_output=True,
@@ -3619,18 +3692,29 @@ class CardChildren:
         self._stop.set()
         self._th.join()
 
+    def busy(self, t_lo, t_hi):
+        """The host CPUs' busy share in each 0.5 s sample interval of
+        [t_lo, t_hi]: [(interval end, share)]."""
+        out = []
+        for (_, tot0, idle0), (t, tot, idle) in zip(self.load,
+                                                   self.load[1:]):
+            if t_lo <= t <= t_hi and tot > tot0:
+                out.append((t, round(1 - (idle - idle0) / (tot - tot0), 3)))
+        return out
 
-def chaos_drill(root, label, argv, card, device="cuda", min_apps=1):
+
+def chaos_drill(root, label, argv, card, device="cuda", min_apps=1,
+                states=("state",)):
     """One `python -m kme_tpu_torch.cli chaos --engine seq` run as a
-    subprocess, its children watched (CardChildren). Fails unless its
-    report says ok, every child named in a heartbeat held the card's
-    device node, the context count grew by `min_apps`, and the last
-    leader heartbeat counts service batches and kernel-counted messages.
-    -> (report, wall seconds, the run's stderr lines)."""
+    subprocess, the serve and standby heartbeats under each of its
+    `states` directories watched (CardChildren). Fails unless its report
+    says ok, every child named in a heartbeat held the card's device
+    node, the context count grew by `min_apps`, and each last leader
+    heartbeat counts service batches and kernel-counted messages.
+    -> (report, wall seconds, the run's stderr lines, the watcher)."""
     import signal
 
     run_dir = os.path.join(root, label)
-    state = os.path.join(run_dir, "state")
     cmd = [sys.executable, "-m", "kme_tpu_torch.cli", "chaos", "--engine",
            "seq", "--device", device, "--seed", "0", "--dir", run_dir,
            "--timeout", str(CHAOS_LIMIT_S), *CHAOS_SERVE, *argv]
@@ -3638,8 +3722,8 @@ def chaos_drill(root, label, argv, card, device="cuda", min_apps=1):
            if k not in ("KME_FAULTS", "KME_FAULTS_STATE")}
     env["PYTHONPATH"] = ROOT
     errpath = os.path.join(root, label + ".stderr")
-    watch = CardChildren([os.path.join(state, "serve.health"),
-                          os.path.join(state, "standby.health")],
+    watch = CardChildren([os.path.join(run_dir, st, hb) for st in states
+                          for hb in ("serve.health", "standby.health")],
                          card=device != "cpu")
     t0 = time.perf_counter()
     with open(errpath, "w") as errf:
@@ -3677,17 +3761,22 @@ def chaos_drill(root, label, argv, card, device="cuda", min_apps=1):
             fail(f"{label}: {watch.apps_max} processes with a context on the "
                  f"card at most, {watch.apps0} before the run; want "
                  f"{min_apps} more")
-    with open(os.path.join(state, "serve.health")) as f:
-        counters = json.load(f)["metrics"]["counters"]
-    if counters.get("service_batches", 0) <= 0 or counters.get("msgs", 0) <= 0:
-        fail(f"{label}: the last leader heartbeat counts no batch or no "
-             f"kernel-counted message: {counters}")
+    counted = []
+    for st in states:
+        with open(os.path.join(run_dir, st, "serve.health")) as f:
+            counters = json.load(f)["metrics"]["counters"]
+        if counters.get("service_batches", 0) <= 0 \
+                or counters.get("msgs", 0) <= 0:
+            fail(f"{label}: the last leader heartbeat in {st} counts no "
+                 f"batch or no kernel-counted message: {counters}")
+        counted.append(f"{counters['service_batches']} batches, "
+                       f"{counters['msgs']} messages")
     log(f"{label}: children {sorted(watch.pids)} each held "
         f"{sorted({n for v in watch.on_card.values() for n in v})}; "
         f"processes with a card context {watch.apps0} -> {watch.apps_max}; "
-        f"last leader heartbeat: {counters['service_batches']} batches, "
-        f"{counters['msgs']} messages counted by the kernel")
-    return report, wall, err
+        f"last leader heartbeat ({', '.join(states)}): "
+        f"{'; '.join(counted)} counted by the kernel")
+    return report, wall, err, watch
 
 
 def recoveries_seen(report, err):
@@ -3713,7 +3802,7 @@ def chaos_phase(card, device="cuda"):
     try:
         ckpt = ["--checkpoint-every", str(CHAOS_CKPT_EVERY)]
         # 15a: every fault class
-        rep, walls["15a"], err = chaos_drill(
+        rep, walls["15a"], err, _ = chaos_drill(
             root, "chaos-default", ["--events", str(CHAOS_EVENTS), *ckpt],
             card, device)
         fired = rep["fault_fires"]
@@ -3734,7 +3823,7 @@ def chaos_phase(card, device="cuda"):
         for ln in restores:
             log(f"15a restore: {ln}")
         # 15b: hot-standby failover
-        rep, walls["15b"], err = chaos_drill(
+        rep, walls["15b"], err, _ = chaos_drill(
             root, "chaos-failover", ["--scenario", "failover", "--events",
                                      str(CHAOS_EVENTS), *ckpt], card,
             device, min_apps=2)
@@ -3746,7 +3835,7 @@ def chaos_phase(card, device="cuda"):
             f"recovery_seconds {rep['recovery_seconds']}, wall "
             f"{walls['15b']:.1f} s")
         # 15c: the settlement storm at the adaptive overload controller
-        rep, walls["15c"], err = chaos_drill(
+        rep, walls["15c"], err, _ = chaos_drill(
             root, "chaos-storm", ["--scenario", STORM, "--events",
                                   str(STORM_EVENTS), *ckpt,
                                   "--overload-high-lag", str(STORM_HIGH_LAG)],
@@ -3762,6 +3851,318 @@ def chaos_phase(card, device="cuda"):
         return walls
     finally:
         shutil.rmtree(root, ignore_errors=True)
+
+
+# phase 16: the other failover drills, the Kafka transport, the host tools
+
+
+def supervisor_spawns(state_dir):
+    """The wall times (s) of a supervisor's first child and standby
+    spawns, from its event log."""
+    spawn = {}
+    with open(os.path.join(state_dir, "events-supervisor.jsonl")) as f:
+        for ln in f:
+            ev = json.loads(ln)
+            spawn.setdefault(ev["kind"], ev["ts"] / 1e6)
+    return spawn
+
+
+def first_heartbeats(run_dir, states, watch):
+    """Each child's seconds from its supervisor's spawn to its first
+    heartbeat: {"<state> serve"|"<state> standby": s}."""
+    out = {}
+    for st in states:
+        spawn = supervisor_spawns(os.path.join(run_dir, st))
+        for hb, kind in (("serve", "supervisor.spawn"),
+                         ("standby", "supervisor.standby_spawn")):
+            path = os.path.join(run_dir, st, hb + ".health")
+            if path in watch.first and kind in spawn:
+                out[f"{st} {hb}"] = round(watch.first[path] - spawn[kind], 3)
+    return out
+
+
+def failover_drills_phase(card, device="cuda"):
+    """Phase 16a and 16b (see the module docstring): `kme-torch-chaos
+    --scenario shard-failover` and `--scenario feed-failover` against
+    children on `device` (`cpu` rehearses them with the plain versions,
+    the card checks left out). -> {drill: wall seconds}."""
+    import shutil
+    import tempfile
+
+    from kme_tpu_torch.bridge.chaos import _busy_rate
+
+    root = tempfile.mkdtemp(prefix="kme_failover_")
+    walls = {}
+    try:
+        # 16a: two group leaders and the victim's hot standby on one card
+        states = tuple(f"group{k}/state" for k in range(SHARD_GROUPS))
+        rep, walls["16a"], err, watch = chaos_drill(
+            root, "shard-failover",
+            ["--scenario", "shard-failover", "--events", str(CHAOS_EVENTS),
+             "--groups", str(SHARD_GROUPS), "--prefund", str(FRONT_PREFUND),
+             "--cross-frac", str(SHARD_CROSS_FRAC),
+             "--checkpoint-every", str(CHAOS_CKPT_EVERY),
+             "--grace", str(SUPERVISE_GRACE),
+             "--idle-exit", str(SHARD_IDLE_EXIT)],
+            card, device, min_apps=SHARD_GROUPS + 1, states=states)
+        run_dir = os.path.join(root, "shard-failover")
+        victim = rep["victim"]
+        unmeasured = [g for g, d in rep["survivor_dips"].items() if d is None]
+        if unmeasured:
+            fail(f"16a: survivors {unmeasured} show no busy rate during the "
+                 f"outage (drained before it, or the window held under two "
+                 f"samples): the dip check measured nothing; "
+                 f"{rep['survivor_rates']}, substreams {rep['substreams']}")
+        with open(os.path.join(run_dir, f"group{victim}", "state",
+                               "supervisor.json")) as f:
+            rec = next(r for r in json.load(f)["recoveries"]
+                       if r.get("promoted"))
+        det = float(rec["detected_at"])
+        out_hi = det + float(rec["recovered_in"])
+        log(f"16a: shard-failover, {rep['groups']} groups, substreams "
+            f"{rep['substreams']}, victim g{victim} killed at "
+            f"{rep['schedule']}; failover_seconds {rep['failover_seconds']} "
+            f"(bound 2.0), outage window {rep['outage_window_s']} s; "
+            f"survivors' busy rates (msgs/s, chaos's 10 Hz samples) "
+            f"{json.dumps(rep['survivor_rates'])}, dips "
+            f"{rep['survivor_dips']} (bound 0.10); duplicate stamps "
+            f"{rep['duplicate_stamps']}, stale_epoch_fenced "
+            f"{rep['stale_epoch_fenced']}, merged parity "
+            f"{'byte-exact' if rep['verify']['ok'] else 'DIVERGED'} "
+            f"({rep['verify'].get('merged_lines')} lines), "
+            f"cross-shard transfers {rep['cross_shard_transfers']}, trace "
+            f"{json.dumps(rep['trace'])}; wall {walls['16a']:.1f} s")
+        log(f"16a: seconds from spawn to first heartbeat "
+            f"{json.dumps(first_heartbeats(run_dir, states, watch))}")
+        for k in range(SHARD_GROUPS):
+            path = os.path.join(run_dir, f"group{k}", "state",
+                                "serve.health")
+            beats = [(t, off) for t, off, _ in watch.beats[path]
+                     if t is not None]
+            near = [(round(t - det, 3), off, ms)
+                    for t, off, ms in watch.beats[path]
+                    if t is not None and det - 1.0 <= t <= out_hi + 1.0]
+            log(f"16a g{k}{' (victim)' if k == victim else ''}: busy rate "
+                f"by the heartbeats' own clock, whole run "
+                f"{_busy_rate(beats, 0.0, float('inf'))}, outage "
+                f"{_busy_rate(beats, det, out_hi)} msgs/s; heartbeats from "
+                f"1 s before detection to 1 s after recovery (s from "
+                f"detection, offset, device_ms_per_batch): {near}")
+        busy = [(round(t - det, 1), share)
+                for t, share in watch.busy(det - 5, out_hi + 5)]
+        log(f"16a: the host CPUs' busy share (/proc/stat, 0.5 s intervals, "
+            f"s from detection) from 5 s before detection to 5 s after "
+            f"recovery: {busy or 'not measured'}")
+        # 16b: the feed tier across a card leader's failover
+        rep, walls["16b"], err, watch = chaos_drill(
+            root, "feed-failover",
+            ["--scenario", "feed-failover", "--events", str(CHAOS_EVENTS),
+             "--checkpoint-every", str(CHAOS_CKPT_EVERY),
+             "--grace", str(SUPERVISE_GRACE)], card, device, min_apps=2)
+        subs = rep["subscribers"]
+        firsts = first_heartbeats(os.path.join(root, "feed-failover"),
+                                  ("state",), watch)
+        if rep["feed_reconnects"] < 1 or not all(
+                s["byte_exact"] and s["gaps"] == 0 and s["dups"] == 0
+                for s in subs):
+            fail(f"16b: reconnects {rep['feed_reconnects']}, subscribers "
+                 f"{subs}")
+        log(f"16b: feed-failover, failover_seconds {rep['failover_seconds']} "
+            f"(bound 2.0), feed reconnects {rep['feed_reconnects']}, frames "
+            f"{rep['feed']['frames']}, feed_lag p99 {rep['feed_lag_p99_ms']} "
+            f"ms, subscribers {json.dumps(subs)}; first heartbeats "
+            f"{json.dumps(firsts)}; "
+            f"wall {walls['16b']:.1f} s; card {card}")
+        return walls
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def kafka_stand_in(logs):
+    """A minimal in-memory stand-in for the aiokafka client surface that
+    `KafkaBroker` calls (producer, consumer with assign/seek/getmany/
+    end_offsets, admin, TopicPartition) over `logs` ({topic: [(key bytes,
+    value bytes)]}), partition 0 only. -> {module name: module}."""
+    import types
+
+    class TopicPartition:
+        def __init__(self, topic, partition):
+            self.topic, self.partition = topic, partition
+
+        def __hash__(self):
+            return hash((self.topic, self.partition))
+
+        def __eq__(self, o):
+            return (self.topic, self.partition) == (o.topic, o.partition)
+
+    class Client:
+        def __init__(self, **kw):
+            self.pos = {}
+
+        async def start(self):
+            pass
+
+        async def stop(self):
+            pass
+
+        async def close(self):
+            pass
+
+        async def flush(self):
+            pass
+
+        async def send_and_wait(self, topic, value, key=None, partition=0):
+            if partition != 0:
+                raise ValueError(f"partition {partition}")
+            logs.setdefault(topic, []).append((key, value))
+            return types.SimpleNamespace(offset=len(logs[topic]) - 1)
+
+        def assign(self, tps):
+            for tp in tps:
+                self.pos.setdefault(tp, 0)
+
+        def seek(self, tp, offset):
+            self.pos[tp] = offset
+
+        async def getmany(self, *tps, timeout_ms=0, max_records=1024):
+            out = {}
+            for tp in tps:
+                pos = self.pos.get(tp, 0)
+                recs = logs.get(tp.topic, [])[pos:pos + max_records]
+                if recs:
+                    out[tp] = [types.SimpleNamespace(offset=pos + i, key=k,
+                                                     value=v)
+                               for i, (k, v) in enumerate(recs)]
+                    self.pos[tp] = pos + len(recs)
+            return out
+
+        async def end_offsets(self, tps):
+            return {tp: len(logs.get(tp.topic, [])) for tp in tps}
+
+        async def list_topics(self):
+            return list(logs)
+
+        async def create_topics(self, news):
+            for n in news:
+                logs.setdefault(n.name, [])
+
+    mod = types.ModuleType("aiokafka")
+    admin = types.ModuleType("aiokafka.admin")
+    mod.TopicPartition = TopicPartition
+    mod.AIOKafkaProducer = mod.AIOKafkaConsumer = Client
+    admin.AIOKafkaAdminClient = Client
+    admin.NewTopic = lambda name, **kw: types.SimpleNamespace(name=name)
+    mod.admin = admin
+    return {"aiokafka": mod, "aiokafka.admin": admin}
+
+
+def kafka_phase(SQ, values, b1_prefix, card, device="cuda"):
+    """Phase 16c: `kme_tpu_torch.bridge.serve.main([... "--kafka" ...])`
+    in process over the first KAFKA_PREFIX messages, the seq engine on
+    `device` at the serve defaults, the Kafka cluster an in-memory
+    stand-in: its MatchOut must be B1's lines for those messages
+    (`b1_prefix`, per message), launches = dispatches. -> B1 launches."""
+    import torch
+
+    from kme_tpu_torch.bridge import serve
+    from kme_tpu_torch.bridge import service as SV
+
+    P = KAFKA_PREFIX
+    logs = {"MatchIn": [(None, v.encode()) for v in values[:P]]}
+    mods = kafka_stand_in(logs)
+    saved = {name: sys.modules.get(name) for name in mods}
+    made = []
+
+    class Service(SV.MatchService):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    orig = SV.MatchService
+    sys.modules.update(mods)
+    SV.MatchService = Service
+    try:
+        zero_launches(SQ.LAUNCHES)
+        t = time.perf_counter()
+        rc = serve.main(["--kafka", "stand-in:9092", "--engine", "seq",
+                         "--device", device, "--auto-provision",
+                         "--max-messages", str(P)])
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        SV.MatchService = orig
+        for name, m in saved.items():
+            if m is None:
+                sys.modules.pop(name, None)
+            else:
+                sys.modules[name] = m
+    if rc != 0 or len(made) != 1:
+        fail(f"16c: serve --kafka exited {rc} ({len(made)} services)")
+    svc = made[0]
+    launches = (seq_launches_checked(SQ, svc, "16c") if device != "cpu"
+                else svc._session.dispatches)
+    got = [f"{k.decode()} {v.decode()}" for k, v in logs.get("MatchOut", [])]
+    want = [ln for m in b1_prefix for ln in m]
+    if len(b1_prefix) != P or got != want:
+        fail(f"16c: the Kafka-served MatchOut ({len(got)} lines) != B1's "
+             f"lines for the first {P} messages ({len(want)} lines)")
+    log(f"16c: kme-torch-serve --kafka (the Kafka cluster an in-memory "
+        f"stand-in for aiokafka; the card and B1 real): {P} messages in "
+        f"{wall:.3f} s = {P / wall:.0f} msg/s (host clock, synchronized; "
+        f"the engine built inside), {launches} B1 launches = dispatches, "
+        f"MatchOut == B1's lines for those messages ({len(got)} lines); "
+        f"card {card}")
+    return launches
+
+
+def host_tools_phase(java_values):
+    """Phase 16d: `python -m kme_tpu_torch.cli sim --seed N --json` for
+    each of SIM_DIGESTS, and `... oracle --compat java` over the java
+    stream, as subprocesses (no JAX on the card machine): the recorded
+    digests and the java oracle's MatchOut."""
+    import shutil
+    import tempfile
+
+    cli = [sys.executable, "-m", "kme_tpu_torch.cli"]
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    root = tempfile.mkdtemp(prefix="kme_sim_")
+    try:
+        for seed, want in SIM_DIGESTS.items():
+            t = time.perf_counter()
+            r = subprocess.run(cli + ["sim", "--seed", str(seed), "--json",
+                                      "--out", os.path.join(root, str(seed))],
+                               cwd=ROOT, env=env, capture_output=True,
+                               text=True, timeout=600)
+            wall = time.perf_counter() - t
+            try:
+                doc = json.loads(r.stdout)
+            except ValueError:
+                doc = {}
+            got = (doc.get("trace_digest"), doc.get("out_digest"))
+            if r.returncode != 0 or not doc.get("ok") or got != want:
+                fail(f"16d: kme-torch-sim --seed {seed} exited "
+                     f"{r.returncode}, ok {doc.get('ok')}, digests {got}; "
+                     f"recorded {want}: {r.stderr[-2000:]}")
+            log(f"16d: kme-torch-sim --seed {seed}: green, trace_digest "
+                f"{got[0]}, out_digest {got[1]} (== both packages' CPU "
+                f"runs), vtime {doc['vtime']}, counters "
+                f"{json.dumps(doc['counters'])}; {wall:.1f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t = time.perf_counter()
+    r = subprocess.run(cli + ["oracle", "--compat", "java"], cwd=ROOT, env=env,
+                       input="".join(v + "\n" for v in java_values),
+                       capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t
+    got = stream_digest(r.stdout.splitlines())
+    if r.returncode != 0 or got != (JAVA_LINES, JAVA_SHA256):
+        fail(f"16d: kme-torch-oracle --compat java exited {r.returncode}, "
+             f"{got[0]} lines sha256 {got[1]}; the java oracle gives "
+             f"{JAVA_LINES} lines sha256 {JAVA_SHA256}: {r.stderr[-2000:]}")
+    log(f"16d: kme-torch-oracle --compat java over the java stream "
+        f"({len(java_values)} messages): {got[0]} lines, sha256 {got[1]} == "
+        f"the java oracle's; {wall:.1f} s")
 
 
 def main() -> int:
@@ -3894,7 +4295,9 @@ def main() -> int:
 
     # ---- 4. B1 main path: the stream end to end through the session
     ses = SeqSession(cfg)
-    b1_lines, b1_sha, wall, launches = main_path(SQ, ses, msgs, "B1")
+    b1_prefix = []      # phase 16c's reference
+    b1_lines, b1_sha, wall, launches = main_path(SQ, ses, msgs, "B1",
+                                                 keep=b1_prefix)
     met = b1_met = ses.metrics()
     canon = SQ.export_canonical(cfg, ses.state)
     if int(canon["err"]) != 0:
@@ -4054,8 +4457,8 @@ def main() -> int:
     # ---- 14. the failover drills; 14a's launches of B1 join the main
     # paths'
     t = time.perf_counter()
-    b1_failover = failover_phase(SQ, [dumps_order(m) for m in zipf],
-                                 (b1_lines, b1_sha), card)
+    values = [dumps_order(m) for m in zipf]
+    b1_failover = failover_phase(SQ, values, (b1_lines, b1_sha), card)
     b1_entry["launches"] += b1_failover
     log(f"phase 14 took {time.perf_counter() - t:.1f} s; B1 launches by "
         f"14a: {b1_failover}")
@@ -4066,7 +4469,18 @@ def main() -> int:
     walls = chaos_phase(card)
     log(f"phase 15 took {time.perf_counter() - t:.1f} s ({walls})")
 
-    # ---- 16. summary
+    # ---- 16. the other failover drills (their children's launches are
+    # not counted here), the Kafka transport (its launches of B1 join the
+    # main paths') and the host-only tools
+    t = time.perf_counter()
+    walls = failover_drills_phase(card)
+    b1_kafka = kafka_phase(SQ, values, b1_prefix, card)
+    b1_entry["launches"] += b1_kafka
+    host_tools_phase([dumps_order(m) for m in java_msgs])
+    log(f"phase 16 took {time.perf_counter() - t:.1f} s ({walls}); B1 "
+        f"launches by 16c: {b1_kafka}")
+
+    # ---- 17. summary
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

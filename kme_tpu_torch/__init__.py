@@ -20,7 +20,9 @@ and the serving stack (`bridge/`: broker, TCP, `MatchService`, `serve`)
 with its CLI (`cli.py`); the seq fleet and the sharded lanes engine
 (`parallel/`); the service's observability (`telemetry/`); the
 multi-leader front, its group services and live resharding
-(`bridge/front.py`, `bridge/reshard.py`); and the market-data feed
-(`feed/`). Entry points run on the card unless the caller passes
-`device="cpu"`.
+(`bridge/front.py`, `bridge/reshard.py`); the market-data feed
+(`feed/`); failover and chaos drills (`bridge/replica.py`,
+`supervise.py`, `chaos.py`); the Kafka transport (`bridge/kafka.py`);
+and the deterministic whole-cluster simulator (`sim/`, host only).
+Entry points run on the card unless the caller passes `device="cpu"`.
 """

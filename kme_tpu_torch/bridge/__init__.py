@@ -20,6 +20,8 @@ stack.
 - chaos.py    — kme-torch-chaos: seeded fault-injection drills and
                 overload storms against supervised serve children,
                 verified byte for byte against the oracle.
+- kafka.py    — the broker surface over a Kafka cluster (aiokafka,
+                optional): kme-torch-serve --kafka.
 """
 
 from kme_tpu_torch.bridge.broker import BrokerError, InProcessBroker, Record

@@ -13,7 +13,10 @@ serve arguments to the hot standby. The drills with a hot standby
 (failover, shard-failover, feed-failover) hold their input until the
 standby's first heartbeat: the supervisor promotes only a standby that
 is up, and the port's host-engine leader reaches a short drill's kill
-point before its standby is. Without a card, `--engine seq` or
+point before its standby is. shard-failover also holds every group's
+input until every group's leader is up, so that the survivors are
+serving when the victim is killed (a card child takes seconds to
+start). Without a card, `--engine seq` or
 `lanes` on `--device cuda` exits with an error at once: nothing falls
 back to the CPU. Pass `--device cpu` (the kernels' plain versions) or
 `--engine oracle` to run a drill without a card, as the tests do.
@@ -251,8 +254,16 @@ def _await_standby(ckpt_dir: str, sup, deadline: float) -> None:
     before then is restarted cold, which is the default scenario's path,
     not a failover. (A host-engine leader reaches a short drill's kill
     point within half a second of its start.)"""
-    hb = os.path.join(ckpt_dir, "standby.health")
-    while not os.path.exists(hb) and sup.poll() is None \
+    _await_heartbeats([os.path.join(ckpt_dir, "standby.health")], [sup],
+                      deadline)
+
+
+def _await_heartbeats(paths: List[str], sups: list,
+                      deadline: float) -> None:
+    """Wait until every heartbeat file in `paths` exists, a supervisor
+    has exited, or the deadline passes."""
+    while not all(os.path.exists(p) for p in paths) \
+            and all(s.poll() is None for s in sups) \
             and time.time() < deadline:
         time.sleep(0.05)
 
@@ -546,13 +557,19 @@ def run_shard_failover(args, run_dir: str, report_path: str) -> int:
             env["KME_FAULTS"] = schedule
             env["KME_FAULTS_STATE"] = os.path.join(gdir, "fault-state")
         sups.append(subprocess.Popen(sup_cmd, env=env))
-        if k == victim:
-            _await_standby(ckpt, sups[-1], t0 + args.timeout)
-        prod = _Producer("127.0.0.1", port, per_group[k],
-                         topic=group_topics(k)[0],
-                         topics=group_topics(k))
+        producers.append(_Producer("127.0.0.1", port, per_group[k],
+                                   topic=group_topics(k)[0],
+                                   topics=group_topics(k)))
+    # hold every group's input until all leaders and the victim's standby
+    # are up: a card child takes seconds to start, and a survivor whose
+    # input began after the kill (or that had not started by then) shows
+    # no rate during the outage, so the dip check would measure nothing
+    _await_heartbeats(
+        [os.path.join(g, "state", "serve.health") for g in gdirs]
+        + [os.path.join(gdirs[victim], "state", "standby.health")],
+        sups, t0 + args.timeout)
+    for prod in producers:
         prod.start()
-        producers.append(prod)
 
     # 10 Hz heartbeat sampling: (wall time, input offset) per group —
     # the survivors' liveness evidence during the victim's outage
@@ -631,6 +648,7 @@ def run_shard_failover(args, run_dir: str, report_path: str) -> int:
         det = float(promoted[0]["detected_at"])
         outage = (det, det + float(promoted[0].get("recovered_in", 0)))
     dips: dict = {}
+    rates: dict = {}
     for k in range(groups):
         if k == victim:
             continue
@@ -641,6 +659,7 @@ def run_shard_failover(args, run_dir: str, report_path: str) -> int:
         full = _busy_rate(samples[k], 0.0, float("inf"))
         win = (_busy_rate(samples[k], *outage)
                if outage is not None else None)
+        rates[f"g{k}"] = {"full": full, "outage": win}
         if full and win is not None:
             dip = max(0.0, 1.0 - win / full)
             dips[f"g{k}"] = round(dip, 4)
@@ -764,6 +783,7 @@ def run_shard_failover(args, run_dir: str, report_path: str) -> int:
         "promotions": len(promoted),
         "failover_seconds": fo,
         "survivor_dips": dips,
+        "survivor_rates": rates,
         "outage_window_s": (round(outage[1] - outage[0], 3)
                             if outage else None),
         "duplicate_stamps": dup_stamps,

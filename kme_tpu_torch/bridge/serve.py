@@ -14,25 +14,16 @@ kme-torch-provision first).
 The observability flags (journal, audit, SLO, span tracing, TSDB,
 profiler and captures, watchpoints, /metrics) are served as in the JAX
 package, and so is `--group K/N`, one group of the multi-leader
-deployment behind `kme-torch-front`. `--kafka`, whose module the port
-does not have yet (UNPORTED_FLAGS), exits with an error naming it."""
+deployment behind `kme-torch-front`. `--kafka BOOTSTRAP` serves against
+a Kafka cluster through the aiokafka transport (bridge/kafka.py): the
+topics live there, no TCP listener is bound, `--listen`/`--log-dir` are
+ignored, and the output is at-least-once (the transport carries no
+produce stamps)."""
 
 from __future__ import annotations
 
 import argparse
 import sys
-
-# flag -> (its argparse dest, its default, the JAX package's module it
-# needs); any other value than the default is refused
-UNPORTED_FLAGS = {
-    "--kafka": ("kafka", None, "bridge/kafka.py"),
-}
-
-
-def unported_flags(args) -> list:
-    """(flag, module) of every flag given that the port cannot serve."""
-    return [(flag, mod) for flag, (dest, default, mod)
-            in UNPORTED_FLAGS.items() if getattr(args, dest) != default]
 
 
 def main(argv=None) -> int:
@@ -261,12 +252,6 @@ def main(argv=None) -> int:
                         "code (the IN/OUT stream stays byte-identical "
                         "to the reference)")
     args = p.parse_args(argv)
-    bad = unported_flags(args)
-    if bad:
-        flag, mod = bad[0]
-        p.error(f"{flag} needs the JAX package's {mod}, which "
-                f"kme_tpu_torch does not have yet (ROADMAP.md, Queue A "
-                f"item 6)")
 
     import os
 
@@ -300,33 +285,43 @@ def main(argv=None) -> int:
     from kme_tpu_torch.bridge.service import MatchService
     from kme_tpu_torch.bridge.tcp import parse_addr, serve_broker
 
-    log_dir = args.log_dir
-    if log_dir is None and args.checkpoint_dir is not None:
-        log_dir = os.path.join(args.checkpoint_dir, "broker-log")
-    overload = None
-    if args.overload_high_lag is not None:
-        from kme_tpu_torch.bridge.broker import OverloadController
+    if args.kafka is not None:
+        from kme_tpu_torch.bridge.kafka import KafkaBroker
 
-        overload = OverloadController(
-            high_lag=args.overload_high_lag,
-            low_lag=args.overload_low_lag,
-            drain_lag=args.overload_drain_lag,
-            p99_budget_ms=args.overload_p99_ms,
-            account_cap=args.overload_account_cap)
-    broker = InProcessBroker(persist_dir=log_dir, max_lag=args.max_lag,
-                             overload=overload)
-    host, port = parse_addr(args.listen)
+        broker = KafkaBroker(args.kafka)
+        print(f"kme-serve: using Kafka at {args.kafka}", file=sys.stderr)
+    else:
+        log_dir = args.log_dir
+        if log_dir is None and args.checkpoint_dir is not None:
+            log_dir = os.path.join(args.checkpoint_dir, "broker-log")
+        overload = None
+        if args.overload_high_lag is not None:
+            from kme_tpu_torch.bridge.broker import OverloadController
+
+            overload = OverloadController(
+                high_lag=args.overload_high_lag,
+                low_lag=args.overload_low_lag,
+                drain_lag=args.overload_drain_lag,
+                p99_budget_ms=args.overload_p99_ms,
+                account_cap=args.overload_account_cap)
+        broker = InProcessBroker(persist_dir=log_dir, max_lag=args.max_lag,
+                                 overload=overload)
+        host, port = parse_addr(args.listen)
     if args.auto_provision:
         provision(broker, topics=(group_topics(group[0])
                                   if group is not None and group[1] > 1
                                   else None))
     # exactly-once is the DEFAULT served contract once durability is on
     # (the reference shipped with it commented out, KProcessor.java:29);
-    # --at-least-once opts back into the historical behavior. REJ
-    # annotations interleave at non-deterministic batch boundaries, so
-    # they fall back loudly.
+    # --at-least-once opts back into the historical behavior. The Kafka
+    # transport has no produce stamps and REJ annotations interleave at
+    # non-deterministic batch boundaries: both fall back loudly.
     exactly_once = (args.checkpoint_dir is not None
                     and not args.at_least_once)
+    if exactly_once and args.kafka is not None:
+        print("kme-serve: the Kafka transport carries no produce stamps; "
+              "falling back to at-least-once output", file=sys.stderr)
+        exactly_once = False
     if exactly_once and args.annotate_rejects:
         print("kme-serve: --annotate-rejects interleaves REJ records at "
               "batch boundaries, which replay differently across a "
@@ -375,10 +370,11 @@ def main(argv=None) -> int:
         # would wait out the engine's start-up (on the card the CUDA
         # context, the state and a snapshot restore: seconds) inside its
         # admission-to-output latency
-        srv = serve_broker(host, port, broker)[0]
-        real_host, real_port = srv.server_address[:2]
-        print(f"kme-serve: broker listening on {real_host}:{real_port}",
-              file=sys.stderr, flush=True)
+        if args.kafka is None:
+            srv = serve_broker(host, port, broker)[0]
+            real_host, real_port = srv.server_address[:2]
+            print(f"kme-serve: broker listening on {real_host}:{real_port}",
+                  file=sys.stderr, flush=True)
         if args.metrics_port is not None:
             from kme_tpu_torch.telemetry import start_metrics_server
 

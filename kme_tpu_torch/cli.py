@@ -31,10 +31,14 @@
               supervised serve children (bridge/chaos.py), which run
               the seq engine on the card unless `--device cpu` or
               `--engine oracle` says otherwise
+- oracle    — the reference replica over stdin/stdout (host only)
+- sim       — the deterministic whole-cluster simulation (sim/): seeded
+              virtual-clock runs, seed sweeps, shrunk repros (host only:
+              its leaders and standbys run the oracle engine)
 
 `trace --cluster` and `xray --cluster` read a multi-leader run
 directory. `prof --diff` waits for perfgate.py and exits 2 naming it.
-The JAX package's other commands (bench, sim, ...) are not ported.
+The JAX package's bench and lint commands are not ported.
 """
 
 from __future__ import annotations
@@ -1215,12 +1219,40 @@ def events_main(argv=None) -> int:
     return _main(argv)
 
 
+def oracle_main(argv=None) -> int:
+    """Reference-replica engine over stdin/stdout: read order JSON lines,
+    print the 'IN {...}' / 'OUT {...}' stream consumer.js would show."""
+    p = argparse.ArgumentParser(prog="kme-torch-oracle",
+                                description=oracle_main.__doc__)
+    p.add_argument("--compat", choices=("java", "fixed"), default="java")
+    args = p.parse_args(argv)
+    from kme_tpu_torch.oracle import OracleEngine
+    from kme_tpu_torch.wire import parse_order
+
+    eng = OracleEngine(args.compat)
+    for line in sys.stdin:
+        line = line.strip()
+        if not line:
+            continue
+        for rec in eng.process(parse_order(line)):
+            print(rec.wire())
+    return 0
+
+
+def sim_main(argv=None) -> int:
+    """Deterministic whole-cluster simulation: seeded virtual-clock
+    runs, seed sweeps, shrinking repros (kme_tpu_torch/sim/)."""
+    from kme_tpu_torch.sim.cli import sim_main as _main
+
+    return _main(argv)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m kme_tpu_torch.cli")
     p.add_argument("command", choices=(
         "serve", "loadgen", "consume", "provision", "trace", "prof",
         "top", "xray", "events", "agg", "front", "reshard", "feed",
-        "supervise", "standby", "chaos"))
+        "supervise", "standby", "chaos", "oracle", "sim"))
     args, rest = p.parse_known_args(argv)
     try:
         return {"serve": serve_main, "loadgen": loadgen_main,
@@ -1230,8 +1262,8 @@ def main(argv=None) -> int:
                 "agg": agg_main, "front": front_main,
                 "reshard": reshard_main,
                 "feed": feed_main, "supervise": supervise_main,
-                "standby": standby_main,
-                "chaos": chaos_main}[args.command](rest)
+                "standby": standby_main, "chaos": chaos_main,
+                "oracle": oracle_main, "sim": sim_main}[args.command](rest)
     except BrokenPipeError:
         # downstream closed the pipe (e.g. `| head`): point both std
         # streams at devnull so interpreter-shutdown flushes cannot

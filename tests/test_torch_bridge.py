@@ -279,11 +279,11 @@ def test_exactly_once_stamps_survive_a_crash(engine, tmp_path):
     assert not any(ring.is_dup(e, s) for e, s, _k, _v in got)
 
 
-def test_unported_options_raise(tmp_path):
-    """Only Kafka waits for its module: the observability options and
-    the multi-leader group construct (the ported modules), and
-    kme-torch-serve refuses only --kafka, naming bridge/kafka.py, while
-    --group K/N serves."""
+def test_unported_options_raise(tmp_path, monkeypatch):
+    """Every serve option is ported: the observability options and the
+    multi-leader group construct, kme-torch-serve takes --kafka and
+    reaches the Kafka adapter (which without aiokafka raises naming it),
+    and --group K/N serves. The service itself takes no Kafka option."""
     b = _broker(InProcessBroker, [])
     svc = SV.MatchService(b, engine="oracle", group=(1, 2))
     assert (svc.topic_in, svc.topic_out, svc.topic_xfer) == (
@@ -310,11 +310,12 @@ def test_unported_options_raise(tmp_path):
                           accounts=128, device="cpu")
     assert svc._session.shards == 2 and svc._session.dev_cfg.width == 0
     from kme_tpu_torch.bridge import serve
+    from kme_tpu_torch.bridge.broker import BrokerError
 
-    assert set(serve.UNPORTED_FLAGS) == {"--kafka"}
-    with pytest.raises(SystemExit) as e:
-        serve.main(["--kafka", "k:1"])
-    assert e.value.code == 2
+    assert not hasattr(serve, "UNPORTED_FLAGS")
+    monkeypatch.setitem(sys.modules, "aiokafka", None)
+    with pytest.raises(BrokerError, match="aiokafka"):
+        serve.main(["--kafka", "k:1", "--engine", "oracle"])
     assert serve.main(["--group", "0/2", "--engine", "oracle", "--listen",
                        "127.0.0.1:0", "--auto-provision",
                        "--idle-exit", "0.2"]) == 0

@@ -366,6 +366,59 @@ def test_child_commands_name_the_port(scenario, tmp_path, monkeypatch):
                       2 if scenario == "shard-failover" else 1)
 
 
+def test_shard_failover_input_waits_for_every_child(tmp_path, monkeypatch):
+    """shard-failover starts no group's producer before every group's
+    leader and the victim's hot standby have written a heartbeat: a card
+    child takes seconds to start, and a survivor that starts serving
+    after the victim's kill shows no rate during the outage."""
+    import glob
+    import threading
+    import time
+
+    class Child(_FakeChild):
+        def poll(self):
+            return None
+
+    spawned = []
+
+    def spawn(args, **kw):
+        ck = args[args.index("--checkpoint-dir") + 1]
+        names = ["serve.health"] + (["standby.health"]
+                                    if "--standby" in args else [])
+        delay = 0.3 * len(spawned)      # later groups come up later
+
+        def beat():
+            time.sleep(delay)
+            for name in names:
+                with open(os.path.join(ck, name), "w") as f:
+                    f.write("{}")
+
+        threading.Thread(target=beat, daemon=True).start()
+        spawned.append(ck)
+        return Child(args, **kw)
+
+    seen = []
+
+    class Producer:
+        def __init__(self, host, port, lines, topic=None, topics=None):
+            pass
+
+        def start(self):
+            seen.append(sorted(os.path.relpath(p, tmp_path) for p in
+                               glob.glob(str(tmp_path / "group*" / "state"
+                                             / "*.health"))))
+            raise _Stop
+
+    monkeypatch.setattr(subprocess, "Popen", spawn)
+    monkeypatch.setattr(C, "_Producer", Producer)
+    with pytest.raises(_Stop):
+        C.main(["--scenario", "shard-failover", "--engine", "oracle",
+                "--device", "cpu", "--events", "120", "--timeout", "30",
+                "--dir", str(tmp_path)])
+    assert len(spawned) == 2
+    assert len(seen[0]) == 3 and sum("standby" in p for p in seen[0]) == 1
+
+
 @pytest.mark.parametrize("engine", ["oracle", "native"])
 def test_host_engine_service_loop_imports_no_torch(engine):
     """A host engine's service must not import torch inside its serve

@@ -14,7 +14,9 @@ and the service (seq pipelined, seq java, lanes, and a group of a
 multi-leader deployment) on the card against the same service on the CPU, with snapshots restored from the card onto the
 CPU and back; a hot-standby replica on the card that follows a dead
 leader and is promoted, against a CPU service; the chaos harness's
-failover drill against supervised children on the card; the seq fleet (its shards on their own CUDA streams) in
+failover drill against supervised children on the card; the service
+served over the Kafka transport (an in-memory stand-in for the client)
+against B1's recorded lines; the seq fleet (its shards on their own CUDA streams) in
 both dispatch modes against the same fleet on the CPU, with a race probe
 that patches accounts across shards in every window; the sharded
 lanes engine's captured step against the CPU; and the observability
@@ -732,6 +734,49 @@ def test_card_chaos_failover(cuda_device, tmp_path):
     assert report["engine"] == "seq"
     assert report["failover"]["promotions"] >= 1
     assert report["verify"]["epochs"][-1] >= 2
+
+
+# the MatchOut (lines, sha256 of the lines each followed by a newline) of
+# the first KAFKA_PREFIX messages of chip_smoke.py's zipf stream at the
+# serve defaults: B1's lines, as the oracle gives them
+# (tests/test_torch_kafka.py recomputes them with the JAX package's oracle)
+KAFKA_PREFIX = 10_240
+KAFKA_PREFIX_MATCHOUT = (
+    21_298, "e4d4e49c3b775febc21273ecb5d3bc0c4331336fe1c41911b22a21437bf18486")
+
+
+@pytest.mark.cuda
+def test_card_service_over_kafka(cuda_device, monkeypatch):
+    """`kme-torch-serve --kafka` in process, the seq engine on the card at
+    the serve defaults, the Kafka cluster an in-memory stand-in for the
+    aiokafka client (chip_smoke.py's): the MatchOut of the first
+    KAFKA_PREFIX zipf messages is the recorded B1 lines', with one B1
+    launch per dispatch."""
+    import hashlib
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke as CS
+    from kme_tpu_torch.bridge import serve
+    from kme_tpu_torch.wire import dumps_order
+
+    msgs = zipf_symbol_stream(**CS.STREAM)[:KAFKA_PREFIX]
+    logs = {"MatchIn": [(None, dumps_order(m).encode()) for m in msgs]}
+    for name, mod in CS.kafka_stand_in(logs).items():
+        monkeypatch.setitem(sys.modules, name, mod)
+    torch.cuda.synchronize()
+    SQ.LAUNCHES["fixed"] = 0
+    assert serve.main(["--kafka", "stand-in:9092", "--engine", "seq",
+                       "--auto-provision", "--max-messages",
+                       str(KAFKA_PREFIX)]) == 0
+    torch.cuda.synchronize()
+    assert SQ.LAUNCHES["fixed"] == -(-KAFKA_PREFIX // 1024)
+    h = hashlib.sha256()
+    for k, v in logs["MatchOut"]:
+        h.update(k + b" " + v + b"\n")
+    assert (len(logs["MatchOut"]), h.hexdigest()) == KAFKA_PREFIX_MATCHOUT
 
 
 @pytest.mark.cuda

@@ -9,7 +9,8 @@
 - the query tools (`kme-torch-trace`, `-prof`, `-xray`, `-agg`, `-top`,
   `-events`) read what that serve wrote, in agreement with the JAX
   package's tools on the same files;
-- what waits for the front, kafka or perfgate exits 2 naming the module.
+- what waits for perfgate exits 2 naming the module; `--kafka` reaches
+  the Kafka adapter.
 """
 
 import json
@@ -245,13 +246,20 @@ def test_query_tools_read_the_serve(served, capsys):
         s[0] for s in tsdb.read_samples(d("tsdb"))}
 
 
-def test_unported_modes_exit_naming_the_module(capsys, tmp_path):
-    """`prof --diff` and `--kafka` still wait for their modules; the
-    multi-leader modes are ported and only refuse a missing run dir."""
-    assert set(PSERVE.UNPORTED_FLAGS) == {"--kafka"}
+def test_unported_modes_exit_naming_the_module(capsys, tmp_path,
+                                               monkeypatch):
+    """`prof --diff` still waits for perfgate; `--kafka` is served (the
+    parser takes it and main reaches the adapter, which without aiokafka
+    raises naming it); the multi-leader modes are ported and only refuse
+    a missing run dir."""
+    from kme_tpu_torch.bridge.broker import BrokerError
+
+    assert not hasattr(PSERVE, "UNPORTED_FLAGS")
+    monkeypatch.setitem(sys.modules, "aiokafka", None)
+    with pytest.raises(BrokerError, match="aiokafka"):
+        PSERVE.main(["--kafka", "k:1", "--engine", "oracle"])
     for fn, argv, mod in (
             (PCLI.prof_main, ["--diff", "a", "b"], "perfgate.py"),
-            (PSERVE.main, ["--kafka", "k:1"], "bridge/kafka.py"),
             (PCLI.trace_main, ["--cluster"], "--cluster needs --state-root"),
             (PSERVE.main, ["--group", "0/2", "--engine", "nope"],
              "invalid choice")):

@@ -104,7 +104,11 @@ def test_port_imports_without_jax_or_kme_tpu():
               "kme_tpu_torch.bridge.chaos",
               "kme_tpu_torch.feed", "kme_tpu_torch.feed.frames",
               "kme_tpu_torch.feed.derive", "kme_tpu_torch.feed.snapshot",
-              "kme_tpu_torch.feed.server", "kme_tpu_torch.feed.client"):
+              "kme_tpu_torch.feed.server", "kme_tpu_torch.feed.client",
+              "kme_tpu_torch.bridge.kafka", "kme_tpu_torch.sim",
+              "kme_tpu_torch.sim.sched", "kme_tpu_torch.sim.schedule",
+              "kme_tpu_torch.sim.transport", "kme_tpu_torch.sim.cluster",
+              "kme_tpu_torch.sim.shrink", "kme_tpu_torch.sim.cli"):
         assert m in mods
 
 
