@@ -9,7 +9,7 @@ lanes engine too, phase 11; the service with its observability on, phase
 the failover drills, a hot standby and a supervisor, phase 14; the chaos
 harness's drills against supervised card children, phase 15; its
 multi-leader and feed drills, the Kafka transport and the host-only
-tools, phase 16),
+tools, phase 16; the serial parity replica and the lint gate, phase 17),
 and holds each kernel bit for
 bit against its plain PyTorch version. Four paths: three through
 SeqSession and the seq_step kernel, one per configuration, each three
@@ -275,7 +275,21 @@ Phases, in order; any failure exits non-zero:
    sim --seed N --json` for each of SIM_DIGESTS (the recorded digests of
    both packages' CPU runs) and `... oracle --compat java` over the java
    stream (the java oracle's `183a22c6…`);
-17. summary: one `kernels` JSON line, the card line, then the device line
+17. the serial parity replica (engine/parity.py: plain torch ops, no
+   kernel of its own; each message's segments between two device reads
+   replayed from CUDA graphs) on the card at the JAX package's bench caps for it
+   (balances 32, positions 8192, books 32, buckets 1024, orders 16384,
+   64 events, batch 2048): (a) java mode over harness_stream(4096,
+   seed=0), its MatchOut lines == the port's java oracle's run here, its
+   export_state == the oracle's stores, its state on the card, with
+   msgs/s and D2H syncs per message; (b) phase 2b's stream, its lines ==
+   phase 2b's card SeqSession (B2) lines; (c) fixed mode over
+   harness_stream(1500, seed=3, validated, real PAYOUTs) == the fixed
+   oracle, and a java REMOVE_SYMBOL on a non-empty book dies with
+   ERR_HANG at the oracle's ReferenceHang index, the records before it
+   equal; (d) `python -m kme_tpu_torch.cli lint --gate` exits 0 (its
+   findings and grandfathered counts printed);
+18. summary: one `kernels` JSON line, the card line, then the device line
    last.
 
 `plain_ms` in the kernels line is the plain version's time per call:
@@ -488,6 +502,13 @@ SIM_DIGESTS = {
          "79f7a07ed89a3f2ef84dea7279ff6942aea8496c3f7150caf256b17891a92f9a"),
 }
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
+# phase 17: the serial parity replica at the JAX package's bench caps for it
+# (kme_tpu/benchmarks.py bench_parity_engine: the stock harness stream of
+# 4096 events, java mode, batch 2048)
+PARITY_CAPS = dict(balances=32, positions=8192, books=32, buckets=1024,
+                   orders=16384, max_events=64, batch=2048)
+PARITY_EVENTS = 4096
+PARITY_PHASE_LIMIT_S = 60.0
 
 
 def fail(msg: str) -> None:
@@ -4165,6 +4186,171 @@ def host_tools_phase(java_values):
         f"the java oracle's; {wall:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the serial parity replica and the lint
+
+def oracle_run(OracleEngine, msgs, compat):
+    """-> (MatchOut lines per message, death index or None, the exception
+    at the death, the engine)."""
+    eng = OracleEngine(compat)
+    lines = []
+    for i, m in enumerate(msgs):
+        try:
+            lines.append([r.wire() for r in eng.process(m.copy())])
+        except Exception as e:  # the reference's deaths
+            return lines, i, e, eng
+    return lines, None, None, eng
+
+
+def oracle_stores(ora) -> dict:
+    orders = {oid: {"action": r.action, "aid": r.aid, "sid": r.sid,
+                    "price": r.price, "size": r.size, "next": r.next,
+                    "prev": r.prev} for oid, r in ora.orders.items()}
+    return {"balances": dict(ora.balances), "positions": dict(ora.positions),
+            "books": dict(ora.books), "buckets": dict(ora.buckets),
+            "orders": orders}
+
+
+def replica_run(P, compat, msgs, label):
+    """The replica on the card over `msgs` -> (lines per message, engine,
+    msgs/s, syncs per message); fails on a death or a state off the
+    card."""
+    import torch
+
+    eng = P.ParityEngine(compat, P.ParityCaps(**PARITY_CAPS), device="cuda")
+    bad = [k for k, v in eng.state.items() if v.device.type != "cuda"]
+    if bad:
+        fail(f"17 {label}: state tensors {bad} are not on the card")
+    t = time.perf_counter()
+    try:
+        out = eng.process_batch(msgs)
+    except P.DeviceParityError as e:
+        fail(f"17 {label}: the replica died at message {e.index}: {e}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    if eng.captured == 0:
+        fail(f"17 {label}: no segment ran from a CUDA graph")
+    lines = [[r.wire() for r in recs] for recs in out]
+    return lines, eng, len(msgs) / wall, eng.syncs / len(msgs), wall
+
+
+def parity_phase(card, small_java_lines):
+    """Phase 17 (see the module docstring): (a) java at the bench caps
+    over harness_stream(4096) == the java oracle, lines and stores; (b)
+    phase 2b's stream == the card SeqSession's (B2) lines; (c) fixed mode
+    == the fixed oracle, and a java death == the oracle's; (d)
+    `kme-torch-lint --gate` exits 0."""
+    import torch
+    from kme_tpu_torch import opcodes as op
+    from kme_tpu_torch.engine import parity as P
+    from kme_tpu_torch.oracle import OracleEngine
+    from kme_tpu_torch.wire import OrderMsg
+    from kme_tpu_torch.workload import harness_stream
+
+    t_phase = time.perf_counter()
+    # ---- (a) java at full size against the java oracle
+    msgs = harness_stream(PARITY_EVENTS, seed=0)
+    t = time.perf_counter()
+    want, death, _, ora = oracle_run(OracleEngine, msgs, "java")
+    ora_s = time.perf_counter() - t
+    if death is not None:
+        fail(f"17a: the java oracle died at message {death}")
+    got, eng, rate, syncs, wall = replica_run(P, "java", msgs, "a")
+    if got != want:
+        i = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+        fail(f"17a: replica != java oracle at message {i}: {got[i]} vs "
+             f"{want[i]}")
+    if eng.export_state() != oracle_stores(ora):
+        fail("17a: the replica's stores != the java oracle's")
+    nlines = sum(len(x) for x in got)
+    log(f"17a: ParityEngine('java') on the card over harness_stream("
+        f"{PARITY_EVENTS}, seed=0): {len(msgs)} messages, {nlines} lines "
+        f"== the java oracle's, export_state == its stores, state on "
+        f"{eng.state['ord'].device}, {eng.captured} segment graphs; "
+        f"{wall:.2f} s, {rate:.1f} msgs/s, {syncs:.3f} D2H syncs per "
+        f"message (oracle {ora_s:.2f} s); {card}")
+    del eng
+
+    # ---- (b) cross-evidence: phase 2b's stream against the card's B2
+    msgs = harness_stream(1500, seed=3)
+    got, eng, rate, syncs, wall = replica_run(P, "java", msgs, "b")
+    if got != small_java_lines:
+        i = next(i for i, (g, w) in enumerate(zip(got, small_java_lines))
+                 if g != w)
+        fail(f"17b: replica != phase 2b's card SeqSession (B2) at message "
+             f"{i}: {got[i]} vs {small_java_lines[i]}")
+    log(f"17b: the replica over phase 2b's harness_stream(1500, seed=3): "
+        f"{sum(len(x) for x in got)} lines == the card SeqSession's (B2, "
+        f"java mode); {wall:.2f} s, {rate:.1f} msgs/s, {syncs:.3f} syncs "
+        f"per message")
+    del eng
+
+    # ---- (c) fixed mode against the fixed oracle; a java death
+    msgs = harness_stream(1500, seed=3, payout_opcode_bug=False,
+                          validate=True)
+    want, death, _, ora = oracle_run(OracleEngine, msgs, "fixed")
+    if death is not None:
+        fail(f"17c: the fixed oracle died at message {death}")
+    got, eng, rate, syncs, wall = replica_run(P, "fixed", msgs, "c")
+    if got != want:
+        i = next(i for i, (g, w) in enumerate(zip(got, want)) if g != w)
+        fail(f"17c: replica != fixed oracle at message {i}")
+    if eng.export_state() != oracle_stores(ora):
+        fail("17c: the replica's stores != the fixed oracle's")
+    pays = sum(m.action == op.PAYOUT for m in msgs)
+    log(f"17c: ParityEngine('fixed') over harness_stream(1500, seed=3, "
+        f"validate): {len(msgs)} messages ({pays} PAYOUT), lines and "
+        f"stores == the fixed oracle's; {wall:.2f} s, {rate:.1f} msgs/s, "
+        f"{syncs:.3f} syncs per message")
+    del eng
+    death_msgs = []
+    for a in range(4):
+        death_msgs += [OrderMsg(action=op.CREATE_BALANCE, aid=a),
+                       OrderMsg(action=op.TRANSFER, aid=a, size=200_000)]
+    death_msgs += [OrderMsg(action=op.ADD_SYMBOL, sid=1),
+                   OrderMsg(action=op.BUY, oid=7, aid=0, sid=1, price=40,
+                            size=5),
+                   OrderMsg(action=op.SELL, oid=8, aid=1, sid=1, price=60,
+                            size=2),
+                   OrderMsg(action=op.REMOVE_SYMBOL, sid=1),
+                   OrderMsg(action=op.CREATE_BALANCE, aid=9)]
+    want, death, exc, _ = oracle_run(OracleEngine, death_msgs, "java")
+    eng = P.ParityEngine("java", P.ParityCaps(**PARITY_CAPS), device="cuda")
+    try:
+        eng.process_batch(death_msgs)
+        fail("17c: the replica did not die on REMOVE_SYMBOL of a non-empty "
+             "book")
+    except P.DeviceParityError as e:
+        recs = [[r.wire() for r in x] for x in e.records]
+        if (type(exc).__name__, e.code, e.index, recs) != (
+                "ReferenceHang", P.ERR_HANG, death, want):
+            fail(f"17c: replica death (code {e.code}, index {e.index}, "
+                 f"{len(recs)} records) != the oracle's ({exc!r} at "
+                 f"{death}, {len(want)} records)")
+    log(f"17c: java REMOVE_SYMBOL on a non-empty book: DeviceParityError "
+        f"ERR_HANG at message {death} == the oracle's ReferenceHang, the "
+        f"{len(want)} messages' records before it equal")
+
+    # ---- (d) the lint gate on this machine
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "kme_tpu_torch.cli", "lint",
+                        "--gate"], cwd=ROOT, capture_output=True, text=True,
+                       timeout=300, env=dict(os.environ, PYTHONPATH=ROOT))
+    summary = [ln for ln in r.stdout.splitlines()
+               if ln.startswith("kme-torch-lint:")]
+    if r.returncode != 0 or not summary:
+        fail(f"17d: kme-torch-lint --gate exited {r.returncode}: "
+             f"{r.stdout[-2000:]} {r.stderr[-2000:]}")
+    log(f"17d: python -m kme_tpu_torch.cli lint --gate: rc 0, "
+        f"{summary[-1][len('kme-torch-lint: '):]}; "
+        f"{time.perf_counter() - t:.1f} s")
+    wall = time.perf_counter() - t_phase
+    log(f"phase 17 took {wall:.1f} s")
+    if wall > PARITY_PHASE_LIMIT_S:
+        log(f"phase 17: {wall:.1f} s is past its {PARITY_PHASE_LIMIT_S:.0f} "
+            f"s budget")
+
+
 def main() -> int:
     try:
         import torch
@@ -4215,6 +4401,7 @@ def main() -> int:
         f"{time.perf_counter() - t:.1f} s")
 
     # ---- 2. small: card session vs CPU session; 2b. the same in java mode
+    small_java_lines = []   # phase 17b's reference
     for label, kw, msgs in (
             ("small", SMALL, zipf_symbol_stream(
                 3000, num_symbols=12, num_accounts=200, seed=5,
@@ -4224,8 +4411,11 @@ def main() -> int:
         gpu, cpu = SeqSession(cfg_s), SeqSession(cfg_s, device="cpu")
         for lo in range(0, len(msgs), 700):
             part = msgs[lo:lo + 700]
-            if gpu.process_wire(part) != cpu.process_wire(part):
+            lines = gpu.process_wire(part)
+            if lines != cpu.process_wire(part):
                 fail(f"{label} stream: MatchOut differs in messages {lo}..")
+            if kw is SMALL_JAVA:
+                small_java_lines.extend(lines)
         torch.cuda.synchronize()
         for k in SQ.state_keys(cfg_s):
             if not torch.equal(gpu.state[k].cpu(), cpu.state[k]):
@@ -4480,7 +4670,11 @@ def main() -> int:
     log(f"phase 16 took {time.perf_counter() - t:.1f} s ({walls}); B1 "
         f"launches by 16c: {b1_kafka}")
 
-    # ---- 17. summary
+    # ---- 17. the serial parity replica on the card, against the oracles
+    # and B2's lines; the lint gate
+    parity_phase(card, small_java_lines)
+
+    # ---- 18. summary
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -23,6 +23,23 @@ multi-leader front, its group services and live resharding
 (`bridge/front.py`, `bridge/reshard.py`); the market-data feed
 (`feed/`); failover and chaos drills (`bridge/replica.py`,
 `supervise.py`, `chaos.py`); the Kafka transport (`bridge/kafka.py`);
-and the deterministic whole-cluster simulator (`sim/`, host only).
-Entry points run on the card unless the caller passes `device="cpu"`.
+the deterministic whole-cluster simulator (`sim/`, host only); the
+serial parity replica, the third implementation of the quirk-exact
+semantics beside the oracle and the seq kernel's java mode
+(`engine/parity.py` over `ops/tables.py` and `ops/bits.py`, plain torch
+ops on the card); and the repo-native lint over the port's own source
+(`analysis/`: the rule families, the lock graph, the `KME_LOCKCHECK=1`
+recorder and `kme-torch-lint`). Entry points run on the card unless the
+caller passes `device="cpu"`.
 """
+
+import os as _os
+
+if _os.environ.get("KME_LOCKCHECK") == "1":
+    # opt-in lock-order recorder: it must patch threading.Lock/RLock
+    # before any module of the port allocates a lock, hence here at the
+    # package root (analysis/lockcheck.py; a recorder already installed
+    # by the JAX package is left in place)
+    from kme_tpu_torch.analysis import lockcheck as _lockcheck
+
+    _lockcheck.install()

@@ -35,10 +35,13 @@
 - sim       — the deterministic whole-cluster simulation (sim/): seeded
               virtual-clock runs, seed sweeps, shrunk repros (host only:
               its leaders and standbys run the oracle engine)
+- lint      — the repo-native static analysis over kme_tpu_torch/
+              (analysis/cli.py, `kme-torch-lint`): `--gate` fails only on
+              findings not in LINT_BASELINE_TORCH.json
 
 `trace --cluster` and `xray --cluster` read a multi-leader run
 directory. `prof --diff` waits for perfgate.py and exits 2 naming it.
-The JAX package's bench and lint commands are not ported.
+The JAX package's bench command is not ported.
 """
 
 from __future__ import annotations
@@ -1247,12 +1250,20 @@ def sim_main(argv=None) -> int:
     return _main(argv)
 
 
+def lint_main(argv=None) -> int:
+    """Repo-native static analysis over kme_tpu_torch/: hot-path,
+    determinism, clock-seam, event-identity, dtype and lock rules."""
+    from kme_tpu_torch.analysis.cli import main as _main
+
+    return _main(argv)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m kme_tpu_torch.cli")
     p.add_argument("command", choices=(
         "serve", "loadgen", "consume", "provision", "trace", "prof",
         "top", "xray", "events", "agg", "front", "reshard", "feed",
-        "supervise", "standby", "chaos", "oracle", "sim"))
+        "supervise", "standby", "chaos", "oracle", "sim", "lint"))
     args, rest = p.parse_known_args(argv)
     try:
         return {"serve": serve_main, "loadgen": loadgen_main,
@@ -1263,7 +1274,8 @@ def main(argv=None) -> int:
                 "reshard": reshard_main,
                 "feed": feed_main, "supervise": supervise_main,
                 "standby": standby_main, "chaos": chaos_main,
-                "oracle": oracle_main, "sim": sim_main}[args.command](rest)
+                "oracle": oracle_main, "sim": sim_main,
+                "lint": lint_main}[args.command](rest)
     except BrokenPipeError:
         # downstream closed the pipe (e.g. `| head`): point both std
         # streams at devnull so interpreter-shutdown flushes cannot

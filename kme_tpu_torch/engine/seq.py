@@ -1227,7 +1227,7 @@ def dispatch_bytes(cfg: SeqConfig, cols: dict, out, pre: dict,
     book = np.isin(act, [L_BUY, L_SELL, L_CANCEL, L_PAYOUT_YES,
                          L_PAYOUT_NO, L_REMOVE_SYMBOL])
     blk = (np.unique(lane[book]).astype(np.int64)[:, None] * 2 * NR
-           + np.arange(2 * NR)).ravel()
+           + np.arange(2 * NR, dtype=np.int64)).ravel()
     read["bs"] = [blk]
     # the live orders before the batch, by (lane, oid) -> row
     at = torch.nonzero(pre["bs"] > 0)
@@ -1283,7 +1283,7 @@ def dispatch_bytes(cfg: SeqConfig, cols: dict, out, pre: dict,
     pays = np.flatnonzero(np.isin(act, [L_PAYOUT_YES, L_PAYOUT_NO]))
     if barriers and len(pays):
         hk = pre["hk"].cpu().numpy()
-        read["hk"].append(np.arange(cfg.caprows))
+        read["hk"].append(np.arange(cfg.caprows, dtype=np.int64))
         for i in pays[act[pays] == L_PAYOUT_YES]:
             klo = int(lane[i]) * A + 1
             mine = (hk >= klo) & (hk < klo + A)
@@ -1333,7 +1333,8 @@ def rows_in_use_reference(cfg: SeqConfig, bs: torch.Tensor) -> torch.Tensor:
     per (lane, side) one more than the highest of its `nr` rows of the
     size plane `bs` that holds a nonzero size; 0 for an empty side."""
     used = (bs.view(2 * cfg.lanes, cfg.nr, LN) != 0).any(dim=2)
-    top = used * torch.arange(1, cfg.nr + 1, device=bs.device)
+    top = used * torch.arange(1, cfg.nr + 1, dtype=torch.int64,
+                              device=bs.device)
     return top.amax(dim=1).to(torch.int32).view(cfg.lanes, 2)
 
 

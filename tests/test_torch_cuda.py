@@ -22,7 +22,10 @@ that patches accounts across shards in every window; the sharded
 lanes engine's captured step against the CPU; and the observability
 planes that read the card: the seq session's device plane (CUDA-event
 kernel time, bytes per dispatch, H2D bandwidth) and the auditor's
-`check_engine` against the state the card's kernels left.
+`check_engine` against the state the card's kernels left; and the serial
+parity replica on the card (its segments replayed from CUDA graphs,
+captured again over a new state) against the CPU run, with its bit ops
+at the int64 edge values and its tables' first-hit tie rule.
 
 Every test here carries the `cuda` marker and skips where
 `torch.cuda.is_available()` is false (a CUDA kernel has no CPU mode).
@@ -1011,3 +1014,121 @@ def test_check_engine_on_card_state(cuda_device, engine):
     aud.balances[aid] -= 1
     assert [v["kind"] for v in aud.check_engine(ses.export_state())] == \
         ["state_mismatch"]
+
+
+PARITY_CAPS = dict(balances=16, positions=1024, books=16, buckets=256,
+                   orders=2048, max_events=32, batch=256)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compat", ["java", "fixed"])
+def test_parity_replica_on_card_matches_cpu(cuda_device, compat):
+    """The serial parity replica with its state on the card: the same
+    records, state arrays and sync count as on the CPU, and the same
+    death (a java REMOVE_SYMBOL on a non-empty book, the state frozen
+    at it)."""
+    from kme_tpu_torch import opcodes as op
+    from kme_tpu_torch.engine import parity as P
+    from kme_tpu_torch.wire import OrderMsg
+
+    caps = P.ParityCaps(**PARITY_CAPS)
+    msgs = (harness_stream(600, seed=0) if compat == "java" else
+            harness_stream(600, seed=3, payout_opcode_bug=False,
+                           validate=True))
+    gpu = P.ParityEngine(compat, caps)
+    cpu = P.ParityEngine(compat, caps, device="cpu")
+    assert all(v.is_cuda for v in gpu.state.values())
+    g = [[r.wire() for r in x] for x in gpu.process_batch(msgs)]
+    c = [[r.wire() for r in x] for x in cpu.process_batch(msgs)]
+    assert g == c
+    assert gpu.syncs == cpu.syncs
+    a, b = P.state_to_numpy(gpu.state), P.state_to_numpy(cpu.state)
+    for k in b:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    assert gpu.export_state() == cpu.export_state()
+    if compat == "java":
+        more = [OrderMsg(action=op.ADD_SYMBOL, sid=77),
+                OrderMsg(action=op.BUY, oid=1 << 40, aid=0, sid=77,
+                         price=40, size=1),
+                OrderMsg(action=op.REMOVE_SYMBOL, sid=77)]
+        errs = []
+        for eng in (gpu, cpu):
+            with pytest.raises(P.DeviceParityError) as ei:
+                eng.process_batch(more)
+            errs.append((ei.value.code, ei.value.index,
+                         [[r.wire() for r in x] for x in ei.value.records]))
+        assert errs[0] == errs[1] and errs[0][:2] == (P.ERR_HANG, 2)
+        assert gpu.export_state() == cpu.export_state()
+
+
+@pytest.mark.cuda
+def test_parity_replica_graphs_recaptured_over_a_new_state(cuda_device):
+    """Each segment of a message replays from its CUDA graph; a new state
+    object gets graphs captured over its own tables. The card == the CPU
+    in both modes (fixed with PAYOUTs and wipes) across such swaps."""
+    from kme_tpu_torch.engine import parity as P
+
+    caps = P.ParityCaps(**PARITY_CAPS)
+    for compat, msgs in (
+            ("java", harness_stream(300, seed=1)),
+            ("fixed", harness_stream(400, seed=3, payout_opcode_bug=False,
+                                     validate=True))):
+        g = P.ParityEngine(compat, caps)
+        e = P.ParityEngine(compat, caps, device="cpu")
+        half = len(msgs) // 2
+        for part in (msgs[:half], msgs[half:]):
+            a = [[r.wire() for r in x] for x in g.process_batch(part)]
+            b = [[r.wire() for r in x] for x in e.process_batch(part)]
+            assert a == b
+            assert g.captured > 0 and e.captured == 0
+            g.state = {k: v.clone() for k, v in g.state.items()}
+            assert g.captured == 0
+        assert g.export_state() == e.export_state()
+        assert g.syncs == e.syncs
+
+
+@pytest.mark.cuda
+def test_parity_bits_and_tables_on_card(cuda_device):
+    """The java-exact bit ops at the int64 edge values (two's-complement
+    wrap at INT64_MIN, 1 << 63, key << 8) and the tables' first-hit tie
+    rule, on the card == on the CPU."""
+    from kme_tpu_torch.ops import bits, tables
+
+    edges = [0, 1, -1, 2, -2, -(1 << 63), -(1 << 63) + 1, (1 << 63) - 1,
+             1 << 62, -(1 << 62), (1 << 31), -(1 << 31), (1 << 32) - 1,
+             0x5555555555555555, -0x5555555555555556]
+    edges += [int(t) + d for t in bits._OVERSHOOT if t > 0 for d in (-1, 0)]
+    n = torch.tensor(edges, dtype=torch.int64)
+    m = n.flip(0)
+    k = torch.tensor([(i * 37) % 400 - 140 for i in range(len(edges))],
+                     dtype=torch.int32)
+    fns = [lambda a, b, p: bits.first_set_bit_pos(a),
+           lambda a, b, p: bits.last_set_bit_pos(a),
+           lambda a, b, p: bits.top_bit(a),
+           lambda a, b, p: bits.popcount(a),
+           lambda a, b, p: bits.jshl1(p),
+           lambda a, b, p: bits.jget_bit(a, p),
+           lambda a, b, p: bits.jset_bit(a, p),
+           lambda a, b, p: bits.junset_bit(a, p),
+           lambda a, b, p: bits.book_min_price(a, b),
+           lambda a, b, p: bits.book_max_price(a, b),
+           lambda a, b, p: bits.book_check_bit(a, b, p),
+           lambda a, b, p: torch.stack(bits.book_with_bit_set(a, b, p)),
+           lambda a, b, p: torch.stack(bits.book_with_bit_unset(a, b, p)),
+           lambda a, b, p: bits.bucket_key(a, p)]
+    for i, f in enumerate(fns):
+        want = f(n, m, k)
+        got = f(n.cuda(), m.cuda(), k.cuda())
+        assert got.is_cuda and torch.equal(got.cpu(), want), i
+    keys = torch.tensor([4, 3, 3, 3], dtype=torch.int64, device="cuda")
+    used = torch.tensor([True, False, True, True], device="cuda")
+    idx, found = tables.find(keys, used, keys[1])
+    assert (int(idx), bool(found)) == (2, True)
+    big = torch.zeros(1 << 16, dtype=torch.bool, device="cuda")
+    big[::3] = True
+    idx, ok = tables.alloc(big)
+    assert (int(idx), bool(ok)) == (1, True)
+    idx, found = tables.find(torch.full((1 << 16,), 5, dtype=torch.int64,
+                                        device="cuda"), ~big,
+                             torch.tensor(5, device="cuda"))
+    assert (int(idx), bool(found)) == (1, True)

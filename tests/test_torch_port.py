@@ -108,7 +108,13 @@ def test_port_imports_without_jax_or_kme_tpu():
               "kme_tpu_torch.bridge.kafka", "kme_tpu_torch.sim",
               "kme_tpu_torch.sim.sched", "kme_tpu_torch.sim.schedule",
               "kme_tpu_torch.sim.transport", "kme_tpu_torch.sim.cluster",
-              "kme_tpu_torch.sim.shrink", "kme_tpu_torch.sim.cli"):
+              "kme_tpu_torch.sim.shrink", "kme_tpu_torch.sim.cli",
+              "kme_tpu_torch.engine.parity", "kme_tpu_torch.ops.bits",
+              "kme_tpu_torch.ops.tables", "kme_tpu_torch.analysis",
+              "kme_tpu_torch.analysis.rules",
+              "kme_tpu_torch.analysis.lockgraph",
+              "kme_tpu_torch.analysis.lockcheck",
+              "kme_tpu_torch.analysis.cli"):
         assert m in mods
 
 
