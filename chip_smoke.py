@@ -9,8 +9,9 @@ lanes engine too, phase 11; the service with its observability on, phase
 the failover drills, a hot standby and a supervisor, phase 14; the chaos
 harness's drills against supervised card children, phase 15; its
 multi-leader and feed drills, the Kafka transport and the host-only
-tools, phase 16; the serial parity replica and the lint gate, phase 17),
-and holds each kernel bit for
+tools, phase 16; the serial parity replica and the lint gate, phase 17;
+perfgate and `kme-torch-prof --diff` over TSDB stores and artifacts the
+card's services wrote, phase 18), and holds each kernel bit for
 bit against its plain PyTorch version. Four paths: three through
 SeqSession and the seq_step kernel, one per configuration, each three
 ways (process_wire's Python line builder; the native host path serially,
@@ -289,7 +290,27 @@ Phases, in order; any failure exits non-zero:
    ERR_HANG at the oracle's ReferenceHang index, the records before it
    equal; (d) `python -m kme_tpu_torch.cli lint --gate` exits 0 (its
    findings and grandfathered counts printed);
-18. summary: one `kernels` JSON line, the card line, then the device line
+18. perfgate on the card's own history: (a) two services over the first
+   20,000 zipf messages (phase 16c's prefix) through an in-process
+   broker, `MatchService(engine="seq", pipeline=2, tsdb=..., profile=True,
+   profile_artifact=...)` with a heartbeat every 50 ms: A at the serve
+   defaults (B1), B at 8192 slots (B3 behind the rows-in-use kernel);
+   each MatchOut must be the lines this script's earlier card runs gave
+   for those messages (phase 4's B1 for A, phase 3b's for B), launches =
+   dispatches, each store with several heartbeat samples; (b) `python -m
+   kme_tpu_torch.cli prof --diff` as a subprocess: A's store against
+   itself exits 0 with no suspect; A's against B's exits 0 with stages,
+   each evidence's baseline, current and ratio those of the two
+   `window_summary` dicts read here, the verdict (suspect, score, top
+   evidence) logged as a measurement; (c) a detail artifact of A's own
+   measurements (`backend` "cuda", `orders_per_sec` by the host clock,
+   `device_ms_per_batch` by the device plane's CUDA events, `p99_ms` of
+   `lat_e2e`) through `python -m kme_tpu_torch.perfgate`: against itself
+   exit 0; against a copy with `device_ms_per_batch` doubled exit 1 with
+   that metric regressed, and `--attribute` names `device`; against that
+   copy tagged `"backend": "cpu"` exit 0 (advisory). Its launches join
+   the kernels line;
+19. summary: one `kernels` JSON line, the card line, then the device line
    last.
 
 `plain_ms` in the kernels line is the plain version's time per call:
@@ -298,11 +319,12 @@ version is a Python interpreter of the kernel), CUDA-event time on the
 card for the row copies and the rows-in-use kernel (whose plain versions
 are torch ops). `seq_step` (B1) counts the launches of phase 4's main
 path, of the fleet's runs (11a, 11b), of phase 12 (a-c), of phase
-13's in-process services (a, b), of phase 14a's three incarnations and of
-16c's Kafka-served service; its
-`max_abs_err` includes phase 11c's. `seq_rows_in_use` is the prologue of the deep-book
+13's in-process services (a, b), of phase 14a's three incarnations, of
+16c's Kafka-served service and of 18a's service A; its
+`max_abs_err` includes phase 11c's. `seq_step_deep` (B3) counts the B3
+main path's and 18a's service B's. `seq_rows_in_use` is the prologue of the deep-book
 configurations of the seq kernel; its `launches` are those of the B3 main
-path, its `max_abs_err` is over every state of phases 3b-3d that it was
+path and of 18a's service B, its `max_abs_err` is over every state of phases 3b-3d that it was
 held against its plain version on, its times are phase 3d's. The
 `rowdma_*` entries are the (2, joined) instantiations, the ones the
 lanes path launches (back-to-back times; library call: two
@@ -509,6 +531,18 @@ PARITY_CAPS = dict(balances=32, positions=8192, books=32, buckets=1024,
                    orders=16384, max_events=64, batch=2048)
 PARITY_EVENTS = 4096
 PARITY_PHASE_LIMIT_S = 60.0
+# phase 18: two profiled services over phase 16c's prefix of the zipf
+# stream (A at the serve defaults, B at 8192 slots), each TSDB fed by a
+# heartbeat every PERFGATE_HEALTH_S (a service served the prefix in
+# 0.4-1.6 s on the card, so each store held 9-31 samples; at least
+# PERFGATE_MIN_SAMPLES are required), and the slowdown planted into a copy
+# of A's detail artifact
+PERFGATE_PREFIX = KAFKA_PREFIX
+PERFGATE_DEEP = dict(SERVE, slots=8192)
+PERFGATE_HEALTH_S = 0.05
+PERFGATE_MIN_SAMPLES = 3
+PERFGATE_SLOWDOWN = 2.0
+PERFGATE_PHASE_LIMIT_S = 40.0
 
 
 def fail(msg: str) -> None:
@@ -4351,6 +4385,211 @@ def parity_phase(card, small_java_lines):
             f"s budget")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: perfgate over what the card wrote
+
+def profiled_service(SQ, values, root, kw, label, device="cuda"):
+    """`values` through an in-process broker into a pipelined seq service
+    with its history and profiling on: a TSDB at `root`/tsdb (a heartbeat
+    every PERFGATE_HEALTH_S), the host profiler, and the device plane into
+    `root`/transfer.json. -> (MatchOut lines, wall s, dispatches,
+    rows-in-use launches, the `lat_e2e` latency snapshot, the plane)."""
+    import torch
+
+    from kme_tpu_torch.bridge.broker import InProcessBroker
+    from kme_tpu_torch.bridge.provision import provision
+    from kme_tpu_torch.bridge.service import TOPIC_IN, TOPIC_OUT, MatchService
+    from kme_tpu_torch.telemetry.profiler import read_transfer_artifact
+
+    broker = InProcessBroker()
+    provision(broker)
+    for v in values:
+        broker.produce(TOPIC_IN, None, v)
+    art = os.path.join(root, "transfer.json")
+    svc = MatchService(broker, engine="seq", compat="fixed", pipeline=2,
+                       tsdb=os.path.join(root, "tsdb"), profile=True,
+                       profile_artifact=art, device=device, **kw)
+    if svc.pipeline != 2:
+        fail(f"18 {label}: the service did not take the pipeline")
+    zero_launches(SQ.LAUNCHES)
+    t = time.perf_counter()
+    n = svc.run(max_messages=len(values), poll_timeout=0.05,
+                health_every=PERFGATE_HEALTH_S)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    ses = svc._session
+    if device != "cpu":
+        dispatches = seq_launches_checked(SQ, svc, f"18 {label}")
+    else:
+        dispatches = ses.dispatches
+    rows = SQ.LAUNCHES["rows_in_use"]
+    if device != "cpu" and rows != (dispatches if ses.cfg.nr > 1 else 0):
+        fail(f"18 {label}: {rows} rows-in-use launches for {dispatches} "
+             f"dispatches at {ses.cfg.nr} rows per side")
+    e2e = svc.telemetry.snapshot()["latencies"]["lat_e2e"]
+    svc.close()
+    if n != len(values):
+        fail(f"18 {label}: served {n} of {len(values)} messages")
+    # the artifact keys each plane by its backend
+    backend = torch.device(device).type
+    plane = dict(read_transfer_artifact(art).get(backend, {}),
+                 backend=backend)
+    return log_lines(broker, TOPIC_OUT), wall, dispatches, rows, e2e, plane
+
+
+def perfgate_phase(SQ, values, b1_prefix, b3_prefix, card, device="cuda",
+                   kw_a=SERVE, kw_b=PERFGATE_DEEP):
+    """Phase 18: (a) services A (`kw_a`, B1) and B (`kw_b`, B3 behind the
+    rows-in-use kernel) over `values` (the zipf stream's JSON prefix), each
+    MatchOut == the earlier card runs' lines for those messages
+    (`b1_prefix`, `b3_prefix`, per message); (b) `python -m
+    kme_tpu_torch.cli prof --diff` of A's store against itself (no
+    suspect) and against B's (stages whose every ratio is the in-process
+    window summaries'), the verdict logged; (c) `python -m
+    kme_tpu_torch.perfgate` over a detail artifact of A's own measurements
+    and copies with `device_ms_per_batch` x PERFGATE_SLOWDOWN (exit 1,
+    `device` named) and that copy tagged `cpu` (advisory, exit 0).
+    -> (B1 launches, B3 launches, rows-in-use launches)."""
+    import shutil
+    import tempfile
+
+    from kme_tpu_torch import perfgate
+    from kme_tpu_torch.telemetry import tsdb as tsdbm
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="kme_perfgate_")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+
+    def cli(mod, *argv):
+        r = subprocess.run([sys.executable, "-m", mod, *argv], cwd=ROOT,
+                           env=env, capture_output=True, text=True,
+                           timeout=120)
+        return r.returncode, r.stdout, r.stderr
+
+    try:
+        # ---- (a) the two services, each held to the earlier lines
+        runs = {}
+        for label, kw, want in (("A", kw_a, b1_prefix), ("B", kw_b, b3_prefix)):
+            d = os.path.join(root, label)
+            os.makedirs(d)
+            lines, wall, disp, rows, e2e, plane = profiled_service(
+                SQ, values, d, kw, label, device)
+            if len(want) != len(values) or per_message(lines) != want:
+                fail(f"18 {label}: MatchOut ({len(lines)} lines) != the "
+                     f"earlier card run's lines for the first {len(values)} "
+                     f"messages ({sum(map(len, want))} lines)")
+            store = os.path.join(d, "tsdb")
+            samples = len({(src, seq) for src, _ts, seq, _n, _v
+                           in tsdbm.read_samples(store)})
+            if samples < PERFGATE_MIN_SAMPLES:
+                fail(f"18 {label}: {samples} heartbeat samples in the store "
+                     f"(at least {PERFGATE_MIN_SAMPLES})")
+            runs[label] = dict(store=store, wall=wall, disp=disp, rows=rows,
+                               e2e=e2e, plane=plane,
+                               summary=tsdbm.window_summary(store))
+            log(f"18a {label} (slots {kw['slots']}): {len(values)} messages "
+                f"in {wall:.3f} s = {len(values) / wall:.0f} msg/s (host "
+                f"clock, synchronized), {disp} dispatches = kernel launches, "
+                f"{rows} rows-in-use launches, MatchOut == the earlier "
+                f"lines ({len(lines)}); {samples} heartbeat samples, "
+                f"{len(runs[label]['summary'])} series; device plane "
+                f"{plane.get('kernel_ms_per_dispatch')} ms per dispatch "
+                f"(CUDA events); lat_e2e p99 {e2e.get('p99_ms')} ms")
+        a, b = runs["A"], runs["B"]
+
+        # ---- (b) kme-torch-prof --diff over the two stores
+        rc, out, err = cli("kme_tpu_torch.cli", "prof", "--diff", a["store"],
+                           a["store"], "--json")
+        try:
+            att = json.loads(out)
+        except ValueError:
+            att = {}
+        if rc != 0 or not att.get("stages") or att.get("suspect") is not None:
+            fail(f"18b: prof --diff A A exited {rc}, suspect "
+                 f"{att.get('suspect')}, {len(att.get('stages') or [])} "
+                 f"stages: {err[-2000:]}")
+        rc, out, err = cli("kme_tpu_torch.cli", "prof", "--diff", a["store"],
+                           b["store"], "--json")
+        try:
+            att = json.loads(out)
+        except ValueError:
+            att = {}
+        if rc != 0 or not att.get("stages"):
+            fail(f"18b: prof --diff A B exited {rc} with "
+                 f"{len(att.get('stages') or [])} stages: {err[-2000:]}")
+        wa, wb = a["summary"], b["summary"]
+        for s in att["stages"]:
+            for e in s["evidence"]:
+                n = e["name"]
+                if (e["baseline"], e["current"], e["ratio"]) != (
+                        wa[n], wb[n], round(wb[n] / wa[n], 4)):
+                    fail(f"18b: prof --diff's evidence {e} != the window "
+                         f"summaries' ({wa.get(n)}, {wb.get(n)})")
+        if att != perfgate.attribute_regression(wa, wb):
+            fail("18b: prof --diff != attribute_regression in process")
+        top = att["stages"][0]
+        ev = max(top["evidence"], key=lambda e: e["ratio"])
+        log(f"18b: prof --diff A A: rc 0, no suspect; prof --diff A B: rc 0, "
+            f"suspect {att['suspect']}, top stage {top['stage']} x"
+            f"{top['score']} (its top evidence {ev['name']} {ev['baseline']} "
+            f"-> {ev['current']}, x{ev['ratio']}); every ratio == the window "
+            f"summaries'; card {card}")
+        for ln in perfgate.format_attribution(att).splitlines():
+            log(f"18b:   {ln}")
+
+        # ---- (c) the gate over artifacts of A's own measurements
+        detail = {"backend": a["plane"].get("backend"),
+                  "orders_per_sec": len(values) / a["wall"],
+                  "device_ms_per_batch": a["plane"].get(
+                      "kernel_ms_per_dispatch"),
+                  "p99_ms": a["e2e"].get("p99_ms")}
+        if detail["backend"] != "cuda" or not all(detail.values()):
+            fail(f"18c: A's detail artifact is incomplete: {detail}")
+        slow = dict(detail, device_ms_per_batch=detail["device_ms_per_batch"]
+                    * PERFGATE_SLOWDOWN)
+        paths = {}
+        for name, doc in (("detail", detail), ("slow", slow),
+                          ("slow_cpu", dict(slow, backend="cpu"))):
+            paths[name] = os.path.join(root, f"{name}.json")
+            with open(paths[name], "w") as f:
+                json.dump(doc, f)
+        rep = os.path.join(root, "report.json")
+        gate = "kme_tpu_torch.perfgate"
+        rc, _out, err = cli(gate, paths["detail"], paths["detail"])
+        if rc != 0 or "gate clean" not in err:
+            fail(f"18c: perfgate A A exited {rc}: {err[-2000:]}")
+        rc, _out, err = cli(gate, paths["detail"], paths["slow"], "--report",
+                            rep)
+        with open(rep) as f:
+            report = json.load(f)
+        if (rc != 1 or report["regressions"] != ["device_ms_per_batch"]
+                or report["attribution"]["suspect"] != "device"):
+            fail(f"18c: perfgate A against device_ms_per_batch x"
+                 f"{PERFGATE_SLOWDOWN} exited {rc}, regressions "
+                 f"{report['regressions']}: {err[-2000:]}")
+        rc, out, err = cli(gate, paths["detail"], paths["slow"], "--attribute")
+        if rc != 1 or "the device stage moved the most" not in out:
+            fail(f"18c: perfgate --attribute exited {rc}: {out[-2000:]} "
+                 f"{err[-2000:]}")
+        rc, _out, err = cli(gate, paths["detail"], paths["slow_cpu"])
+        if rc != 0 or "ADVISORY" not in err:
+            fail(f"18c: perfgate against the cpu-tagged copy exited {rc}: "
+                 f"{err[-2000:]}")
+        log(f"18c: python -m kme_tpu_torch.perfgate over A's detail artifact "
+            f"{json.dumps(detail)}: A A rc 0; device_ms_per_batch x"
+            f"{PERFGATE_SLOWDOWN} rc 1, regressed {report['regressions']}, "
+            f"--attribute names device; the copy tagged cpu rc 0 (advisory)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    log(f"phase 18 took {wall:.1f} s")
+    if wall > PERFGATE_PHASE_LIMIT_S:
+        log(f"phase 18: {wall:.1f} s is past its "
+            f"{PERFGATE_PHASE_LIMIT_S:.0f} s budget")
+    return runs["A"]["disp"], runs["B"]["disp"], runs["B"]["rows"]
+
+
 def main() -> int:
     try:
         import torch
@@ -4524,7 +4763,9 @@ def main() -> int:
     bal_lo = state["bal_lo"].clone()
     del state
     ses = SeqSession(cfg)
-    b3_lines, b3_sha, wall, launches = main_path(SQ, ses, msgs, "B3")
+    b3_prefix = []      # phase 18's reference for service B
+    b3_lines, b3_sha, wall, launches = main_path(SQ, ses, msgs, "B3",
+                                                 keep=b3_prefix)
     met = ses.metrics()
     err = int(ses.state["err"][0, 0])
     if err != 0:
@@ -4674,7 +4915,17 @@ def main() -> int:
     # and B2's lines; the lint gate
     parity_phase(card, small_java_lines)
 
-    # ---- 18. summary
+    # ---- 18. perfgate over the card's own TSDB stores and artifacts; its
+    # launches of B1, B3 and the rows-in-use kernel join the main paths'
+    pg_b1, pg_b3, pg_rows = perfgate_phase(
+        SQ, values[:PERFGATE_PREFIX], b1_prefix, b3_prefix, card)
+    for e in kernels:
+        e["launches"] += {"seq_step": pg_b1, "seq_step_deep": pg_b3,
+                          "seq_rows_in_use": pg_rows}.get(e["name"], 0)
+    log(f"phase 18: launches by it: B1 {pg_b1}, B3 {pg_b3}, rows-in-use "
+        f"{pg_rows}")
+
+    # ---- 19. summary
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,8 @@
 - provision — the topic.js role: create MatchIn/MatchOut
 - trace     — flight-recorder queries, oracle verification, repro replay
 - prof      — TSDB history, segment digests, the transfer artifact,
-              captures
+              captures, and `--diff`: the stage that moved between two
+              stores or artifacts
 - top       — the live operations dashboard
 - xray      — offset-addressed state, bisection, offline watchpoints
 - events    — the control-plane event timeline
@@ -40,8 +41,10 @@
               findings not in LINT_BASELINE_TORCH.json
 
 `trace --cluster` and `xray --cluster` read a multi-leader run
-directory. `prof --diff` waits for perfgate.py and exits 2 naming it.
-The JAX package's bench command is not ported.
+directory. `prof --diff BASE CUR` names the pipeline stage that moved
+between two TSDB stores or two benchmark artifacts (perfgate.py, which
+is also `python -m kme_tpu_torch.perfgate BASELINE CURRENT
+[--attribute]`). The JAX package's bench command is not ported.
 """
 
 from __future__ import annotations
@@ -603,7 +606,9 @@ def prof_main(argv=None) -> int:
     """Profiling & telemetry-history query tool over the on-disk TSDB
     (kme-torch-serve --tsdb and friends): list/plot/export metric series,
     verify segment digests, inspect the transfer-vs-compute artifact and
-    the trigger captures."""
+    the trigger captures, and attribute a regression to a pipeline stage
+    with --diff between two history windows or recorded benchmark
+    artifacts."""
     p = argparse.ArgumentParser(prog="kme-torch-prof",
                                 description=prof_main.__doc__)
     p.add_argument("store", nargs="?", default=None, metavar="DIR",
@@ -632,9 +637,9 @@ def prof_main(argv=None) -> int:
     p.add_argument("--diff", nargs=2, default=None,
                    metavar=("BASE", "CUR"),
                    help="stage-level regression attribution between "
-                        "two TSDB stores or benchmark artifacts; needs "
-                        "the JAX package's perfgate.py, which the port "
-                        "does not have (exits 2)")
+                        "two TSDB stores (window summaries) or two "
+                        "recorded benchmark/driver artifacts — each "
+                        "operand may be either")
     p.add_argument("--captures", default=None, metavar="DIR",
                    help="list and pretty-print the capture_NNN.json "
                         "trigger captures in DIR (kme-torch-serve "
@@ -642,6 +647,7 @@ def prof_main(argv=None) -> int:
                         "kme-torch-xray watchpoint hits share the format)")
     args = p.parse_args(argv)
     import json
+    import os
 
     from kme_tpu_torch.telemetry import tsdb
 
@@ -679,9 +685,25 @@ def prof_main(argv=None) -> int:
         print(json.dumps(doc, indent=1, sort_keys=True))
         return 0
     if args.diff is not None:
-        p.error("--diff attributes a regression with the JAX package's "
-                "perfgate.py, which kme_tpu_torch does not have (the "
-                "earlier round's benchmark stays in the JAX package)")
+        from kme_tpu_torch import perfgate
+
+        def _metrics(operand: str):
+            if os.path.isdir(operand):
+                return tsdb.window_summary(operand,
+                                           source=args.source)
+            return perfgate.load_artifact(operand)["metrics"]
+
+        base, cur = (_metrics(x) for x in args.diff)
+        if not base or not cur:
+            print("kme-torch-prof: no metrics on one side of --diff",
+                  file=sys.stderr)
+            return 2
+        att = perfgate.attribute_regression(base, cur)
+        if args.json:
+            print(json.dumps(att, indent=1))
+        else:
+            print(perfgate.format_attribution(att))
+        return 0
     if args.store is None:
         p.error("give a store dir (or --artifact / --diff)")
     if args.verify:

@@ -21,9 +21,10 @@ both dispatch modes against the same fleet on the CPU, with a race probe
 that patches accounts across shards in every window; the sharded
 lanes engine's captured step against the CPU; and the observability
 planes that read the card: the seq session's device plane (CUDA-event
-kernel time, bytes per dispatch, H2D bandwidth) and the auditor's
-`check_engine` against the state the card's kernels left; and the serial
-parity replica on the card (its segments replayed from CUDA graphs,
+kernel time, bytes per dispatch, H2D bandwidth), a card service's TSDB
+store diffed against itself by `kme-torch-prof --diff`, and the
+auditor's `check_engine` against the state the card's kernels left; and
+the serial parity replica on the card (its segments replayed from CUDA graphs,
 captured again over a new state) against the CPU run, with its bit ops
 at the int64 edge values and its tables' first-hit tie rule.
 
@@ -984,6 +985,45 @@ def test_device_plane_of_a_card_session(cuda_device, tmp_path):
     doc = PP.write_transfer_artifact(path, plane)
     assert doc["cpu"]["x"] == 1 and doc["cuda"]["kernel"].startswith(
         "seq_scan_kernel")
+
+
+@pytest.mark.cuda
+def test_prof_diff_of_a_card_store_against_itself(cuda_device, tmp_path,
+                                                  capsys):
+    """A card service's TSDB store (the seq engine pipelined, the host
+    profiler on, a heartbeat every 20 ms) diffed against itself by
+    `kme-torch-prof --diff`: stages with evidence, every ratio 1.0, no
+    suspect."""
+    import json
+
+    from kme_tpu_torch import cli
+    from kme_tpu_torch.bridge.broker import InProcessBroker
+    from kme_tpu_torch.bridge.provision import provision
+    from kme_tpu_torch.bridge.service import TOPIC_IN, MatchService
+    from kme_tpu_torch.telemetry import tsdb
+    from kme_tpu_torch.wire import dumps_order
+
+    values = [dumps_order(m) for m in zipf_symbol_stream(
+        1500, num_symbols=7, num_accounts=60, seed=2, payout_per_mille=8)]
+    b = InProcessBroker()
+    provision(b)
+    for v in values:
+        b.produce(TOPIC_IN, None, v)
+    store = str(tmp_path / "tsdb")
+    svc = MatchService(b, engine="seq", compat="fixed", pipeline=2,
+                       batch=128, symbols=8, accounts=128, slots=128,
+                       max_fills=32, tsdb=store, profile=True,
+                       device=cuda_device)
+    assert svc.run(max_messages=len(values), poll_timeout=0.05,
+                   health_every=0.02) == len(values)
+    assert svc._session.dispatches > 0
+    svc.close()
+    assert tsdb.window_summary(store)
+    assert cli.prof_main(["--diff", store, store, "--json"]) == 0
+    att = json.loads(capsys.readouterr().out)
+    assert att["stages"] and att["suspect"] is None
+    assert all(e["ratio"] == 1.0 for s in att["stages"]
+               for e in s["evidence"])
 
 
 @pytest.mark.cuda

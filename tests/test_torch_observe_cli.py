@@ -9,7 +9,7 @@
 - the query tools (`kme-torch-trace`, `-prof`, `-xray`, `-agg`, `-top`,
   `-events`) read what that serve wrote, in agreement with the JAX
   package's tools on the same files;
-- what waits for perfgate exits 2 naming the module; `--kafka` reaches
+- `prof --diff` of two stores with no metrics exits 2; `--kafka` reaches
   the Kafka adapter.
 """
 
@@ -248,10 +248,10 @@ def test_query_tools_read_the_serve(served, capsys):
 
 def test_unported_modes_exit_naming_the_module(capsys, tmp_path,
                                                monkeypatch):
-    """`prof --diff` still waits for perfgate; `--kafka` is served (the
-    parser takes it and main reaches the adapter, which without aiokafka
-    raises naming it); the multi-leader modes are ported and only refuse
-    a missing run dir."""
+    """`prof --diff` is ported and only refuses operands with no metrics;
+    `--kafka` is served (the parser takes it and main reaches the
+    adapter, which without aiokafka raises naming it); the multi-leader
+    modes are ported and only refuse a missing run dir."""
     from kme_tpu_torch.bridge.broker import BrokerError
 
     assert not hasattr(PSERVE, "UNPORTED_FLAGS")
@@ -259,7 +259,6 @@ def test_unported_modes_exit_naming_the_module(capsys, tmp_path,
     with pytest.raises(BrokerError, match="aiokafka"):
         PSERVE.main(["--kafka", "k:1", "--engine", "oracle"])
     for fn, argv, mod in (
-            (PCLI.prof_main, ["--diff", "a", "b"], "perfgate.py"),
             (PCLI.trace_main, ["--cluster"], "--cluster needs --state-root"),
             (PSERVE.main, ["--group", "0/2", "--engine", "nope"],
              "invalid choice")):
@@ -269,6 +268,10 @@ def test_unported_modes_exit_naming_the_module(capsys, tmp_path,
         assert mod in capsys.readouterr().err
     empty = str(tmp_path / "none")
     os.makedirs(empty)
+    empty2 = str(tmp_path / "none2")
+    os.makedirs(empty2)
+    assert PCLI.prof_main(["--diff", empty, empty2]) == 2
+    assert "no metrics on one side of --diff" in capsys.readouterr().err
     assert PCLI.xray_main(["--cluster", "--state-root", empty]) == 2
     assert "no group*/ directories" in capsys.readouterr().err
     assert PSERVE.main(["--group", "1/1"]) == 2

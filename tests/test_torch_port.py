@@ -6,7 +6,9 @@ modules it copied from the JAX package.
 - nothing falls back to the CPU quietly: without a card the default
   device raises; configurations no mode takes raise;
 - the copied workload streams, wire codec, packing and canonical export
-  equal the JAX package's.
+  equal the JAX package's;
+- every file of the JAX package has a counterpart of the same path in
+  the port, but the two the port does not take (NOT_PORTED).
 """
 
 import ast
@@ -114,8 +116,39 @@ def test_port_imports_without_jax_or_kme_tpu():
               "kme_tpu_torch.analysis.rules",
               "kme_tpu_torch.analysis.lockgraph",
               "kme_tpu_torch.analysis.lockcheck",
-              "kme_tpu_torch.analysis.cli"):
+              "kme_tpu_torch.analysis.cli", "kme_tpu_torch.perfgate"):
         assert m in mods
+
+
+# the JAX package's files the port has no counterpart of, each with why
+NOT_PORTED = {
+    "_jaxsetup.py": "JAX configuration (x64, platform); the port has no JAX",
+    "benchmarks.py": "the earlier round's benchmark, the body of bench.py "
+                     "(kme-bench), which stays in the JAX package",
+}
+
+
+def test_every_reference_module_has_a_counterpart():
+    """Every .py, .cpp and .h file of kme_tpu/ (walked, not imported) has
+    a file of the same path under kme_tpu_torch/, but NOT_PORTED's."""
+    ref = os.path.join(ROOT, "kme_tpu")
+    missing, seen = [], set()
+    for dirpath, dirs, files in os.walk(ref):
+        dirs[:] = [d for d in dirs if d != "__pycache__"]
+        for f in files:
+            if not f.endswith((".py", ".cpp", ".h")):
+                continue
+            rel = os.path.relpath(os.path.join(dirpath, f), ref)
+            seen.add(rel)
+            if rel in NOT_PORTED:
+                continue
+            if not os.path.isfile(os.path.join(ROOT, "kme_tpu_torch", rel)):
+                missing.append(rel)
+    assert missing == []
+    # the allow-list names files that exist and have no counterpart
+    assert set(NOT_PORTED) <= seen
+    for rel in NOT_PORTED:
+        assert not os.path.exists(os.path.join(ROOT, "kme_tpu_torch", rel))
 
 
 @pytest.mark.parametrize("path", sorted(_port_sources()),
