@@ -11,7 +11,8 @@ harness's drills against supervised card children, phase 15; its
 multi-leader and feed drills, the Kafka transport and the host-only
 tools, phase 16; the serial parity replica and the lint gate, phase 17;
 perfgate and `kme-torch-prof --diff` over TSDB stores and artifacts the
-card's services wrote, phase 18), and holds each kernel bit for
+card's services wrote, phase 18; the benchmark's seq suite and its gate,
+phase 19), and holds each kernel bit for
 bit against its plain PyTorch version. Four paths: three through
 SeqSession and the seq_step kernel, one per configuration, each three
 ways (process_wire's Python line builder; the native host path serially,
@@ -310,7 +311,21 @@ Phases, in order; any failure exits non-zero:
    that metric regressed, and `--attribute` names `device`; against that
    copy tagged `"backend": "cpu"` exit 0 (advisory). Its launches join
    the kernels line;
-19. summary: one `kernels` JSON line, the card line, then the device line
+19. the benchmark (kme_tpu_torch/benchmarks.py, `kme-torch-bench`): (a)
+   in process, `bench_seq_engine` (`--suite lanes --engine seq`) at the
+   serve defaults (20,000 zipf events, 1024 symbols, 4096 accounts, 128
+   slots, 16 max fills, batch 1024, no java sub-run) on the card: its
+   in-run full-stream parity against the native judge holds, its
+   `device_path_s` is CUDA-event time and above 0, its `backend` is
+   "cuda", and its B1 launches (counts set to 0 just before) equal the
+   `seq_scan` calls it makes: KME_BENCH_DEV_REPS + 1 for the device path,
+   one for the warm session, one per timed run (three); they join the
+   kernels line; (b) its detail JSON written to a file, as
+   `kme-torch-bench` writes it to stderr, then `python -m
+   kme_tpu_torch.cli bench --baseline F --gate-current F` as a
+   subprocess exits 0, and against a copy with `local_orders_per_sec`
+   halved exits 1 naming that metric;
+20. summary: one `kernels` JSON line, the card line, then the device line
    last.
 
 `plain_ms` in the kernels line is the plain version's time per call:
@@ -320,7 +335,7 @@ card for the row copies and the rows-in-use kernel (whose plain versions
 are torch ops). `seq_step` (B1) counts the launches of phase 4's main
 path, of the fleet's runs (11a, 11b), of phase 12 (a-c), of phase
 13's in-process services (a, b), of phase 14a's three incarnations, of
-16c's Kafka-served service and of 18a's service A; its
+16c's Kafka-served service, of 18a's service A and of 19a's suite; its
 `max_abs_err` includes phase 11c's. `seq_step_deep` (B3) counts the B3
 main path's and 18a's service B's. `seq_rows_in_use` is the prologue of the deep-book
 configurations of the seq kernel; its `launches` are those of the B3 main
@@ -543,6 +558,11 @@ PERFGATE_HEALTH_S = 0.05
 PERFGATE_MIN_SAMPLES = 3
 PERFGATE_SLOWDOWN = 2.0
 PERFGATE_PHASE_LIMIT_S = 40.0
+# phase 19: the benchmark's seq suite at the serve defaults over the first
+# 20,000 zipf events, and the gate over its own detail artifact
+BENCH_EVENTS = 20_000
+BENCH_DEV_REPS = 3          # KME_BENCH_DEV_REPS's default
+BENCH_PHASE_LIMIT_S = 20.0
 
 
 def fail(msg: str) -> None:
@@ -4590,6 +4610,92 @@ def perfgate_phase(SQ, values, b1_prefix, b3_prefix, card, device="cuda",
     return runs["A"]["disp"], runs["B"]["disp"], runs["B"]["rows"]
 
 
+def bench_phase(SQ, card):
+    """Phase 19: (a) `bench_seq_engine` at the serve defaults on the card,
+    with its launches of B1 counted; (b) its detail artifact gated against
+    itself and against a copy with `local_orders_per_sec` halved, through
+    `python -m kme_tpu_torch.cli bench --gate-current` in subprocesses.
+    -> B1 launches."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from kme_tpu_torch import benchmarks
+
+    t_phase = time.perf_counter()
+    os.environ["KME_BENCH_DEV_REPS"] = str(BENCH_DEV_REPS)
+    zero_launches(SQ.LAUNCHES)
+    try:
+        rec = benchmarks.bench_seq_engine(
+            events=BENCH_EVENTS, symbols=SERVE["symbols"],
+            accounts=SERVE["accounts"], seed=0, zipf_a=1.2,
+            slots=SERVE["slots"], max_fills=SERVE["max_fills"],
+            batch=SERVE["batch"], with_java=False, device="cuda")
+    except AssertionError as e:
+        fail(f"19a: the seq suite's in-run check failed: {e}")
+    torch.cuda.synchronize()
+    launches = dict(SQ.LAUNCHES)
+    d = rec["detail"]
+    want = BENCH_DEV_REPS + 1 + 1 + 3
+    if launches["fixed"] != want or launches["java"] or \
+            launches["rows_in_use"]:
+        fail(f"19a: launches {launches}; the suite made {want} seq_scan "
+             f"calls of B1 ({BENCH_DEV_REPS} + 1 device-path, 1 warm, 3 "
+             f"timed) and none of the others")
+    if (d["parity_checked_msgs"] != d["events"] or d["backend"] != "cuda"
+            or not d["device_path_s"] > 0
+            or not d["device_path_method"].startswith("CUDA events")
+            or rec["metric"] != "orders_per_sec_e2e"):
+        fail(f"19a: the suite's record is not the card's: {rec['metric']} "
+             f"{json.dumps({k: d[k] for k in ('events', 'backend', 'device_path_s', 'device_path_method', 'parity_checked_msgs', 'cap_rejects')})}")
+    log(f"19a: bench_seq_engine at the serve defaults, {d['events']} "
+        f"messages: {rec['value']} orders/s end to end (best of "
+        f"{d['all_run_walls_s']} s), device path {d['device_path_s']} s "
+        f"= {d['device_path_msgs_per_sec']} msgs/s (CUDA events), local "
+        f"{d['local_orders_per_sec']} orders/s, {d['out_records']} "
+        f"records, {d['fetched_mb']} MB fetched, {d['cap_rejects']} "
+        f"capacity rejects, phases "
+        f"parse {d['parse_s']} plan {d['plan_s']} dispatch "
+        f"{d['dispatch_s']} fetch {d['fetch_s']} recon {d['recon_s']} s; "
+        f"full-stream parity vs the native judge; B1 launches "
+        f"{launches['fixed']}; card {card}")
+
+    root = tempfile.mkdtemp(prefix="kme_bench_")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    try:
+        base = os.path.join(root, "detail.json")
+        with open(base, "w") as f:
+            f.write(json.dumps(d))
+        slow = os.path.join(root, "slow.json")
+        with open(slow, "w") as f:
+            f.write(json.dumps(dict(d, local_orders_per_sec=d[
+                "local_orders_per_sec"] / 2)))
+        for cur, rc_want in ((base, 0), (slow, 1)):
+            r = subprocess.run(
+                [sys.executable, "-m", "kme_tpu_torch.cli", "bench",
+                 "--baseline", base, "--gate-current", cur], cwd=ROOT,
+                env=env, capture_output=True, text=True, timeout=120)
+            named = "local_orders_per_sec" in r.stderr and \
+                "REGRESSION" in r.stderr
+            if r.returncode != rc_want or (rc_want == 1) != named:
+                fail(f"19b: bench --gate-current {os.path.basename(cur)} "
+                     f"exited {r.returncode} (want {rc_want}): "
+                     f"{r.stderr[-2000:]}")
+        log("19b: python -m kme_tpu_torch.cli bench --baseline D "
+            "--gate-current D: rc 0; against D with local_orders_per_sec "
+            "halved: rc 1, local_orders_per_sec named")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    wall = time.perf_counter() - t_phase
+    log(f"phase 19 took {wall:.1f} s")
+    if wall > BENCH_PHASE_LIMIT_S:
+        log(f"phase 19: {wall:.1f} s is past its "
+            f"{BENCH_PHASE_LIMIT_S:.0f} s budget")
+    return launches["fixed"]
+
+
+
 def main() -> int:
     try:
         import torch
@@ -4925,7 +5031,11 @@ def main() -> int:
     log(f"phase 18: launches by it: B1 {pg_b1}, B3 {pg_b3}, rows-in-use "
         f"{pg_rows}")
 
-    # ---- 19. summary
+    # ---- 19. the benchmark's seq suite and its gate; its launches of B1
+    # join the main paths'
+    b1_entry["launches"] += bench_phase(SQ, card)
+
+    # ---- 20. summary
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

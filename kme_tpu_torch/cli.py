@@ -36,6 +36,10 @@
 - sim       — the deterministic whole-cluster simulation (sim/): seeded
               virtual-clock runs, seed sweeps, shrunk repros (host only:
               its leaders and standbys run the oracle engine)
+- bench     — the benchmark suites (benchmarks.py, `kme-torch-bench`):
+              one JSON line on stdout, the detail on stderr; `--device
+              cpu` for the plain versions; `--baseline/--gate` and
+              `--gate-current` through perfgate.py
 - lint      — the repo-native static analysis over kme_tpu_torch/
               (analysis/cli.py, `kme-torch-lint`): `--gate` fails only on
               findings not in LINT_BASELINE_TORCH.json
@@ -44,7 +48,7 @@
 directory. `prof --diff BASE CUR` names the pipeline stage that moved
 between two TSDB stores or two benchmark artifacts (perfgate.py, which
 is also `python -m kme_tpu_torch.perfgate BASELINE CURRENT
-[--attribute]`). The JAX package's bench command is not ported.
+[--attribute]`).
 """
 
 from __future__ import annotations
@@ -1280,12 +1284,21 @@ def lint_main(argv=None) -> int:
     return _main(argv)
 
 
+def bench_main(argv=None) -> int:
+    """Benchmark suites of the port (benchmarks.py): the card by default,
+    `--device cpu` for the plain versions."""
+    from kme_tpu_torch.benchmarks import main as _main
+
+    return _main(argv)
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m kme_tpu_torch.cli")
     p.add_argument("command", choices=(
         "serve", "loadgen", "consume", "provision", "trace", "prof",
         "top", "xray", "events", "agg", "front", "reshard", "feed",
-        "supervise", "standby", "chaos", "oracle", "sim", "lint"))
+        "supervise", "standby", "chaos", "oracle", "sim", "lint",
+        "bench"))
     args, rest = p.parse_known_args(argv)
     try:
         return {"serve": serve_main, "loadgen": loadgen_main,
@@ -1297,7 +1310,7 @@ def main(argv=None) -> int:
                 "feed": feed_main, "supervise": supervise_main,
                 "standby": standby_main, "chaos": chaos_main,
                 "oracle": oracle_main, "sim": sim_main,
-                "lint": lint_main}[args.command](rest)
+                "lint": lint_main, "bench": bench_main}[args.command](rest)
     except BrokenPipeError:
         # downstream closed the pipe (e.g. `| head`): point both std
         # streams at devnull so interpreter-shutdown flushes cannot

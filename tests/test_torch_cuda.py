@@ -1172,3 +1172,59 @@ def test_parity_bits_and_tables_on_card(cuda_device):
                                         device="cuda"), ~big,
                              torch.tensor(5, device="cuda"))
     assert (int(idx), bool(found)) == (1, True)
+
+
+@pytest.mark.cuda
+def test_bench_seq_suite_on_card(cuda_device, monkeypatch):
+    """The benchmark's seq suite (`kme-torch-bench`, `--suite lanes
+    --engine seq`) on the card at a small configuration: its in-run
+    full-stream parity holds, the device time is CUDA-event time of one
+    scan, the backend is the card, and the chain kernel launched once
+    per scan: two for the device path, one warm, three timed; its
+    counters equal a CPU run's."""
+    from kme_tpu_torch import benchmarks
+
+    monkeypatch.setenv("KME_BENCH_DEV_REPS", "1")
+    kw = dict(events=3000, symbols=16, accounts=256, seed=3, slots=128,
+              max_fills=16, batch=512, with_java=False)
+    for k in SQ.LAUNCHES:
+        SQ.LAUNCHES[k] = 0
+    rec = benchmarks.bench_seq_engine(device="cuda", **kw)
+    d = rec["detail"]
+    assert SQ.LAUNCHES["fixed"] == 1 + 1 + 1 + 3
+    assert d["backend"] == "cuda"
+    assert d["device_path_method"].startswith("CUDA events")
+    assert d["device_path_s"] > 0
+    assert d["parity_checked_msgs"] == d["events"]
+    cpu = benchmarks.bench_seq_engine(device="cpu", **kw)["detail"]
+    for f in ("events", "out_records", "out_mb", "fetched_mb",
+              "device_metrics"):
+        assert d[f] == cpu[f], f
+
+
+@pytest.mark.cuda
+def test_bench_lanes_suite_on_card(cuda_device, tmp_path):
+    """The sweep suite on the card: the parity prefix inside the run,
+    the same steps, trades and counters as on the CPU, one launch of
+    each row-copy kernel per padded step of its three sessions, and a
+    torch.profiler trace with the card's kernels in it."""
+    import json
+
+    from kme_tpu_torch import benchmarks
+
+    kw = dict(events=3000, symbols=32, accounts=128, seed=3, steps=16,
+              slots=32, max_fills=16, parity_prefix=1000)
+    rowdma.LAUNCHES.update({k: 0 for k in rowdma.LAUNCHES})
+    rec = benchmarks.bench_lane_engine(device="cuda",
+                                       profile_dir=str(tmp_path), **kw)
+    d = rec["detail"]
+    assert d["backend"] == "cuda"
+    assert rowdma.LAUNCHES["gather_pos"] > 0
+    assert rowdma.LAUNCHES["gather_pos"] == rowdma.LAUNCHES["scatter_pos"]
+    cpu = benchmarks.bench_lane_engine(device="cpu", **kw)["detail"]
+    for f in ("sched_steps", "trades", "out_records", "cap_rejects",
+              "rejects", "parity_checked_msgs", "device_metrics"):
+        assert d[f] == cpu[f], f
+    with open(tmp_path / "trace.json") as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any("rows" in n for n in names)

@@ -116,16 +116,35 @@ def test_port_imports_without_jax_or_kme_tpu():
               "kme_tpu_torch.analysis.rules",
               "kme_tpu_torch.analysis.lockgraph",
               "kme_tpu_torch.analysis.lockcheck",
-              "kme_tpu_torch.analysis.cli", "kme_tpu_torch.perfgate"):
+              "kme_tpu_torch.analysis.cli", "kme_tpu_torch.perfgate",
+              "kme_tpu_torch.benchmarks"):
         assert m in mods
 
 
 # the JAX package's files the port has no counterpart of, each with why
 NOT_PORTED = {
     "_jaxsetup.py": "JAX configuration (x64, platform); the port has no JAX",
-    "benchmarks.py": "the earlier round's benchmark, the body of bench.py "
-                     "(kme-bench), which stays in the JAX package",
 }
+
+# public top-level names of the JAX package that the port has no
+# counterpart of: its JAX program builders (traced, jitted or sharded
+# programs, their device meshes and partition specs, and their cost
+# model), whose work the port's kernels, sessions and streams do
+# directly ...
+JAX_BUILDERS = frozenset({
+    "build_seq_step", "build_seq_scan", "build_step", "build_mesh",
+    "shard_state", "state_specs", "async_prefetch", "step_cost_analysis",
+    # engine/parity.py (the jitted scan of the replica's step),
+    # parallel/seqmesh.py (the shard_map'd fleet scan), parallel/mesh.py
+    # (the sharded lanes step and its jitted chunk and settle)
+    "build_step_fn", "build_seq_mesh_scan", "build_sharded_step",
+    "build_sharded_chunk_jit", "build_sharded_settle_jit"})
+# ... and names that live inside those programs: the jnp dtype alias and
+# sign-bit scalar of the Pallas kernel body (engine/seq.py), and the
+# action value of the padding lanes of the replica's batched scan
+# (engine/parity.py; the port's replica dispatches message by message
+# and pads nothing)
+JAX_PROGRAM_NAMES = frozenset({"I32", "MIN32", "NOP_PAD"})
 
 
 def test_every_reference_module_has_a_counterpart():
@@ -149,6 +168,72 @@ def test_every_reference_module_has_a_counterpart():
     assert set(NOT_PORTED) <= seen
     for rel in NOT_PORTED:
         assert not os.path.exists(os.path.join(ROOT, "kme_tpu_torch", rel))
+
+
+def _public_names(path, imported=False):
+    """Public top-level names a module defines (functions, classes,
+    assigned names; with `imported`, the names it imports too), by
+    AST."""
+    with open(path, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    names = set()
+
+    def bound(t):
+        if isinstance(t, ast.Name):
+            names.add(t.id)
+        elif isinstance(t, (ast.Tuple, ast.List)):
+            for e in t.elts:
+                bound(e)
+
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                             ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            for t in node.targets:
+                bound(t)
+        elif isinstance(node, ast.AnnAssign):
+            bound(node.target)
+        elif imported and isinstance(node, (ast.Import, ast.ImportFrom)):
+            names |= {(a.asname or a.name).split(".")[0]
+                      for a in node.names}
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_every_reference_public_name_has_a_counterpart():
+    """Every public top-level name of every .py file of kme_tpu/ is
+    defined (or imported) by the port's file of the same path, but the
+    JAX program builders and the names inside those programs, each of
+    which the JAX package does define."""
+    ref = os.path.join(ROOT, "kme_tpu")
+    missing, builders = [], set()
+    for dirpath, dirs, files in os.walk(ref):
+        dirs[:] = [d for d in dirs if d != "__pycache__"]
+        for f in files:
+            rel = os.path.relpath(os.path.join(dirpath, f), ref)
+            if not f.endswith(".py") or rel in NOT_PORTED:
+                continue
+            theirs = _public_names(os.path.join(dirpath, f))
+            ours = _public_names(os.path.join(ROOT, "kme_tpu_torch", rel),
+                                 imported=True)
+            allowed = theirs & (JAX_BUILDERS | JAX_PROGRAM_NAMES)
+            builders |= allowed
+            missing += [f"{rel}:{n}" for n in sorted(theirs - ours - allowed)]
+    assert missing == []
+    assert builders == JAX_BUILDERS | JAX_PROGRAM_NAMES
+
+
+def test_device_opcodes_equal_the_reference():
+    import kme_tpu.opcodes as JOP
+    import kme_tpu_torch.opcodes as OP
+
+    names = [n for n in vars(JOP.DevOp) if not n.startswith("_")]
+    assert names == [n for n in vars(OP.DevOp) if not n.startswith("_")]
+    for n in names:
+        assert getattr(OP.DevOp, n) == getattr(JOP.DevOp, n), n
+    assert OP.WIRE_TO_DEV == JOP.WIRE_TO_DEV
+    assert OP.DEV_TO_WIRE == JOP.DEV_TO_WIRE
+    assert OP.WIRE_ACTIONS == JOP.WIRE_ACTIONS
 
 
 @pytest.mark.parametrize("path", sorted(_port_sources()),
