@@ -1,0 +1,938 @@
+// The benchmark's frozen copy of kme_tpu_torch/native/kme_oracle.cpp, the
+// reference of kmebench/reference/native.py (comments aside, unchanged).
+//
+// Native quirk-exact matching engine: a C++ port of the scalar oracle
+// (kme_tpu/oracle/engine.py — the semantics authority, itself an exact
+// replica of the reference's src/main/java/KProcessor.java:63-445).
+//
+// Purpose: quirk-exact serving AT SPEED. The parallel lanes engine is
+// provably un-schedulable under Q11 (COMPAT.md) and the serial device
+// replica is op-count-bound on TPU, so the fast java-compat path is a
+// native host engine — the same role the reference's own JVM+RocksDB
+// stack plays. Byte parity with the Python oracle is pinned by
+// tests/test_native_oracle.py (wire lines AND deep store state).
+//
+// Input envelope: ids are Java longs (wrapped at the Python marshal
+// boundary), price/size are int32 (EnvelopeError beyond) — the
+// Jackson-parseable envelope, COMPAT.md.
+//
+// Float bit scans (Q7): the reference uses double log10 math; CPython's
+// math.log10 and this file's std::log10 are the same libm on this
+// platform, so the overshoot behavior matches the oracle bit-for-bit
+// (tests sweep the full 126-bit range plus overshoot points).
+
+#include <algorithm>
+#include <cmath>
+#include <cstdint>
+#include <cstdio>
+#include <cstring>
+#include <string>
+#include <unordered_map>
+#include <utility>
+#include <vector>
+
+namespace {
+
+constexpr int64_t OP_ADD_SYMBOL = 0, OP_REMOVE_SYMBOL = 1, OP_BUY = 2,
+                  OP_SELL = 3, OP_CANCEL = 4, OP_BOUGHT = 5, OP_SOLD = 6,
+                  OP_REJECT = 7, OP_CREATE_BALANCE = 100, OP_TRANSFER = 101,
+                  OP_PAYOUT = 200;
+
+constexpr int32_t OK = 0, ERR_HANG = 1, ERR_CRASH = 2;
+
+// ---- Java arithmetic (two's complement; unsigned ops dodge UB) ----
+inline int64_t jadd(int64_t a, int64_t b) {
+  return (int64_t)((uint64_t)a + (uint64_t)b);
+}
+inline int64_t jmul(int64_t a, int64_t b) {
+  return (int64_t)((uint64_t)a * (uint64_t)b);
+}
+inline int64_t jneg(int64_t a) { return (int64_t)(0ULL - (uint64_t)a); }
+inline int64_t jshl(int64_t n, int k) {
+  return (int64_t)((uint64_t)n << (k & 63));
+}
+inline int64_t jshr(int64_t n, int k) { return n >> (k & 63); }  // arithmetic
+inline int32_t jint(int64_t x) { return (int32_t)(uint32_t)(uint64_t)x; }
+
+inline bool get_bit(int64_t n, int k) { return 1 == (jshr(n, k) & 1); }
+inline int64_t set_bit(int64_t n, int k) { return n | jshl(1, k); }
+inline int64_t unset_bit(int64_t n, int k) { return n & ~jshl(1, k); }
+
+// KProcessor.java:371-377 — double log10 scans with Java cast semantics
+inline int32_t java_int_of_log_ratio(int64_t v) {
+  if (v < 0) return 0;                    // (int) NaN
+  if (v == 0) return INT32_MIN;           // (int) -Infinity
+  double r = std::log10((double)v) / std::log10(2.0);
+  return (int32_t)r;                      // in-range truncation
+}
+inline int32_t first_set_bit_pos_float(int64_t n) {
+  return java_int_of_log_ratio(n & jneg(n));
+}
+inline int32_t last_set_bit_pos_float(int64_t n) {
+  return java_int_of_log_ratio(n);
+}
+
+struct Book {  // (msb, lsb) 126-bit bitmap halves
+  int64_t msb = 0, lsb = 0;
+};
+inline int32_t book_min_price(const Book& b) {
+  if (b.lsb == 0 && b.msb == 0) return -1;
+  if (b.lsb == 0) return first_set_bit_pos_float(b.msb) + 63;
+  return first_set_bit_pos_float(b.lsb);
+}
+inline int32_t book_max_price(const Book& b) {
+  if (b.msb == 0 && b.lsb == 0) return -1;
+  if (b.msb == 0) return last_set_bit_pos_float(b.lsb);
+  return last_set_bit_pos_float(b.msb) + 63;
+}
+inline bool check_bit(const Book& b, int32_t price) {
+  if (price < 63) return get_bit(b.lsb, price);
+  return get_bit(b.msb, price - 63);
+}
+inline Book with_bit_set(Book b, int32_t price) {
+  if (price < 63) b.lsb = set_bit(b.lsb, price);
+  else b.msb = set_bit(b.msb, price - 63);
+  return b;
+}
+inline Book with_bit_unset(Book b, int32_t price) {
+  if (price < 63) b.lsb = unset_bit(b.lsb, price);
+  else b.msb = unset_bit(b.msb, price - 63);
+  return b;
+}
+
+struct StoredOrder {  // KProcessor.java:448-475
+  int64_t action, oid, aid, sid;
+  int32_t price, size;
+  int64_t next = 0, prev = 0;
+  bool next_has = false, prev_has = false;
+};
+
+struct Bucket {
+  int64_t first = 0, last = 0;
+};
+
+struct PairHash {
+  size_t operator()(const std::pair<int64_t, int64_t>& p) const {
+    uint64_t a = (uint64_t)p.first, b = (uint64_t)p.second;
+    a ^= b + 0x9e3779b97f4a7c15ULL + (a << 6) + (a >> 2);
+    return (size_t)a;
+  }
+};
+
+using PosKey = std::pair<int64_t, int64_t>;       // (aid, sid)
+
+struct PosVal {  // (amount, available) + insertion stamp: the Python
+  int64_t first, second;  // oracle's dict iterates in INSERTION order,
+  uint64_t seq = 0;       // which is observable on payout death paths
+};
+
+struct Death {  // ReferenceHang / ReferenceCrash surfaced as codes
+  int32_t code;
+  const char* what;
+};
+
+struct Engine {
+  bool java;
+  bool has_book_slots = false, has_max_fills = false;
+  int64_t book_slots = 0, max_fills = 0;
+
+  std::unordered_map<int64_t, int64_t> balances;
+  std::unordered_map<PosKey, PosVal, PairHash> positions;
+  uint64_t pos_seq = 0;
+
+  // dict semantics: overwriting an existing key keeps its position;
+  // a fresh insert (including delete-then-reinsert) goes to the end
+  void put_pos(const PosKey& k, int64_t amount, int64_t available) {
+    auto it = positions.find(k);
+    if (it != positions.end()) {
+      it->second.first = amount;
+      it->second.second = available;
+    } else {
+      positions[k] = PosVal{amount, available, ++pos_seq};
+    }
+  }
+  std::unordered_map<int64_t, StoredOrder> orders;
+  // resting-order count per (sid, action) — maintained incrementally at
+  // every orders-map insert/erase of a DISTINCT record. Powers (a) the
+  // envelope's O(1) book_slots check and (b) the necessary-condition
+  // gate that makes the per-trade store snapshot RARE (copying five
+  // stores per trade is O(open_orders) and explodes on deep books).
+  std::unordered_map<std::pair<int64_t, int64_t>, int64_t, PairHash>
+      side_cnt;
+
+  void cnt_add(const StoredOrder& r, int64_t d) {
+    auto key = std::make_pair(r.sid, r.action);
+    auto it = side_cnt.find(key);
+    if (it == side_cnt.end()) {
+      if (d > 0) side_cnt.emplace(key, d);
+    } else {
+      it->second += d;
+      if (it->second <= 0) side_cnt.erase(it);
+    }
+  }
+
+  int64_t cnt_get(int64_t sid, int64_t action) const {
+    auto it = side_cnt.find(std::make_pair(sid, action));
+    return it == side_cnt.end() ? 0 : it->second;
+  }
+  std::unordered_map<int64_t, Book> books;
+  std::unordered_map<int64_t, Bucket> buckets;
+
+  // per-batch outputs
+  std::string out;                 // '\n'-joined wire lines
+  std::vector<int64_t> line_counts;
+  int64_t err_index = -1;
+  int32_t err_code = OK;
+  std::string err_msg;
+  std::string dump;                // state-dump buffer
+
+  // the mutable echo order of the message being processed
+  struct Echo {
+    int64_t action, oid, aid, sid;
+    int32_t price, size;
+    int64_t next = 0, prev = 0;
+    bool next_has = false, prev_has = false;
+  } cur;
+  int64_t cur_lines = 0;
+
+  // ---- wire formatting (byte-exact dumps_order) ----
+  void emit(const char* key, int64_t action, int64_t oid, int64_t aid,
+            int64_t sid, int64_t price, int64_t size, bool next_has,
+            int64_t next, bool prev_has, int64_t prev) {
+    char buf[320];
+    char nb[24], pb[24];
+    if (next_has) snprintf(nb, sizeof nb, "%lld", (long long)next);
+    else snprintf(nb, sizeof nb, "null");
+    if (prev_has) snprintf(pb, sizeof pb, "%lld", (long long)prev);
+    else snprintf(pb, sizeof pb, "null");
+    int n = snprintf(buf, sizeof buf,
+                     "%s {\"action\":%lld,\"oid\":%lld,\"aid\":%lld,"
+                     "\"sid\":%lld,\"price\":%lld,\"size\":%lld,"
+                     "\"next\":%s,\"prev\":%s}",
+                     key, (long long)action, (long long)oid, (long long)aid,
+                     (long long)sid, (long long)price, (long long)size, nb,
+                     pb);
+    out.append(buf, (size_t)n);
+    out.push_back('\n');
+    cur_lines += 1;
+  }
+
+  // ---- key codecs ----
+  int64_t order_book_key(int64_t sid, bool is_buy) const {
+    if (java) return jmul(sid, is_buy ? 1 : -1);
+    return jadd(jmul(sid, 2), is_buy ? 0 : 1);
+  }
+  int64_t bucket_key(int64_t book_key, int64_t price) const {
+    if (java) return jshl(book_key, 8) | price;
+    return jadd(jmul(book_key, 256), price);
+  }
+
+  // ---- account ledger (KProcessor.java:131-146) ----
+  bool create_balance(int64_t aid) {
+    if (balances.count(aid)) return false;
+    balances[aid] = 0;
+    return true;
+  }
+  bool transfer(int64_t aid, int32_t size) {
+    auto it = balances.find(aid);
+    // `-size` is Java INT negation (wraps at int32) before the long cmp
+    if (it == balances.end() || it->second < (int64_t)jint(-(int64_t)size))
+      return false;
+    it->second = jadd(it->second, size);
+    return true;
+  }
+
+  // ---- symbol lifecycle (KProcessor.java:184-198, 335-357) ----
+  bool add_symbol(int64_t sid) {
+    if (java) {
+      if (books.count(sid)) return false;
+      books[sid] = Book{};
+      books[jneg(sid)] = Book{};
+      return true;
+    }
+    if (sid < 0 || books.count(jmul(sid, 2))) return false;
+    books[jmul(sid, 2)] = Book{};
+    books[jadd(jmul(sid, 2), 1)] = Book{};
+    return true;
+  }
+
+  bool remove_all_orders_java(int64_t book_key) {
+    auto it = books.find(book_key);
+    if (it == books.end()) return false;
+    if (book_min_price(it->second) != -1)
+      throw Death{ERR_HANG,
+                  "removeAllOrders on a non-empty book: Q4 infinite loop"};
+    return true;
+  }
+
+  void wipe_book_fixed(int64_t book_key) {
+    auto it = books.find(book_key);
+    if (it == books.end()) return;
+    Book book = it->second;
+    int32_t price = book_min_price(book);
+    while (price != -1) {
+      int64_t bk = bucket_key(book_key, price);
+      auto bit = buckets.find(bk);
+      if (bit == buckets.end())
+        throw Death{ERR_CRASH, "NPE: bitmap bit set but bucket missing"};
+      Bucket bucket = bit->second;
+      buckets.erase(bit);
+      int64_t ptr = bucket.first;
+      bool has = true;
+      while (has) {
+        auto oit = orders.find(ptr);
+        if (oit == orders.end())
+          throw Death{ERR_CRASH, "NPE: linked order missing in wipe"};
+        StoredOrder rec = oit->second;
+        cnt_add(rec, -1);
+        orders.erase(oit);
+        post_remove_adjustments(rec);
+        has = rec.next_has;
+        ptr = rec.next;
+      }
+      book = with_bit_unset(book, price);
+      price = book_min_price(book);
+    }
+    books[book_key] = book;
+  }
+
+  bool remove_symbol(int64_t sid) {
+    if (java) {
+      if (remove_all_orders_java(sid) || remove_all_orders_java(jneg(sid)))
+        return false;
+      books.erase(sid);
+      books.erase(jneg(sid));
+      return true;
+    }
+    int64_t s = sid < 0 ? jneg(sid) : sid;
+    int64_t kb = jmul(s, 2), ks = jadd(jmul(s, 2), 1);
+    if (!books.count(kb)) return false;
+    wipe_book_fixed(kb);
+    wipe_book_fixed(ks);
+    books.erase(kb);
+    books.erase(ks);
+    return true;
+  }
+
+  // ---- settlement (KProcessor.java:148-165) ----
+  bool payout(int64_t sid, int32_t size) {
+    if (!remove_symbol(sid)) return false;
+    int64_t match_sid = java ? sid : (sid < 0 ? jneg(sid) : sid);
+    bool credit = java || sid >= 0;
+    // iterate matches in INSERTION order (the Python oracle's dict
+    // order): on a mid-scan ReferenceCrash the set of balances already
+    // credited is part of the state-at-death contract
+    std::vector<std::pair<uint64_t, PosKey>> matches;
+    for (auto& kv : positions)
+      if (kv.first.second == match_sid)
+        matches.push_back({kv.second.seq, kv.first});
+    std::sort(matches.begin(), matches.end());
+    for (auto& m : matches) {
+      if (credit) {
+        auto pit = positions.find(m.second);
+        auto bit = balances.find(m.second.first);
+        if (bit == balances.end())
+          throw Death{ERR_CRASH,
+                      "NPE: payout credits account with no balance"};
+        bit->second = jadd(bit->second, jmul(pit->second.first, size));
+      }
+    }
+    for (auto& m : matches) positions.erase(m.second);
+    return true;
+  }
+
+  // ---- risk / margin engine (KProcessor.java:167-182, 325-333) ----
+  bool check_balance(int64_t aid, int64_t sid, int32_t price, bool is_buy,
+                     int32_t in_size) {
+    auto bit = balances.find(aid);
+    if (bit == balances.end()) return false;
+    int32_t size = jint(jmul(in_size, is_buy ? 1 : -1));
+    auto pit = positions.find({aid, sid});
+    int64_t available = pit != positions.end() ? pit->second.second : 0;
+    int64_t neg_size = (int64_t)jint(-(int64_t)size);
+    int64_t adj;
+    if (is_buy)
+      adj = std::max(std::min(available, (int64_t)0), neg_size);
+    else
+      adj = std::min(std::max(available, (int64_t)0), neg_size);
+    int64_t unit = is_buy ? (int64_t)jint(price)
+                          : (int64_t)jint((int64_t)price - 100);
+    int64_t risk = jmul(jadd(size, adj), unit);
+    if (bit->second < risk) return false;
+    bit->second = jadd(bit->second, jneg(risk));
+    if (adj != 0) {
+      if (pit == positions.end())
+        throw Death{ERR_CRASH, "NPE: checkBalance adj-write with no position"};
+      pit->second.second = jadd(available, jneg(adj));
+    }
+    return true;
+  }
+
+  void post_remove_adjustments(const StoredOrder& rec) {
+    bool is_buy = rec.action == OP_BUY;
+    int32_t size = jint(jmul(rec.size, is_buy ? 1 : -1));
+    auto pit = positions.find({rec.aid, rec.sid});
+    bool has_pos = pit != positions.end();
+    PosVal pos = has_pos ? pit->second : PosVal{0, 0};
+    int64_t blocked = has_pos ? jadd(pos.first, jneg(pos.second)) : 0;
+    int64_t neg_size = (int64_t)jint(-(int64_t)size);
+    int64_t adj;
+    if (is_buy)
+      adj = std::max(std::min(blocked, (int64_t)0), neg_size);
+    else
+      adj = std::min(std::max(blocked, (int64_t)0), neg_size);
+    auto bit = balances.find(rec.aid);
+    if (bit == balances.end())
+      throw Death{ERR_CRASH, "NPE: margin release for account with no balance"};
+    int64_t unit = is_buy ? (int64_t)jint(rec.price)
+                          : (int64_t)jint((int64_t)rec.price - 100);
+    bit->second = jadd(bit->second, jmul(jadd(size, adj), unit));
+    if (adj != 0) {
+      if (!has_pos)
+        throw Death{ERR_CRASH,
+                    "NPE: postRemoveAdjustments adj-write with no position"};
+      PosKey target = java ? PosKey{pos.first, pos.second}
+                           : PosKey{rec.aid, rec.sid};  // Q11
+      put_pos(target, pos.first, jadd(pos.second, adj));
+    }
+  }
+
+  // ---- matcher hot loop (KProcessor.java:225-263) ----
+  bool cross_guard(bool taker_is_buy, int32_t maker_price) const {
+    int32_t limit = cur.price;
+    if (java) {
+      if (cur.size > 0 && taker_is_buy) return maker_price <= limit;
+      return maker_price >= limit;
+    }
+    if (cur.size <= 0) return false;
+    return taker_is_buy ? maker_price <= limit : maker_price >= limit;
+  }
+
+  void execute_trade(const StoredOrder& maker, int32_t trade_size,
+                     bool taker_is_buy) {
+    // maker fill at price 0, taker fill at the improvement; maker first
+    fill_order(taker_is_buy ? OP_SOLD : OP_BOUGHT, maker.aid, maker.sid, 0,
+               trade_size);
+    int32_t improvement = jint((int64_t)cur.price - (int64_t)maker.price);
+    fill_order(taker_is_buy ? OP_BOUGHT : OP_SOLD, cur.aid, cur.sid,
+               improvement, trade_size);
+    emit("OUT", taker_is_buy ? OP_SOLD : OP_BOUGHT, maker.oid, maker.aid,
+         maker.sid, 0, trade_size, false, 0, false, 0);
+    emit("OUT", taker_is_buy ? OP_BOUGHT : OP_SOLD, cur.oid, cur.aid,
+         cur.sid, improvement, trade_size, false, 0, false, 0);
+  }
+
+  void fill_order(int64_t action, int64_t aid, int64_t sid, int32_t price,
+                  int32_t fsize) {
+    int32_t size = jint(jmul(fsize, action == OP_BOUGHT ? 1 : -1));
+    PosKey key{aid, sid};
+    auto pit = positions.find(key);
+    if (pit == positions.end()) {
+      put_pos(key, size, size);
+    } else {
+      PosVal pos = pit->second;
+      int64_t new_amount = jadd(pos.first, size);
+      PosKey target = java ? PosKey{pos.first, pos.second} : key;  // Q11
+      if (new_amount == 0) {
+        positions.erase(target);
+      } else {
+        put_pos(target, new_amount, jadd(pos.second, size));
+      }
+    }
+    auto bit = balances.find(aid);
+    if (bit == balances.end())
+      throw Death{ERR_CRASH, "NPE: fill credits account with no balance"};
+    // int*int wraps at int32 BEFORE the long add (KProcessor.java:286)
+    bit->second = jadd(bit->second, (int64_t)jint(jmul(size, price)));
+  }
+
+  bool try_match() {
+    bool taker_is_buy = cur.action == OP_BUY;
+    int64_t opp_key = order_book_key(cur.sid, !taker_is_buy);
+    auto bkit = books.find(opp_key);
+    if (bkit == books.end())
+      throw Death{ERR_CRASH, "NPE: opposite book missing in tryMatch"};
+    Book bitmap = bkit->second;
+    int32_t price_bit =
+        taker_is_buy ? book_min_price(bitmap) : book_max_price(bitmap);
+    if (price_bit == -1) return false;
+    int64_t bk = bucket_key(opp_key, price_bit);
+    auto buit = buckets.find(bk);
+    if (buit == buckets.end())
+      throw Death{ERR_CRASH,
+                  "NPE: best-price bucket missing (Q7 overshoot)"};
+    Bucket bucket = buit->second;
+    int64_t maker_ptr = bucket.first;
+    auto oit = orders.find(maker_ptr);
+    if (oit == orders.end())
+      throw Death{ERR_CRASH, "NPE: bucket head order missing"};
+    StoredOrder maker = oit->second;
+    while (cross_guard(taker_is_buy, maker.price)) {
+      int32_t trade_size = std::min(cur.size, maker.size);
+      maker.size = jint((int64_t)maker.size - trade_size);
+      cur.size = jint((int64_t)cur.size - trade_size);
+      execute_trade(maker, trade_size, taker_is_buy);
+      if (maker.size != 0) break;
+      {
+        auto mit = orders.find(maker.oid);
+        if (mit != orders.end()) {
+          cnt_add(mit->second, -1);
+          orders.erase(mit);  // no-op when absent (RocksDB delete)
+        }
+      }
+      if (!maker.next_has) {
+        buckets.erase(bk);
+        bitmap = with_bit_unset(bitmap, maker.price);
+        books[opp_key] = bitmap;
+        price_bit =
+            taker_is_buy ? book_min_price(bitmap) : book_max_price(bitmap);
+        if (price_bit == -1) return cur.size == 0;
+        bk = bucket_key(opp_key, price_bit);
+        buit = buckets.find(bk);
+        if (buit == buckets.end())
+          throw Death{ERR_CRASH,
+                      "NPE: best-price bucket missing (Q7 overshoot)"};
+        bucket = buit->second;
+        maker_ptr = bucket.first;
+      } else {
+        maker_ptr = maker.next;
+      }
+      oit = orders.find(maker_ptr);
+      if (oit == orders.end())
+        throw Death{ERR_CRASH, "NPE: next maker order missing"};
+      maker = oit->second;
+    }
+    // post-loop bucket-head writeback (KProcessor.java:259-261)
+    buckets[bk] = {maker_ptr, bucket.last};
+    maker.prev_has = false;
+    maker.prev = 0;
+    orders[maker_ptr] = maker;
+    return cur.size == 0;
+  }
+
+  // ---- order entry (KProcessor.java:200-223) ----
+  bool add_order() {
+    if (!java) {
+      if (!(0 <= cur.price && cur.price < 126) || cur.size <= 0) return false;
+    }
+    bool is_buy = cur.action == OP_BUY;
+    int64_t bkey = order_book_key(cur.sid, is_buy);
+    if (!books.count(bkey)) return false;
+    if (!check_balance(cur.aid, cur.sid, cur.price, is_buy, cur.size))
+      return false;
+    if (try_match()) return true;
+    Book book = books[bkey];
+    int64_t oid = cur.oid;
+    int64_t bk = bucket_key(bkey, cur.price);
+    if (!check_bit(book, cur.price)) {
+      buckets[bk] = {oid, oid};
+      books[bkey] = with_bit_set(book, cur.price);
+    } else {
+      auto buit = buckets.find(bk);
+      if (buit == buckets.end())
+        throw Death{ERR_CRASH, "NPE: bitmap bit set but bucket missing"};
+      Bucket bucket = buit->second;
+      auto lit = orders.find(bucket.last);
+      if (lit == orders.end())
+        throw Death{ERR_CRASH, "NPE: bucket tail order missing"};
+      StoredOrder curr_last = lit->second;
+      curr_last.next = oid;
+      curr_last.next_has = true;
+      cur.prev = curr_last.oid;
+      cur.prev_has = true;
+      orders[bucket.last] = curr_last;
+      buckets[bk] = {bucket.first, oid};
+    }
+    StoredOrder rec;
+    rec.action = cur.action;
+    rec.oid = cur.oid;
+    rec.aid = cur.aid;
+    rec.sid = cur.sid;
+    rec.price = cur.price;
+    rec.size = cur.size;
+    rec.next = cur.next;
+    rec.next_has = cur.next_has;
+    rec.prev = cur.prev;
+    rec.prev_has = cur.prev_has;
+    {
+      auto old = orders.find(oid);
+      if (old != orders.end()) cnt_add(old->second, -1);
+    }
+    cnt_add(rec, +1);
+    orders[oid] = rec;
+    return true;
+  }
+
+  // ---- cancel path (KProcessor.java:289-323) ----
+  bool remove_order(int64_t oid, int64_t aid) {
+    auto oit = orders.find(oid);
+    if (oit == orders.end() || oit->second.aid != aid) return false;
+    StoredOrder rec = oit->second;
+    bool is_buy = rec.action == OP_BUY;
+    int64_t bkey = order_book_key(rec.sid, is_buy);
+    auto bkit = books.find(bkey);
+    int64_t bk = bucket_key(bkey, rec.price);
+    auto buit = buckets.find(bk);
+    if (!rec.prev_has && !rec.next_has) {
+      if (bkit == books.end())
+        throw Death{ERR_CRASH, "NPE: book missing in removeOrder"};
+      buckets.erase(bk);  // no-op when absent
+      books[bkey] = with_bit_unset(bkit->second, rec.price);
+    } else if (!rec.prev_has) {
+      if (buit == buckets.end())
+        throw Death{ERR_CRASH, "NPE: bucket missing in removeOrder unlink"};
+      buckets[bk] = {rec.next, buit->second.last};
+      auto nit = orders.find(rec.next);
+      if (nit == orders.end())
+        throw Death{ERR_CRASH, "NPE: next order missing in unlink"};
+      StoredOrder nxt = nit->second;
+      nxt.prev_has = false;
+      nxt.prev = 0;
+      orders[rec.next] = nxt;
+    } else if (!rec.next_has) {
+      if (buit == buckets.end())
+        throw Death{ERR_CRASH, "NPE: bucket missing in removeOrder unlink"};
+      buckets[bk] = {buit->second.first, rec.prev};
+      auto pit2 = orders.find(rec.prev);
+      if (pit2 == orders.end())
+        throw Death{ERR_CRASH, "NPE: prev order missing in unlink"};
+      StoredOrder prv = pit2->second;
+      prv.next_has = false;
+      prv.next = 0;
+      orders[rec.prev] = prv;
+    } else {
+      auto pit2 = orders.find(rec.prev);
+      auto nit = orders.find(rec.next);
+      if (pit2 == orders.end() || nit == orders.end())
+        throw Death{ERR_CRASH, "NPE: neighbor order missing in unlink"};
+      StoredOrder prv = pit2->second;
+      StoredOrder nxt = nit->second;
+      prv.next = rec.next;
+      prv.next_has = true;
+      nxt.prev = rec.prev;
+      nxt.prev_has = true;
+      orders[rec.prev] = prv;
+      orders[rec.next] = nxt;
+    }
+    cnt_add(rec, -1);
+    orders.erase(oid);
+    post_remove_adjustments(rec);
+    return true;
+  }
+
+  // ---- per-message dispatch (KProcessor.java:95-126) ----
+  void process_one() {
+    // IN echo of the pre-image
+    emit("IN", cur.action, cur.oid, cur.aid, cur.sid, cur.price, cur.size,
+         cur.next_has, cur.next, cur.prev_has, cur.prev);
+    bool result = false;
+    int64_t a = cur.action;
+    if (a == OP_ADD_SYMBOL) result = add_symbol(cur.sid);
+    else if (a == OP_REMOVE_SYMBOL) result = remove_symbol(cur.sid);
+    else if (a == OP_BUY || a == OP_SELL) result = add_order();
+    else if (a == OP_CANCEL) result = remove_order(cur.oid, cur.aid);
+    else if (a == OP_PAYOUT) {
+      bool r = payout(cur.sid, cur.size);
+      if (!java) result = r;  // Q5/Q6: java discards the return
+    } else if (a == OP_CREATE_BALANCE) result = create_balance(cur.aid);
+    else if (a == OP_TRANSFER) result = transfer(cur.aid, cur.size);
+    if (!result) cur.action = OP_REJECT;
+    emit("OUT", cur.action, cur.oid, cur.aid, cur.sid, cur.price, cur.size,
+         cur.next_has, cur.next, cur.prev_has, cur.prev);
+  }
+
+  // read-only prediction of the current (fixed-mode) trade's fill
+  // count and whether its residual rests — mirrors add_order/try_match
+  // with NO mutation, so the capacity envelope can reject without the
+  // five-store snapshot (the snapshot cost O(open_orders) per
+  // possibly-violating trade and dominated deep-book judging: ~375s
+  // for the 105k/slots=8192 headline, round 5). Death conditions
+  // return early with no violation: the real path throws identically.
+  void plan_trade(int64_t* fills, bool* rests) const {
+    *fills = 0;
+    *rests = false;
+    if (!(0 <= cur.price && cur.price < 126) || cur.size <= 0) return;
+    bool is_buy = cur.action == OP_BUY;
+    if (!books.count(order_book_key(cur.sid, is_buy))) return;
+    // check_balance outcome, read-only
+    auto bit = balances.find(cur.aid);
+    if (bit == balances.end()) return;
+    int32_t size = jint(jmul(cur.size, is_buy ? 1 : -1));
+    auto pit = positions.find({cur.aid, cur.sid});
+    int64_t available = pit != positions.end() ? pit->second.second : 0;
+    int64_t neg_size = (int64_t)jint(-(int64_t)size);
+    int64_t adj =
+        is_buy ? std::max(std::min(available, (int64_t)0), neg_size)
+               : std::min(std::max(available, (int64_t)0), neg_size);
+    int64_t unit = is_buy ? (int64_t)jint(cur.price)
+                          : (int64_t)jint((int64_t)cur.price - 100);
+    if (bit->second < jmul(jadd(size, adj), unit)) return;
+    // dry sweep (the try_match walk on local copies)
+    int64_t opp_key = order_book_key(cur.sid, !is_buy);
+    auto bkit = books.find(opp_key);
+    if (bkit == books.end()) return;  // real path: Death
+    Book bitmap = bkit->second;
+    int32_t remaining = cur.size;
+    int32_t price_bit =
+        is_buy ? book_min_price(bitmap) : book_max_price(bitmap);
+    if (price_bit != -1) {
+      int64_t bk = bucket_key(opp_key, price_bit);
+      auto buit = buckets.find(bk);
+      if (buit == buckets.end()) return;  // real path: Death
+      int64_t maker_ptr = buit->second.first;
+      auto oit = orders.find(maker_ptr);
+      if (oit == orders.end()) return;  // real path: Death
+      StoredOrder maker = oit->second;
+      while (remaining > 0 && (is_buy ? maker.price <= cur.price
+                                      : maker.price >= cur.price)) {
+        int32_t trade_size = std::min(remaining, maker.size);
+        int32_t maker_left = jint((int64_t)maker.size - trade_size);
+        remaining = jint((int64_t)remaining - trade_size);
+        (*fills)++;
+        if (maker_left != 0) break;
+        if (!maker.next_has) {
+          bitmap = with_bit_unset(bitmap, maker.price);
+          price_bit =
+              is_buy ? book_min_price(bitmap) : book_max_price(bitmap);
+          if (price_bit == -1) break;
+          bk = bucket_key(opp_key, price_bit);
+          buit = buckets.find(bk);
+          if (buit == buckets.end()) return;  // real path: Death
+          maker_ptr = buit->second.first;
+        } else {
+          maker_ptr = maker.next;
+        }
+        oit = orders.find(maker_ptr);
+        if (oit == orders.end()) return;  // real path: Death
+        maker = oit->second;
+      }
+    }
+    *rests = remaining > 0;
+  }
+
+  // the capacity envelope (fixed mode): the O(1) necessary-condition
+  // gate first, then the read-only dry-run decides the violation
+  // EXACTLY — semantics authority is the Python oracle's run-then-
+  // rollback (_process_enveloped), pinned equal by
+  // tests/test_native_oracle.py
+  void process_one_enveloped() {
+    bool is_trade = cur.action == OP_BUY || cur.action == OP_SELL;
+    if (!is_trade || (!has_book_slots && !has_max_fills)) {
+      process_one();
+      return;
+    }
+    int64_t opp_act = cur.action == OP_BUY ? OP_SELL : OP_BUY;
+    bool possible = false;
+    if (has_max_fills && cnt_get(cur.sid, opp_act) > max_fills)
+      possible = true;
+    if (has_book_slots && cnt_get(cur.sid, cur.action) >= book_slots)
+      possible = true;
+    if (!possible) {
+      process_one();
+      return;
+    }
+    int64_t wf = 0;
+    bool wr = false;
+    plan_trade(&wf, &wr);
+    bool violated = has_max_fills && wf > max_fills;
+    if (!violated && has_book_slots) {
+      // the rollback authority checks "order present after the run
+      // with matching sid/action" — which a STALE same-oid resting
+      // order also satisfies when the trade itself does not rest
+      bool stale = false;
+      auto it = orders.find(cur.oid);
+      if (it != orders.end() && it->second.sid == cur.sid &&
+          it->second.action == cur.action)
+        stale = true;
+      int64_t cnt = cnt_get(cur.sid, cur.action);
+      violated = (wr && cnt + 1 > book_slots)
+                 || (!wr && stale && cnt > book_slots);
+    }
+    if (!violated) {
+      process_one();
+      return;
+    }
+    emit("IN", cur.action, cur.oid, cur.aid, cur.sid, cur.price,
+         cur.size, cur.next_has, cur.next, cur.prev_has, cur.prev);
+    emit("OUT", OP_REJECT, cur.oid, cur.aid, cur.sid, cur.price,
+         cur.size, cur.next_has, cur.next, cur.prev_has, cur.prev);
+  }
+};
+
+}  // namespace
+
+extern "C" {
+
+Engine* kme_oracle_new(int32_t java, int32_t has_book_slots,
+                       int64_t book_slots, int32_t has_max_fills,
+                       int64_t max_fills) {
+  Engine* e = new Engine();
+  e->java = java != 0;
+  e->has_book_slots = has_book_slots != 0;
+  e->book_slots = book_slots;
+  e->has_max_fills = has_max_fills != 0;
+  e->max_fills = max_fills;
+  return e;
+}
+
+void kme_oracle_free(Engine* e) { delete e; }
+
+int32_t kme_oracle_process(Engine* e, int64_t n, const int64_t* action,
+                           const int64_t* oid, const int64_t* aid,
+                           const int64_t* sid, const int64_t* price,
+                           const int64_t* size, const int64_t* nxt,
+                           const uint8_t* nxt_has, const int64_t* prv,
+                           const uint8_t* prv_has) {
+  e->out.clear();
+  e->line_counts.clear();
+  e->err_index = -1;
+  e->err_code = OK;
+  e->err_msg.clear();
+  for (int64_t i = 0; i < n; ++i) {
+    e->cur = Engine::Echo{action[i], oid[i], aid[i], sid[i],
+                          (int32_t)price[i], (int32_t)size[i],
+                          nxt[i], prv[i],
+                          nxt_has[i] != 0, prv_has[i] != 0};
+    e->cur_lines = 0;
+    size_t mark = e->out.size();
+    try {
+      e->process_one_enveloped();
+    } catch (const Death& d) {
+      // the oracle raises mid-message: records of earlier messages
+      // stand, the dying message emits nothing, state stays at death
+      e->out.resize(mark);
+      e->err_index = i;
+      e->err_code = d.code;
+      e->err_msg = d.what;
+      return d.code;
+    }
+    e->line_counts.push_back(e->cur_lines);
+  }
+  return OK;
+}
+
+int64_t kme_oracle_err_index(Engine* e) { return e->err_index; }
+const char* kme_oracle_err_msg(Engine* e) { return e->err_msg.c_str(); }
+const char* kme_oracle_out_buf(Engine* e) { return e->out.c_str(); }
+int64_t kme_oracle_out_len(Engine* e) { return (int64_t)e->out.size(); }
+const int64_t* kme_oracle_line_counts(Engine* e) {
+  return e->line_counts.data();
+}
+int64_t kme_oracle_n_processed(Engine* e) {
+  return (int64_t)e->line_counts.size();
+}
+
+// state dump for deep-equality tests: one record per line
+const char* kme_oracle_dump_state(Engine* e) {
+  std::string& d = e->dump;
+  d.clear();
+  char buf[256];
+  for (auto& kv : e->balances) {
+    snprintf(buf, sizeof buf, "B %lld %lld\n", (long long)kv.first,
+             (long long)kv.second);
+    d += buf;
+  }
+  for (auto& kv : e->positions) {
+    snprintf(buf, sizeof buf, "P %lld %lld %lld %lld %llu\n",
+             (long long)kv.first.first, (long long)kv.first.second,
+             (long long)kv.second.first, (long long)kv.second.second,
+             (unsigned long long)kv.second.seq);
+    d += buf;
+  }
+  for (auto& kv : e->books) {
+    snprintf(buf, sizeof buf, "K %lld %lld %lld\n", (long long)kv.first,
+             (long long)kv.second.msb, (long long)kv.second.lsb);
+    d += buf;
+  }
+  for (auto& kv : e->buckets) {
+    snprintf(buf, sizeof buf, "U %lld %lld %lld\n", (long long)kv.first,
+             (long long)kv.second.first, (long long)kv.second.last);
+    d += buf;
+  }
+  for (auto& kv : e->orders) {
+    const StoredOrder& r = kv.second;
+    snprintf(buf, sizeof buf, "O %lld %lld %lld %lld %lld %lld %d %lld %d %lld\n",
+             (long long)kv.first, (long long)r.action, (long long)r.aid,
+             (long long)r.sid, (long long)r.price, (long long)r.size,
+             r.next_has ? 1 : 0, (long long)r.next, r.prev_has ? 1 : 0,
+             (long long)r.prev);
+    d += buf;
+  }
+  return d.c_str();
+}
+
+// restore the five stores from a dump (the checkpoint payload).
+// Returns 0 on success, 1 on a malformed line.
+int32_t kme_oracle_load_state(Engine* e, const char* text) {
+  e->balances.clear();
+  e->positions.clear();
+  e->orders.clear();
+  e->books.clear();
+  e->buckets.clear();
+  e->side_cnt.clear();  // rebuilt by the 'O' lines below
+  e->pos_seq = 0;
+  const char* p = text;
+  while (*p) {
+    const char* nl = strchr(p, '\n');
+    size_t len = nl ? (size_t)(nl - p) : strlen(p);
+    std::string line(p, len);
+    p = nl ? nl + 1 : p + len;
+    if (line.empty()) continue;
+    long long a, b, c, d2, f, g;
+    unsigned long long sq;
+    int nh, ph;
+    switch (line[0]) {
+      case 'B':
+        if (sscanf(line.c_str(), "B %lld %lld", &a, &b) != 2) return 1;
+        e->balances[a] = b;
+        break;
+      case 'P':
+        if (sscanf(line.c_str(), "P %lld %lld %lld %lld %llu", &a, &b, &c,
+                   &d2, &sq) != 5)
+          return 1;
+        e->positions[{a, b}] = PosVal{c, d2, sq};
+        if (sq > e->pos_seq) e->pos_seq = sq;
+        break;
+      case 'K':
+        if (sscanf(line.c_str(), "K %lld %lld %lld", &a, &b, &c) != 3)
+          return 1;
+        e->books[a] = Book{b, c};
+        break;
+      case 'U':
+        if (sscanf(line.c_str(), "U %lld %lld %lld", &a, &b, &c) != 3)
+          return 1;
+        e->buckets[a] = Bucket{b, c};
+        break;
+      case 'O': {
+        long long oid2, prv2;
+        if (sscanf(line.c_str(),
+                   "O %lld %lld %lld %lld %lld %lld %d %lld %d %lld", &oid2,
+                   &a, &b, &c, &d2, &f, &nh, &g, &ph, &prv2) != 10)
+          return 1;
+        StoredOrder r;
+        r.action = a;
+        r.oid = oid2;
+        r.aid = b;
+        r.sid = c;
+        r.price = (int32_t)d2;
+        r.size = (int32_t)f;
+        r.next_has = nh != 0;
+        r.next = g;
+        r.prev_has = ph != 0;
+        r.prev = prv2;
+        {
+          auto old = e->orders.find(oid2);
+          if (old != e->orders.end()) e->cnt_add(old->second, -1);
+        }
+        e->cnt_add(r, +1);
+        e->orders[oid2] = r;
+        break;
+      }
+      default:
+        return 1;
+    }
+  }
+  return 0;
+}
+
+}  // extern "C"

@@ -1,0 +1,772 @@
+"""The benchmark's frozen copy of the port's scalar oracle
+(`kme_tpu_torch/oracle/engine.py`), kept here so that a change to the
+port cannot move the yardstick. It holds `native.py`'s C++ copy to the
+same semantics in `kmebench/tests`.
+
+Golden scalar oracle — an exact behavioral replica of the reference
+matching engine (KProcessor.MatchingEngine,
+the reference's KProcessor.java:63-445).
+
+This is the parity judge for the TPU engine (SURVEY.md §4, §7 step 1): a
+pure-Python, one-message-at-a-time engine that reproduces the reference's
+observable behavior — the "IN"/"OUT"-keyed output stream — byte for byte,
+including the quirk ledger (SURVEY.md §2.5):
+
+  Q1  sid=0 buy/sell books collide (book key is -sid; -0 == 0)
+  Q2  `&&`/ternary precedence: sell takers skip the size>0 guard and
+      zero-size buy takers use the sell-side crossing comparison
+  Q3  removeSymbol returns inverted (False when books exist)
+  Q4  removeAllOrders infinite-loops on any non-empty book (raised here
+      as ReferenceHang — the JVM would spin forever, mutating balances)
+  Q5/Q6  payout's return value is ignored: the OUT echo is always REJECT
+  Q7  float log10 bit scans (faithfully reproduced; the max-scan
+      overshoots on dense books with top bit >= 47, which makes the
+      reference NPE — raised here as ReferenceCrash)
+  Q9  the OUT echo leaks residual size and the intrusive `prev` pointer
+  Q10 (per-record commit — a durability property, no output effect)
+  Q11 positions value-as-key corruption: fillOrder's update/delete branch
+      and postRemoveAdjustments' adj-write call the 2-arg
+      setPosition(UUID position, ...) / positions.delete(position) where
+      `position` is the VALUE UUID(amount, available)
+      (KProcessor.java:283-284, 332 vs the put at :434-436) — so after the
+      first fill, the real (aid,sid) entry is never updated by fills;
+      updates land on garbage keys UUID(amount, available), which can
+      collide with real (aid,sid) keys and are visible to payout scans.
+      checkBalance's adj-write (:179) uses the 3-arg form and stays
+      correct. Replicated here in java mode; fixed mode uses true keys.
+
+compat='fixed' is the corrected semantics mode: side-tagged book keys
+(no Q1 merge), correct crossing guard (no Q2 ghost trades), working
+REMOVE_SYMBOL and PAYOUT with margin release (no Q3/Q4/Q5/Q6), and input
+validation (price in [0,126), size > 0). PAYOUT in fixed mode follows the
+harness's evident intent (exchange_test.js:76-79): positive sid = YES
+resolution crediting `amount * size` per long contract, negative sid = NO
+resolution deleting positions uncredited; both wipe the symbol.
+
+Store-copy discipline: the reference's RocksDB-backed stores deserialize a
+fresh object on every `get` and serialize on every `put`
+(KProcessor.java:477-530) — there is no aliasing between a stored order
+and a held reference. The oracle reproduces that by copying on get/put.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+from kmebench.reference import opcodes as op
+from kmebench.reference import javalong as jl
+from kmebench.reference.wire import OrderMsg, OutRecord
+
+
+class ReferenceHang(Exception):
+    """The reference would enter an infinite loop here (Q4:
+    KProcessor.java:344 sets an already-set bit, so the min-price scan
+    never advances, re-refunding the same bucket's margins forever)."""
+
+
+class ReferenceCrash(Exception):
+    """The reference would throw (NPE / serialization failure) here and
+    the Streams thread would die."""
+
+
+@dataclasses.dataclass
+class _StoredOrder:
+    """The persisted Order record (KProcessor.java:448-475)."""
+
+    action: int
+    oid: int
+    aid: int
+    sid: int
+    price: int
+    size: int
+    next: Optional[int] = None
+    prev: Optional[int] = None
+
+    def copy(self) -> "_StoredOrder":
+        return dataclasses.replace(self)
+
+
+def _book_min_price(book: Tuple[int, int]) -> int:
+    """getMinPriceBucketPointer (KProcessor.java:359-363). book=(msb,lsb)."""
+    msb, lsb = book
+    if lsb == 0 and msb == 0:
+        return -1
+    if lsb == 0:
+        return jl.first_set_bit_pos_float(msb) + 63
+    return jl.first_set_bit_pos_float(lsb)
+
+
+def _book_max_price(book: Tuple[int, int]) -> int:
+    """getMaxPriceBucketPointer (KProcessor.java:365-369)."""
+    msb, lsb = book
+    if msb == 0 and lsb == 0:
+        return -1
+    if msb == 0:
+        return jl.last_set_bit_pos_float(lsb)
+    return jl.last_set_bit_pos_float(msb) + 63
+
+
+def _check_bit(book: Tuple[int, int], price: int) -> bool:
+    """checkBit (KProcessor.java:391-394): LSB long carries prices < 63,
+    MSB carries the rest at offset price-63 (Q8: bit 63 of LSB unused)."""
+    msb, lsb = book
+    if price < 63:
+        return jl.get_bit(lsb, price)
+    return jl.get_bit(msb, price - 63)
+
+
+def _with_bit_set(book: Tuple[int, int], price: int) -> Tuple[int, int]:
+    """getWithBitSet (KProcessor.java:396-399)."""
+    msb, lsb = book
+    if price < 63:
+        return (msb, jl.set_bit(lsb, price))
+    return (jl.set_bit(msb, price - 63), lsb)
+
+
+def _with_bit_unset(book: Tuple[int, int], price: int) -> Tuple[int, int]:
+    """getWithBitUnset (KProcessor.java:401-404)."""
+    msb, lsb = book
+    if price < 63:
+        return (msb, jl.unset_bit(lsb, price))
+    return (jl.unset_bit(msb, price - 63), lsb)
+
+
+class OracleEngine:
+    """process() one wire message at a time, returning the forwarded
+    records in forward order: IN echo, fill events, OUT echo
+    (KProcessor.java:97, 272-273, 124)."""
+
+    def __init__(self, compat: str = "java",
+                 book_slots: Optional[int] = None,
+                 max_fills: Optional[int] = None) -> None:
+        """book_slots / max_fills: the CAPACITY ENVELOPE mirroring the
+        lane engine's static shapes (engine/lanes.py LaneConfig slots /
+        max_fills). When set (fixed mode only), a BUY/SELL that would
+        rest beyond `book_slots` resting orders on its (sid, side) or
+        sweep more than `max_fills` makers is rejected as a unit — no
+        fills, no state change, OUT REJECT — exactly the device engine's
+        per-message H2/H3 overflow policy. None = unbounded (the
+        reference's own linked lists are unbounded)."""
+        if compat not in ("java", "fixed"):
+            raise ValueError(compat)
+        self.java = compat == "java"
+        if self.java and (book_slots is not None or max_fills is not None):
+            raise ValueError("capacity envelope is a fixed-mode concept")
+        self.book_slots = book_slots
+        self.max_fills = max_fills
+        # The five stores (KProcessor.java:30-49). Book/bucket keys follow
+        # the reference's signed-sid codec in java mode; fixed mode uses
+        # explicit side-tagged keys (2*sid + side), removing Q1.
+        self.balances: Dict[int, int] = {}
+        self.positions: Dict[Tuple[int, int], Tuple[int, int]] = {}
+        self.orders: Dict[int, _StoredOrder] = {}
+        self.books: Dict[int, Tuple[int, int]] = {}
+        self.buckets: Dict[int, Tuple[int, int]] = {}
+        self._out: List[OutRecord] = []
+
+    # ------------------------------------------------------------------
+    # key codecs
+
+    def _order_book_key(self, sid: int, is_buy: bool) -> int:
+        """Book key for an order path. Java: signed sid — `sid * (action ==
+        BUY ? 1 : -1)` (KProcessor.java:201, 227, 292), merging both sides
+        of sid=0 (Q1). Fixed: 2*sid + side, always disjoint."""
+        if self.java:
+            return jl.jmul(sid, 1 if is_buy else -1)
+        return jl.jlong(2 * sid + (0 if is_buy else 1))
+
+    def _bucket_key(self, book_key: int, price: int) -> int:
+        """getBucketPointer (KProcessor.java:379-381): (key << 8) | price
+        with Java promotion — a negative price sign-extends and floods the
+        high bits. Fixed mode: price is validated to [0,126) so plain
+        base-256 packing is exact."""
+        if self.java:
+            return jl.jor(jl.jshl(book_key, 8), jl.jlong(price))
+        return jl.jlong(book_key * 256 + price)
+
+    # ------------------------------------------------------------------
+    # public entry
+
+    def process(self, msg: OrderMsg) -> List[OutRecord]:
+        """Replicates MatchingEngine.process (KProcessor.java:95-126),
+        optionally under the capacity envelope (see __init__)."""
+        envelope = (self.book_slots is not None or self.max_fills is not None)
+        if envelope and msg.action in (op.BUY, op.SELL):
+            return self._process_enveloped(msg)
+        return self._process_inner(msg)
+
+    def _process_enveloped(self, msg: OrderMsg) -> List[OutRecord]:
+        """Run a trade message, then roll the whole message back into an
+        OUT REJECT if it violated the capacity envelope. Store values are
+        immutable (tuples / copied records), so shallow dict snapshots
+        are exact."""
+        orig = msg.copy()
+        snap = (dict(self.balances), dict(self.positions), dict(self.orders),
+                dict(self.books), dict(self.buckets))
+        out = self._process_inner(msg)
+        violated = False
+        if self.max_fills is not None:
+            # OUT records = 2 per executed trade + 1 result echo
+            ntrades = (sum(1 for r in out if r.key == "OUT") - 1) // 2
+            violated = ntrades > self.max_fills
+        if not violated and self.book_slots is not None:
+            rested = self.orders.get(orig.oid)
+            if rested is not None and rested.sid == orig.sid \
+                    and rested.action == orig.action:
+                n_side = sum(1 for r in self.orders.values()
+                             if r.sid == orig.sid and r.action == orig.action)
+                violated = n_side > self.book_slots
+        if not violated:
+            return out
+        (self.balances, self.positions, self.orders,
+         self.books, self.buckets) = snap
+        rej = orig.copy()
+        rej.action = op.REJECT
+        return [OutRecord("IN", orig.copy()), OutRecord("OUT", rej)]
+
+    def _process_inner(self, msg: OrderMsg) -> List[OutRecord]:
+        order = msg.copy()
+        self._out = [OutRecord("IN", order.copy())]
+        result = False
+        a = order.action
+        if a == op.ADD_SYMBOL:
+            result = self._add_symbol(order.sid)
+        elif a == op.REMOVE_SYMBOL:
+            result = self._remove_symbol(order.sid)
+        elif a in (op.BUY, op.SELL):
+            result = self._add_order(order)
+        elif a == op.CANCEL:
+            result = self._remove_order(order.oid, order.aid)
+        elif a == op.PAYOUT:
+            r = self._payout(order)
+            # Q5/Q6: the return value is discarded (KProcessor.java:113-115)
+            if not self.java:
+                result = r
+        elif a == op.CREATE_BALANCE:
+            result = self._create_balance(order)
+        elif a == op.TRANSFER:
+            result = self._transfer(order)
+        # unknown action: no handler, result stays False -> REJECT
+        if not result:
+            order.action = op.REJECT
+        self._out.append(OutRecord("OUT", order.copy()))
+        return self._out
+
+    # ------------------------------------------------------------------
+    # account ledger (KProcessor.java:131-146)
+
+    def _create_balance(self, order: OrderMsg) -> bool:
+        """createBalance (KProcessor.java:131-138): idempotent create at 0."""
+        if order.aid not in self.balances:
+            self.balances[order.aid] = 0
+            return True
+        return False
+
+    def _transfer(self, order: OrderMsg) -> bool:
+        """transfer (KProcessor.java:140-146): deposit/withdraw guarded by
+        `balance < -size`."""
+        bal = self.balances.get(order.aid)
+        # `-order.size` is Java int negation: wraps at int32 (stays INT_MIN
+        # for size = INT_MIN) before promotion to long for the comparison
+        if bal is None or bal < jl.jint(-order.size):
+            return False
+        self.balances[order.aid] = jl.jadd(bal, order.size)
+        return True
+
+    # ------------------------------------------------------------------
+    # symbol lifecycle (KProcessor.java:184-198, 335-357)
+
+    def _add_symbol(self, sid: int) -> bool:
+        """addSymbol (KProcessor.java:184-191): empty buy book at sid and
+        sell book at -sid (merged for sid=0 in java compat — Q1)."""
+        if self.java:
+            if jl.jlong(sid) in self.books:
+                return False
+            self.books[jl.jlong(sid)] = (0, 0)
+            self.books[jl.jneg(sid)] = (0, 0)
+            return True
+        if sid < 0 or jl.jlong(2 * sid) in self.books:
+            return False
+        self.books[jl.jlong(2 * sid)] = (0, 0)
+        self.books[jl.jlong(2 * sid + 1)] = (0, 0)
+        return True
+
+    def _remove_symbol(self, sid: int) -> bool:
+        """removeSymbol (KProcessor.java:193-198). Java compat: inverted
+        return (Q3) and the Q4 hang for non-empty books. Fixed: wipe both
+        sides with margin refunds, delete the books, True on success."""
+        if self.java:
+            if self._remove_all_orders_java(jl.jlong(sid)) or self._remove_all_orders_java(
+                jl.jneg(sid)
+            ):
+                return False
+            self.books.pop(jl.jlong(sid), None)
+            self.books.pop(jl.jneg(sid), None)
+            return True
+        s = abs(sid)
+        k_buy, k_sell = jl.jlong(2 * s), jl.jlong(2 * s + 1)
+        if k_buy not in self.books:
+            return False
+        self._wipe_book_fixed(k_buy)
+        self._wipe_book_fixed(k_sell)
+        del self.books[k_buy]
+        del self.books[k_sell]
+        return True
+
+    def _remove_all_orders_java(self, book_key: int) -> bool:
+        """removeAllOrders (KProcessor.java:335-357), java semantics: Q4 —
+        the loop calls getWithBitSet where getWithBitUnset is needed, so a
+        non-empty book never terminates. Only an empty or absent book
+        returns; we raise ReferenceHang for the divergent path."""
+        book = self.books.get(book_key)
+        if book is None:
+            return False
+        if _book_min_price(book) != -1:
+            raise ReferenceHang(
+                f"removeAllOrders(key={book_key}) on a non-empty book: the "
+                "reference loops forever re-refunding the min-price bucket "
+                "(KProcessor.java:341-353 with the Q4 set-instead-of-unset bug)")
+        return True
+
+    def _wipe_book_fixed(self, book_key: int) -> None:
+        """Fixed-mode book wipe: release margin for every resting order on
+        this side (what removeAllOrders was meant to do)."""
+        book = self.books.get(book_key)
+        if book is None:
+            return
+        price = _book_min_price(book)
+        while price != -1:
+            bucket_key = self._bucket_key(book_key, price)
+            bucket = self.buckets.pop(bucket_key, None)
+            if bucket is None:
+                raise ReferenceCrash("NPE: bitmap bit set but bucket missing")
+            ptr: Optional[int] = bucket[0]
+            while ptr is not None:
+                rec = self.orders.pop(ptr, None)
+                if rec is None:
+                    raise ReferenceCrash("NPE: linked order missing in wipe")
+                self._post_remove_adjustments(rec)
+                ptr = rec.next
+            book = _with_bit_unset(book, price)
+            price = _book_min_price(book)
+        self.books[book_key] = book
+
+    # ------------------------------------------------------------------
+    # settlement (KProcessor.java:148-165)
+
+    def _payout(self, order: OrderMsg) -> bool:
+        """payout (KProcessor.java:148-165): remove the symbol, then credit
+        `amount * order.size` per matching position and delete it. In java
+        compat, removeSymbol's inversion (Q3) means this only proceeds for
+        symbols whose books don't exist. Fixed mode: sid >= 0 = YES
+        resolution (credit longs `amount * size`), sid < 0 = NO resolution
+        (positions deleted uncredited)."""
+        if not self._remove_symbol(order.sid):
+            return False
+        match_sid = jl.jlong(order.sid) if self.java else jl.jlong(abs(order.sid))
+        credit = self.java or order.sid >= 0
+        to_remove = []
+        for key, val in self.positions.items():
+            k_aid, k_sid = key
+            if jl.jlong(k_sid) == match_sid:
+                if credit:
+                    amount, _avail = val
+                    bal = self.balances.get(k_aid)
+                    if bal is None:
+                        raise ReferenceCrash(
+                            "NPE: payout credits account with no balance")
+                    self.balances[k_aid] = jl.jadd(bal, jl.jmul(amount, order.size))
+                to_remove.append(key)
+        for key in to_remove:
+            del self.positions[key]
+        return True
+
+    # ------------------------------------------------------------------
+    # risk / margin engine (KProcessor.java:167-182, 325-333)
+
+    def _check_balance(self, order: OrderMsg) -> bool:
+        """checkBalance (KProcessor.java:167-182): margin reservation with
+        netting against the opposite 'available' position. Buys reserve
+        `price` per unit, sells reserve `price - 100` (i.e. debit
+        `100 - price`); `adj` nets the new exposure against available
+        opposite holdings so closing trades need no fresh margin."""
+        aid = order.aid
+        bal = self.balances.get(aid)
+        if bal is None:
+            return False
+        is_buy = order.action == op.BUY
+        size = jl.jint(order.size * (1 if is_buy else -1))
+        pos = self.positions.get((aid, order.sid))
+        available = pos[1] if pos is not None else 0
+        # `-size` is Java int negation (wraps for INT_MIN) promoted to long
+        neg_size = jl.jint(-size)
+        if is_buy:
+            adj = max(min(available, 0), neg_size)
+        else:
+            adj = min(max(available, 0), neg_size)
+        # the margin unit `price - 100` is computed in 32-bit int before
+        # promotion to long for the multiply (KProcessor.java:176)
+        risk = jl.jmul(jl.jadd(size, adj),
+                       jl.jint(order.price) if is_buy else jl.jint(order.price - 100))
+        if bal < risk:
+            return False
+        self.balances[aid] = jl.jadd(bal, -risk)
+        if adj != 0:
+            # adj != 0 with no position is reachable for negative sizes
+            # (available=0, -size > 0): the JVM NPEs at
+            # getPositionAmount(null) (KProcessor.java:179-180) AFTER the
+            # balance debit above persisted
+            if pos is None:
+                raise ReferenceCrash(
+                    "NPE: checkBalance adj-write with no position")
+            self.positions[(aid, order.sid)] = (pos[0], jl.jadd(available, -adj))
+        return True
+
+    def _post_remove_adjustments(self, rec: _StoredOrder) -> None:
+        """postRemoveAdjustments (KProcessor.java:325-333): mirror of
+        checkBalance — release the reserved margin, re-blocking any netted
+        position 'available'. Java compat replicates Q11: the adj-write
+        targets the VALUE UUID as key (KProcessor.java:332)."""
+        is_buy = rec.action == op.BUY
+        size = jl.jint(rec.size * (1 if is_buy else -1))
+        pos = self.positions.get((rec.aid, rec.sid))
+        blocked = (pos[0] - pos[1]) if pos is not None else 0
+        neg_size = jl.jint(-size)  # Java int negation, as in checkBalance
+        if is_buy:
+            adj = max(min(blocked, 0), neg_size)
+        else:
+            adj = min(max(blocked, 0), neg_size)
+        bal = self.balances.get(rec.aid)
+        if bal is None:
+            raise ReferenceCrash("NPE: margin release for account with no balance")
+        self.balances[rec.aid] = jl.jadd(
+            bal, jl.jmul(jl.jadd(size, adj),
+                         jl.jint(rec.price) if is_buy else jl.jint(rec.price - 100)))
+        if adj != 0:
+            # same NPE shape as checkBalance: adj != 0 with pos None
+            # (negative-size rec) dies at getPositionAmount(null)
+            # (KProcessor.java:332) after the balance credit persisted
+            if pos is None:
+                raise ReferenceCrash(
+                    "NPE: postRemoveAdjustments adj-write with no position")
+            target = pos if self.java else (rec.aid, rec.sid)  # Q11
+            self.positions[target] = (pos[0], jl.jadd(pos[1], adj))
+
+    # ------------------------------------------------------------------
+    # order entry (KProcessor.java:200-223)
+
+    def _add_order(self, order: OrderMsg) -> bool:
+        """addOrder (KProcessor.java:200-223): book existence -> margin
+        check -> match; any unfilled remainder rests FIFO at its price
+        bucket (new bucket + bitmap bit, or append to the list tail —
+        mutating the echoed order's `prev`, Q9)."""
+        if not self.java:
+            # fixed-mode validation: the reference accepts any int price /
+            # size, producing the Q2/Q7 pathologies; we bound the domain.
+            if not (0 <= order.price < 126) or order.size <= 0:
+                return False
+        is_buy = order.action == op.BUY
+        bkey = self._order_book_key(order.sid, is_buy)
+        book = self.books.get(bkey)
+        if book is None or not self._check_balance(order):
+            return False
+        if self._try_match(order):
+            return True
+        book = self.books[bkey]
+        oid, price = order.oid, order.price
+        bucket_key = self._bucket_key(bkey, price)
+        if not _check_bit(book, price):
+            self.buckets[bucket_key] = (oid, oid)
+            self.books[bkey] = _with_bit_set(book, price)
+        else:
+            bucket = self.buckets.get(bucket_key)
+            if bucket is None:
+                raise ReferenceCrash("NPE: bitmap bit set but bucket missing")
+            first_ptr, last_ptr = bucket
+            curr_last = self.orders.get(last_ptr)
+            if curr_last is None:
+                raise ReferenceCrash("NPE: bucket tail order missing")
+            curr_last = curr_last.copy()
+            curr_last.next = oid
+            order.prev = curr_last.oid
+            self.orders[last_ptr] = curr_last
+            self.buckets[bucket_key] = (first_ptr, oid)
+        self.orders[oid] = _StoredOrder(
+            order.action, order.oid, order.aid, order.sid,
+            order.price, order.size, order.next, order.prev)
+        return True
+
+    # ------------------------------------------------------------------
+    # matcher hot loop (KProcessor.java:225-263)
+
+    def _try_match(self, taker: OrderMsg) -> bool:
+        """tryMatch (KProcessor.java:225-263) — the hot crossing loop.
+
+        Walks the best opposite price bucket's FIFO list, trading
+        min(sizes) at the maker's price. Faithful to Q2 in java mode: the
+        while guard parses as
+        `(size > 0 && takerIsBuy) ? (maker <= p) : (maker >= p)`, so sell
+        takers skip the size guard (one extra zero-size trade after a full
+        fill when the next maker still crosses) and zero-size buy takers
+        evaluate the sell-side comparison."""
+        taker_is_buy = taker.action == op.BUY
+        limit = taker.price
+        opp_key = self._order_book_key(taker.sid, not taker_is_buy)
+        bitmap = self.books.get(opp_key)
+        if bitmap is None:
+            raise ReferenceCrash("NPE: opposite book missing in tryMatch")
+        price_bit = _book_min_price(bitmap) if taker_is_buy else _book_max_price(bitmap)
+        if price_bit == -1:
+            return False
+        bucket_key = self._bucket_key(opp_key, price_bit)
+        bucket = self.buckets.get(bucket_key)
+        if bucket is None:
+            raise ReferenceCrash(
+                "NPE: best-price bucket missing (Q7 float max-scan overshoot)")
+        maker_ptr = bucket[0]
+        maker = self.orders.get(maker_ptr)
+        if maker is None:
+            raise ReferenceCrash("NPE: bucket head order missing")
+        maker = maker.copy()
+        while self._cross_guard(taker, maker, taker_is_buy, limit):
+            trade_size = min(taker.size, maker.size)
+            maker.size = jl.jint(maker.size - trade_size)
+            taker.size = jl.jint(taker.size - trade_size)
+            self._execute_trade(taker, maker, trade_size, taker_is_buy)
+            if maker.size != 0:
+                break
+            # store.delete is a no-op on missing keys (RocksDB semantics,
+            # KProcessor.java:243,245) — hence pop(..., None), not del
+            self.orders.pop(maker.oid, None)
+            if maker.next is None:
+                self.buckets.pop(bucket_key, None)
+                bitmap = _with_bit_unset(bitmap, maker.price)
+                self.books[opp_key] = bitmap
+                price_bit = (
+                    _book_min_price(bitmap) if taker_is_buy else _book_max_price(bitmap)
+                )
+                if price_bit == -1:
+                    return taker.size == 0
+                bucket_key = self._bucket_key(opp_key, price_bit)
+                bucket = self.buckets.get(bucket_key)
+                if bucket is None:
+                    raise ReferenceCrash(
+                        "NPE: best-price bucket missing (Q7 overshoot)")
+                maker_ptr = bucket[0]
+            else:
+                maker_ptr = maker.next
+            maker = self.orders.get(maker_ptr)
+            if maker is None:
+                raise ReferenceCrash("NPE: next maker order missing")
+            maker = maker.copy()
+        # Post-loop bucket-head writeback (KProcessor.java:259-261): also
+        # reached with no trade done, harmlessly rewriting identical state.
+        self.buckets[bucket_key] = (maker_ptr, bucket[1])
+        maker.prev = None
+        self.orders[maker_ptr] = maker
+        return taker.size == 0
+
+    def _cross_guard(
+        self, taker: OrderMsg, maker: _StoredOrder, taker_is_buy: bool, limit: int
+    ) -> bool:
+        """The while condition of KProcessor.java:237. Java compat keeps
+        the Q2 precedence bug verbatim; fixed mode applies the intended
+        `size > 0 && (crossing)` guard."""
+        if self.java:
+            if taker.size > 0 and taker_is_buy:
+                return maker.price <= limit
+            return maker.price >= limit
+        if taker.size <= 0:
+            return False
+        return maker.price <= limit if taker_is_buy else maker.price >= limit
+
+    # ------------------------------------------------------------------
+    # trade execution / settlement (KProcessor.java:265-287)
+
+    def _execute_trade(
+        self, taker: OrderMsg, maker: _StoredOrder, trade_size: int, taker_is_buy: bool
+    ) -> None:
+        """executeTrade (KProcessor.java:265-274): maker fill at price 0,
+        taker fill at the price improvement; maker event forwarded first."""
+        maker_fill = OrderMsg(
+            op.SOLD if taker_is_buy else op.BOUGHT,
+            maker.oid, maker.aid, maker.sid, 0, trade_size)
+        taker_fill = OrderMsg(
+            op.BOUGHT if taker_is_buy else op.SOLD,
+            taker.oid, taker.aid, taker.sid,
+            jl.jint(taker.price - maker.price), trade_size)
+        self._fill_order(maker_fill)
+        self._fill_order(taker_fill)
+        self._out.append(OutRecord("OUT", maker_fill))
+        self._out.append(OutRecord("OUT", taker_fill))
+
+    def _fill_order(self, fill: OrderMsg) -> None:
+        """fillOrder (KProcessor.java:276-287): apply signed size to the
+        (aid, sid) position — note delete-at-zero discards `available` —
+        and credit `size * price` to the balance.
+
+        Java compat replicates Q11: the else branch's delete/update target
+        the VALUE UUID as the store key (KProcessor.java:283-284), so the
+        real (aid, sid) entry keeps its first-fill value forever and the
+        update lands on a garbage key (amount, available) — which may
+        collide with a real (aid, sid) pair."""
+        size = jl.jint(fill.size * (1 if fill.action == op.BOUGHT else -1))
+        key = (fill.aid, fill.sid)
+        pos = self.positions.get(key)
+        if pos is None:
+            self.positions[key] = (size, size)
+        else:
+            amount, avail = pos
+            new_amount = jl.jadd(amount, size)
+            target = pos if self.java else key  # Q11
+            if new_amount == 0:
+                self.positions.pop(target, None)
+            else:
+                self.positions[target] = (new_amount, jl.jadd(avail, size))
+        bal = self.balances.get(fill.aid)
+        if bal is None:
+            raise ReferenceCrash("NPE: fill credits account with no balance")
+        # `size * order.price` is int*int — wraps at int32 BEFORE the long
+        # promotion of the balance add (KProcessor.java:286)
+        self.balances[fill.aid] = jl.jadd(bal, jl.jint(size * fill.price))
+
+    # ------------------------------------------------------------------
+    # cancel path (KProcessor.java:289-323)
+
+    def _remove_order(self, oid: int, aid: int) -> bool:
+        """removeOrder (KProcessor.java:289-323): ownership check, 4-case
+        doubly-linked unlink, then margin release."""
+        rec = self.orders.get(oid)
+        if rec is None or rec.aid != aid:
+            return False
+        rec = rec.copy()
+        is_buy = rec.action == op.BUY
+        bkey = self._order_book_key(rec.sid, is_buy)
+        price = rec.price
+        book = self.books.get(bkey)
+        bucket_key = self._bucket_key(bkey, price)
+        bucket = self.buckets.get(bucket_key)
+        prev_ptr, next_ptr = rec.prev, rec.next
+        if prev_ptr is None and next_ptr is None:
+            if book is None:
+                raise ReferenceCrash("NPE: book missing in removeOrder")
+            self.buckets.pop(bucket_key, None)  # store.delete: no-op if absent
+            self.books[bkey] = _with_bit_unset(book, price)
+        elif prev_ptr is None:
+            self.buckets[bucket_key] = (next_ptr, bucket[1])
+            nxt = self.orders[next_ptr].copy()
+            nxt.prev = None
+            self.orders[next_ptr] = nxt
+        elif next_ptr is None:
+            self.buckets[bucket_key] = (bucket[0], prev_ptr)
+            prv = self.orders[prev_ptr].copy()
+            prv.next = None
+            self.orders[prev_ptr] = prv
+        else:
+            prv = self.orders[prev_ptr].copy()
+            nxt = self.orders[next_ptr].copy()
+            prv.next = next_ptr
+            nxt.prev = prev_ptr
+            self.orders[prev_ptr] = prv
+            self.orders[next_ptr] = nxt
+        self.orders.pop(oid, None)  # store.delete: no-op if absent
+        self._post_remove_adjustments(rec)
+        return True
+
+    # ------------------------------------------------------------------
+    # state export / adoption (fixed mode): the shared audit/xray shape
+
+    def export_state(self) -> dict:
+        """The cross-engine state shape the auditor checks against and
+        the seq/lane sessions export (seqsession._canon_to_export):
+        balances, position tuples, resting orders with an `is_buy` tag,
+        and the existing-symbol set. Fixed mode only — java-mode keys
+        (signed sids, Q11 garbage position keys) have no canonical
+        projection."""
+        if self.java:
+            raise ValueError("export_state is a fixed-mode projection")
+        return {
+            "balances": dict(self.balances),
+            "positions": dict(self.positions),
+            "orders": {oid: {"aid": r.aid, "sid": r.sid,
+                             "price": r.price, "size": r.size,
+                             "is_buy": r.action == op.BUY}
+                       for oid, r in self.orders.items()},
+            "books": {k // 2: True for k in self.books if k % 2 == 0},
+        }
+
+    @classmethod
+    def from_export(cls, state: dict,
+                    book_slots: Optional[int] = None,
+                    max_fills: Optional[int] = None) -> "OracleEngine":
+        """Adopt an exported state dict (fixed mode): rebuild the book
+        bitmaps, price buckets and FIFO linked lists from the flat
+        resting-order set. FIFO order within a price bucket is restored
+        by ascending oid — exact for monotonically-minted oid streams
+        (every workload generator here), and exactly what audit.py's
+        seed() assumes for the same export."""
+        eng = cls("fixed", book_slots=book_slots, max_fills=max_fills)
+        eng.balances = {int(a): int(v)
+                        for a, v in state.get("balances", {}).items()}
+        eng.positions = {(int(a), int(s)): (int(amt), int(av))
+                         for (a, s), (amt, av)
+                         in state.get("positions", {}).items()}
+        for sid in state.get("books", {}):
+            eng._add_symbol(int(sid))
+        for oid in sorted(state.get("orders", {})):
+            o = state["orders"][oid]
+            is_buy = bool(o["is_buy"])
+            sid = int(o["sid"])
+            bkey = eng._order_book_key(sid, is_buy)
+            if bkey not in eng.books:    # resting order implies books
+                eng.books[jl.jlong(2 * sid)] = (0, 0)
+                eng.books[jl.jlong(2 * sid + 1)] = (0, 0)
+            price = int(o["price"])
+            bucket_key = eng._bucket_key(bkey, price)
+            rec = _StoredOrder(op.BUY if is_buy else op.SELL, int(oid),
+                               int(o["aid"]), sid, price, int(o["size"]))
+            book = eng.books[bkey]
+            if not _check_bit(book, price):
+                eng.buckets[bucket_key] = (rec.oid, rec.oid)
+                eng.books[bkey] = _with_bit_set(book, price)
+            else:
+                first_ptr, last_ptr = eng.buckets[bucket_key]
+                tail = eng.orders[last_ptr].copy()
+                tail.next = rec.oid
+                rec.prev = tail.oid
+                eng.orders[last_ptr] = tail
+                eng.buckets[bucket_key] = (first_ptr, rec.oid)
+            eng.orders[rec.oid] = rec
+        return eng
+
+    def book_levels(self, sid: int) -> dict:
+        """Read-only ladder view of one symbol (fixed mode): per-side
+        [(price, [(oid, aid, size), ...FIFO...])], best-first."""
+        if self.java:
+            raise ValueError("book_levels is a fixed-mode view")
+        out: dict = {"sid": int(sid), "exists": False,
+                     "buys": [], "sells": []}
+        for side_name, side in (("buys", 0), ("sells", 1)):
+            bkey = jl.jlong(2 * sid + side)
+            book = self.books.get(bkey)
+            if book is None:
+                continue
+            out["exists"] = True
+            levels = []
+            for price in range(126):
+                if not _check_bit(book, price):
+                    continue
+                bucket = self.buckets.get(self._bucket_key(bkey, price))
+                if bucket is None:
+                    continue
+                rows, ptr = [], bucket[0]
+                while ptr is not None:
+                    rec = self.orders[ptr]
+                    rows.append((rec.oid, rec.aid, rec.size))
+                    ptr = rec.next
+                levels.append((price, rows))
+            # best-first: highest bid, lowest ask
+            out[side_name] = (list(reversed(levels)) if side == 0
+                              else levels)
+        return out
