@@ -450,6 +450,9 @@ class InProcessBroker:
         self.wire_binary_records = 0
         self.wire_json_records = 0
         self.wire_parse_ns = 0
+        # the TCP handlers' CPU tallies (bridge/tcp.py HandlerCpu), set
+        # once the broker is served over TCP; the service publishes them
+        self.tcp_cpu = None
         # adaptive overload control: an OverloadController makes the
         # shed decision priority-aware (same arming rule as max_lag —
         # only topics with a committed watermark are bounded). The

@@ -334,6 +334,11 @@ def main(argv=None) -> int:
 
         tracer = TraceRecorder()
         install(tracer)   # PhaseTimers pick it up process-wide
+    from kme_tpu_torch.telemetry.trace import GcWatch
+
+    # the interpreter's collections, counted from here to exit (after
+    # the recorder, so each one counted is also a `gc` span)
+    gcw = GcWatch().install()
     svc = msrv = srv = None
     rc = 0
     try:
@@ -366,6 +371,8 @@ def main(argv=None) -> int:
                 "min_ops": args.slo_min_ops,
                 "min_records_per_s": args.slo_min_records_per_sec}),
             device=args.device)
+        svc.telemetry.add_collector(
+            lambda: gcw.publish(svc.telemetry))
         # listen only once the engine is built: a record admitted before
         # would wait out the engine's start-up (on the card the CUDA
         # context, the state and a snapshot restore: seconds) inside its
@@ -405,6 +412,7 @@ def main(argv=None) -> int:
     except KeyboardInterrupt:
         pass
     finally:
+        gcw.uninstall()
         if svc is not None:
             svc.close()     # finish the in-flight batches, flush + close
             if args.journal_out is not None and os.path.exists(

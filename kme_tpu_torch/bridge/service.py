@@ -658,6 +658,7 @@ class MatchService:
         except ValueError:
             ordinal = 0
         self.telemetry.gauge("restarts_total").set(ordinal)
+        self.telemetry.add_collector(self._publish_tcp_gauges)
         failed_at = os.environ.get("KME_FAILED_AT")
         if failed_at:
             try:
@@ -1012,19 +1013,55 @@ class MatchService:
         record stream. Returns the number of input records consumed."""
         if self._pipe is not None and self._session is not None:
             return self._step_pipelined(timeout)
-        from kme_tpu_torch.bridge.broker import BrokerError
-
-        try:
-            recs = self.broker.fetch(self.topic_in, self.offset, self.batch,
-                                     timeout=timeout)
-        except BrokerError:
-            # topics not provisioned yet — keep polling, like a Streams
-            # app waiting for its source topic
-            self.clock.sleep(min(timeout, 0.05))
-            return 0
+        recs, fetch_us, atss = self._fetch_input(self.offset, timeout)
         if not recs:
             return 0
-        return self._process_batch(recs)
+        return self._process_batch(recs, fetch_us, atss)
+
+    def _fetch_input(self, offset: int, timeout: float):
+        """The wait for MatchIn (the `serve_fetch` span): up to `batch`
+        records from `offset`, stamped into `lat_ingress` as they are
+        fetched. -> (records, or None while the topic is not
+        provisioned; the time they were fetched, µs; their admission
+        stamps). A batch gets its ordinal here, and its spans carry it
+        from here on."""
+        from kme_tpu_torch.bridge.broker import BrokerError
+
+        self._tag_batch(None)
+        with self._ptimer.phase("serve_fetch"):
+            try:
+                recs = self.broker.fetch(self.topic_in, offset, self.batch,
+                                         timeout=timeout)
+            except BrokerError:
+                # topics not provisioned yet — keep polling, like a
+                # Streams app waiting for its source topic
+                self.clock.sleep(min(timeout, 0.05))
+                return None, 0, []
+            fetch_us = self.clock.time_us()
+            if not recs:
+                return recs, fetch_us, []
+            self._batch_ordinal += 1
+            self._tag_batch(self._batch_ordinal)
+            atss = [getattr(r, "ats", None) for r in recs]
+            self._lat["ingress"].observe_many(self._since(atss, fetch_us))
+        return recs, fetch_us, atss
+
+    def _tag_batch(self, ordinal: Optional[int]) -> None:
+        """The batch the serve and session spans that follow belong to
+        (None: no batch)."""
+        self._ptimer.batch = ordinal
+        timer = getattr(self._session, "timer", None)
+        if timer is not None:
+            timer.batch = ordinal
+
+    @staticmethod
+    def _since(atss, now_us: int):
+        """Seconds from each admission stamp (None: unstamped, left
+        out) to `now_us`, as an array."""
+        import numpy as np
+
+        a = np.array([x for x in atss if x is not None], np.int64)
+        return np.maximum(now_us - a, 0) * 1e-6
 
     def _observe_batch(self, n, atss, done_us, plan_d, dev_d) -> None:
         """Charge a batch's stage wall times to every order in it, e2e
@@ -1041,41 +1078,35 @@ class MatchService:
                 round(dev_d * 1e3, 3))
         if self._last_produce_s > 0:
             lat["produce"].observe(self._last_produce_s, n)
-        e2e_hot = 0.0
-        for ats in atss:
-            if ats is not None:
-                d = max(0, done_us - ats) * 1e-6
-                lat["e2e"].observe(d)
-                if d > e2e_hot:
-                    e2e_hot = d
+        d = self._since(atss, done_us)
+        lat["e2e"].observe_many(d)
+        e2e_hot = float(d.max()) if d.size else 0.0
         ctl = getattr(self.broker, "overload", None)
         if ctl is not None and e2e_hot > 0:
             # admission-to-produce feed for the degradation state
             # machine (latency can trip shedding before backlog does)
             ctl.observe_latency(e2e_hot)
 
-    def _process_batch(self, recs) -> int:
+    def _process_batch(self, recs, fetch_us: int, rec_atss) -> int:
         """Serial batch processing: parse, engine, produce, commit —
         the per-record authority every engine/compat combination
         supports (the pipelined path delegates here for batches with
-        malformed or out-of-envelope records)."""
+        malformed or out-of-envelope records). The batch has its
+        ordinal and its ingress stamps from the fetch."""
         import time as _t
 
-        fetch_us = self.clock.time_us()
+        self._tag_batch(self._batch_ordinal)
         msgs, offs, drops, atss = [], [], [], []
-        for r in recs:
-            ats = getattr(r, "ats", None)
-            if ats is not None:
-                self._lat["ingress"].observe(max(0, fetch_us - ats) * 1e-6)
-            m = self._parse(r.value)
-            if m is not None:
-                msgs.append(m)
-                offs.append(r.offset)
-                atss.append(ats)
-            else:
-                drops.append((-1, r.offset))
+        with self._ptimer.phase("serve_parse"):
+            for r, ats in zip(recs, rec_atss):
+                m = self._parse(r.value)
+                if m is not None:
+                    msgs.append(m)
+                    offs.append(r.offset)
+                    atss.append(ats)
+                else:
+                    drops.append((-1, r.offset))
         out = reasons = None
-        self._batch_ordinal += 1
         self._last_produce_s = 0.0
         phases = getattr(self._session, "phases", None)
         p0 = dict(phases) if phases is not None else {}
@@ -1133,8 +1164,9 @@ class MatchService:
                 # split; the whole engine wall is "device" time
                 dev_d = max(0.0, _t.perf_counter() - t_engine0
                             - self._last_produce_s)
-            self._observe_batch(n, atss, done_us, plan_d, dev_d)
         with self._ptimer.phase("serve_observe"):
+            if n:
+                self._observe_batch(n, atss, done_us, plan_d, dev_d)
             self._observe_serial(out, reasons, msgs, offs, drops, atss,
                                  fetch_us, done_us, plan_d, dev_d)
         # batch-boundary commit: offsets advance only after the outputs
@@ -1146,8 +1178,9 @@ class MatchService:
         if not self.follower:
             faults.kill_now("serve.kill", offset=self.offset)
         self._maybe_checkpoint()
-        self._commit_watermark()
-        self._publish_batch(len(recs), len(recs) - len(msgs))
+        with self._ptimer.phase("serve_publish"):
+            self._commit_watermark()
+            self._publish_batch(len(recs), len(recs) - len(msgs))
         return len(recs)
 
     def _observe_serial(self, out, reasons, msgs, offs, drops, atss,
@@ -1221,33 +1254,22 @@ class MatchService:
         in-flight batch once the window exceeds `pipeline`. The fetch
         cursor runs ahead of the committed offset by the in-flight
         window; self.offset still advances only at collect time."""
-        from kme_tpu_torch.bridge.broker import BrokerError
-
         fetch_off = self._pipe[-1][0] if self._pipe else self.offset
-        try:
-            recs = self.broker.fetch(self.topic_in, fetch_off, self.batch,
-                                     timeout=timeout)
-        except BrokerError:
-            self.clock.sleep(min(timeout, 0.05))
+        recs, fetch_us, atss = self._fetch_input(fetch_off, timeout)
+        if recs is None:
             return 0
         if not recs:
             # idle input: finish the in-flight window so output
             # visibility and offsets never stall behind an empty poll
             self._drain_pipeline()
             return 0
-        wb = self._parse_batch(recs)
+        with self._ptimer.phase("serve_parse"):
+            wb = self._parse_batch(recs)
         if wb is None:
             # malformed / out-of-envelope records: drain, then run the
             # batch through the exact per-record path (drops, strict)
             self._drain_pipeline()
-            return self._process_batch(recs)
-        fetch_us = self.clock.time_us()
-        atss = []
-        for r in recs:
-            ats = getattr(r, "ats", None)
-            atss.append(ats)
-            if ats is not None:
-                self._lat["ingress"].observe(max(0, fetch_us - ats) * 1e-6)
+            return self._process_batch(recs, fetch_us, atss)
         end_off = recs[-1].offset + 1
         if (self.checkpoint_dir is not None and not self.follower
                 and self._pipe
@@ -1257,13 +1279,13 @@ class MatchService:
             # a committed offset boundary); drain BEFORE submitting so
             # the cadenced checkpoint fires at this batch's collect
             self._drain_pipeline()
-        self._batch_ordinal += 1
-        phases = self._session.phases
-        p0 = dict(phases)
+            self._tag_batch(self._batch_ordinal)
         with self._ptimer.phase("serve_engine"):
+            phases = self._session.phases
+            plan0 = phases.get("plan_s", 0.0)
             self._flow("s")
             handle = self._session.submit(wb)
-        plan_d = phases.get("plan_s", 0.0) - p0.get("plan_s", 0.0)
+            plan_d = phases.get("plan_s", 0.0) - plan0
         self._pipe.append((end_off, handle, wb,
                            [r.offset for r in recs], atss, fetch_us,
                            plan_d, self._batch_ordinal))
@@ -1279,21 +1301,22 @@ class MatchService:
         on MatchOut."""
         (end_off, handle, wb, offs, atss, fetch_us, plan_d,
          ordinal) = self._pipe.popleft()
+        self._tag_batch(ordinal)
         self._last_produce_s = 0.0
-        phases = self._session.phases
-        p0 = dict(phases)
         with self._ptimer.phase("serve_engine"):
+            phases = self._session.phases
+            fetch0 = phases.get("fetch_s", 0.0)
             buf, line_off, msg_lines = self._session.collect(handle)
-        reasons = self._session.last_reasons
-        # device attribution under pipelining: what the batch WAITED at
-        # fetch time (overlapped device work the host never sees is the
-        # point of the pipeline)
-        dev_d = phases.get("fetch_s", 0.0) - p0.get("fetch_s", 0.0)
+            reasons = self._session.last_reasons
+            # device attribution under pipelining: what the batch
+            # WAITED at fetch time (overlapped device work the host
+            # never sees is the point of the pipeline)
+            dev_d = phases.get("fetch_s", 0.0) - fetch0
         self._produce_buffer(buf, line_off, ordinal)
         done_us = self.clock.time_us()
         n = wb.n
-        self._observe_batch(n, atss, done_us, plan_d, dev_d)
         with self._ptimer.phase("serve_observe"):
+            self._observe_batch(n, atss, done_us, plan_d, dev_d)
             out = None
             if (self.journal is not None or self.watch is not None) and n:
                 out = self._lines_of(buf, line_off, msg_lines)
@@ -1313,6 +1336,9 @@ class MatchService:
                 self.watch.observe_lines(out, reasons=reasons,
                                          offsets=offs, drops=[],
                                          exemplars=self._slow)
+            # the batch's buffers (its device handle among them) are
+            # freed here, in the span, not between spans at return
+            del handle, wb, buf, line_off, msg_lines, out
         self.offset = end_off
         if not self.follower:
             faults.kill_now("serve.kill", offset=self.offset)
@@ -1320,8 +1346,9 @@ class MatchService:
             # engine state now equals the committed offset — the only
             # point where a snapshot is coherent under pipelining
             self._maybe_checkpoint()
-        self._commit_watermark()
-        self._publish_batch(n, 0)
+        with self._ptimer.phase("serve_publish"):
+            self._commit_watermark()
+            self._publish_batch(n, 0)
 
     def _drain_pipeline(self) -> None:
         """Collect every in-flight batch (idle input, a slow-path
@@ -1458,6 +1485,28 @@ class MatchService:
                 if fired:
                     print(f"kme-serve: profile capture {fired}",
                           file=sys.stderr)
+
+    def _publish_tcp_gauges(self) -> None:
+        """The CPU seconds and requests of the TCP handler threads
+        (bridge/tcp.py), in all and by op, when the broker is served
+        over TCP: a registry collector, so every scrape reads them
+        current."""
+        cpu = getattr(self.broker, "tcp_cpu", None)
+        if cpu is None:
+            return
+        t = self.telemetry
+        total_s, total_n = 0.0, 0
+        for op, (sec, n) in sorted(cpu.totals().items()):
+            t.gauge(f"tcp_handler_cpu_s.{op}").set(round(sec, 6))
+            t.gauge(f"tcp_requests_total.{op}").set(n)
+            total_s += sec
+            total_n += n
+        t.gauge("tcp_handler_cpu_s",
+                "cumulative CPU seconds of the TCP handler threads "
+                "(decode, broker call, encode, write)").set(
+            round(total_s, 6))
+        t.gauge("tcp_requests_total",
+                "requests the TCP handlers answered").set(total_n)
 
     def _publish_eos_gauges(self) -> None:
         """Exactly-once observability (cheap broker-attribute reads;

@@ -59,6 +59,13 @@ fatal, not retryable; malformed binary frames carry
 "code":"rej_malformed" and raise ValueError). `serve_broker` hosts an
 InProcessBroker for any number of concurrent client connections
 (thread per connection — the broker core is already thread-safe).
+
+Each request's CPU on its handler thread (decode, broker call, encode,
+write; `time.thread_time`, so a fetch's blocking wait and the waits for
+the interpreter lock are left out) is tallied by op in the broker's
+`tcp_cpu` (HandlerCpu), which the service publishes as the
+`tcp_handler_cpu_s` and `tcp_requests_total` gauges; with a trace
+recorder installed each request is also a span on the `tcp` track.
 """
 
 from __future__ import annotations
@@ -68,9 +75,11 @@ import socket
 import socketserver
 import struct
 import threading
+import time
 from typing import List, Optional, Tuple
 
 from kme_tpu_torch import faults
+from kme_tpu_torch.telemetry import trace as _trace
 from kme_tpu_torch.bridge.broker import (BrokerError, BrokerFenced,
                                    BrokerOverload, InProcessBroker,
                                    Record)
@@ -84,6 +93,50 @@ _ENV_META = struct.Struct("<qqq")       # epoch, seq0, ats
 _REC_HDR = struct.Struct("<qqqqq")      # offset, epoch, out_seq, ats, tid
 _I64_NONE = -(1 << 63)                  # "absent" for optional i64s
 _MAGIC_BYTE = bytes([WIRE_MAGIC])
+# the ops the CPU tallies name; anything else counts as "other"
+_OPS = frozenset(("create_topic", "topics", "produce", "produce_batch",
+                  "produce_frames", "fetch", "fetch_bin", "fence",
+                  "end_offset", "commit", "sync"))
+
+
+class HandlerCpu:
+    """CPU seconds and requests of a server's handler threads, by op.
+
+    Each connection's thread adds into a tally of its own ({op: [cpu
+    seconds, requests]}), so a request takes no lock; `totals` sums the
+    live tallies and those of closed connections."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._live: dict = {}       # id(tally) -> tally
+        self._closed: dict = {}     # op -> [cpu seconds, requests]
+
+    def open(self) -> dict:
+        tally: dict = {}
+        with self._lock:
+            self._live[id(tally)] = tally
+        return tally
+
+    def close(self, tally: dict) -> None:
+        with self._lock:
+            self._live.pop(id(tally), None)
+            for op, (sec, n) in tally.items():
+                cell = self._closed.setdefault(op, [0.0, 0])
+                cell[0] += sec
+                cell[1] += n
+
+    def totals(self) -> dict:
+        """{op: (cpu seconds, requests)} over every connection so far."""
+        with self._lock:
+            out = {op: list(c) for op, c in self._closed.items()}
+            live = list(self._live.values())
+        for tally in live:
+            # a copy: the handler thread may add an op meanwhile
+            for op, (sec, n) in tally.copy().items():
+                cell = out.setdefault(op, [0.0, 0])
+                cell[0] += sec
+                cell[1] += n
+        return {op: (sec, n) for op, (sec, n) in out.items()}
 
 
 def _opt(v: Optional[int]) -> int:
@@ -159,6 +212,28 @@ class _Handler(socketserver.StreamRequestHandler):
         return {"ok": True, "n": n, "last_offset": last}
 
     def handle(self) -> None:
+        cpu: HandlerCpu = self.server.cpu  # type: ignore
+        tally = cpu.open()
+        try:
+            self._serve(tally)
+        finally:
+            cpu.close(tally)
+
+    def _account(self, tally: dict, c0: float, w0: float) -> None:
+        """One request's thread CPU into the tally, and its span."""
+        sec = time.thread_time() - c0
+        op = self._op
+        cell = tally.get(op)
+        if cell is None:
+            cell = tally[op] = [0.0, 0]
+        cell[0] += sec
+        cell[1] += 1
+        tr = _trace.get_tracer()
+        if tr is not None:
+            tr.add(f"tcp_{op}", w0, time.perf_counter() - w0, track="tcp",
+                   args={"cpu_us": round(sec * 1e6, 1)})
+
+    def _serve(self, tally: dict) -> None:
         broker: InProcessBroker = self.server.broker  # type: ignore
         while True:
             try:
@@ -167,9 +242,12 @@ class _Handler(socketserver.StreamRequestHandler):
                 return
             if not first:
                 return
+            c0, w0 = time.thread_time(), time.perf_counter()
             tail = b""      # binary payload appended after the JSON line
+            self._op = "other"   # _dispatch names it once parsed
             try:
                 if first == _MAGIC_BYTE:
+                    self._op = "produce_frames"
                     resp = self._produce_frames_req(broker)
                 else:
                     raw = first + self.rfile.readline()
@@ -210,6 +288,7 @@ class _Handler(socketserver.StreamRequestHandler):
                 self.wfile.write(blob)
             except (BrokenPipeError, ConnectionResetError):
                 return
+            self._account(tally, c0, w0)
 
     def _dispatch(self, broker: InProcessBroker,
                   raw: bytes) -> Tuple[dict, bytes]:
@@ -218,6 +297,8 @@ class _Handler(socketserver.StreamRequestHandler):
         tail = b""
         req = json.loads(raw)
         op = req.get("op")
+        if isinstance(op, str) and op in _OPS:
+            self._op = op
         if op == "create_topic":
             created = broker.create_topic(
                 req["topic"], int(req.get("partitions", 1)))
@@ -298,6 +379,9 @@ def serve_broker(host: str = "127.0.0.1", port: int = 9092,
     broker = broker or InProcessBroker()
     srv = _Server((host, port), _Handler)
     srv.broker = broker  # type: ignore
+    if getattr(broker, "tcp_cpu", None) is None:
+        broker.tcp_cpu = HandlerCpu()
+    srv.cpu = broker.tcp_cpu  # type: ignore
     t = threading.Thread(target=srv.serve_forever, daemon=True)
     t.start()
     return srv, broker

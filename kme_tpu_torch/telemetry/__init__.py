@@ -9,7 +9,8 @@ reads the other's journals, repro dumps, stores and event logs:
 - registry: Counter/Gauge/Histogram/LatencyHistogram + Prometheus text
   + JSON export; the sessions and the service publish into one Registry
 - trace: PhaseTimer spans + Chrome trace-event recording (incl. flow
-  arrows)
+  arrows), and GcWatch, the interpreter's collections counted and
+  spanned
 - httpd: stdlib /metrics endpoint over a Registry
 - journal: append-only lifecycle journal (jsonl/binary) + readers
 - audit: shadow-ledger invariant auditor over the journal; its

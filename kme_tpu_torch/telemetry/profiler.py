@@ -74,6 +74,9 @@ PROF_STAGES = tuple(STAGE_FUNCS) + ("other",)
 _FUNC_TO_STAGE = {fn: stage
                   for stage, fns in STAGE_FUNCS.items() for fn in fns}
 
+# the record_function marker a capture's profiler window opens with
+CAPTURE_MARKER = "kme.capture"
+
 
 class StageProfiler:
     """Sampling host profiler attributing wall time to pipeline stages.
@@ -309,7 +312,12 @@ class TriggerCapture:
       serving, exported as a Chrome trace `capture_NNN.torch.json`
       beside the document (key "device_trace"). The window does not
       block the serve loop: it closes at the first `maybe_fire` (or
-      `close`) after it has run its time.
+      `close`) after it has run its time. It opens with a
+      `kme.capture` marker; with a recorder installed, the marker's
+      time on the recorder's timeline (µs from its origin) is the
+      document's `device_trace_anchor_us`, so the recorder's spans lay
+      over the device trace: shift them by the marker's `ts` less the
+      anchor.
     """
 
     def __init__(self, out_dir: str, p99_us: Optional[int] = None,
@@ -365,7 +373,9 @@ class TriggerCapture:
             doc["trace_events"] = tracer.trace_events()
         if self.window_s > 0 and self._window is None:
             doc["device_trace"] = path[:-5] + ".torch.json"
-            self._open_window(doc["device_trace"])
+            at = self._open_window(doc["device_trace"])
+            if tracer is not None:
+                doc["device_trace_anchor_us"] = tracer.origin_us(at)
         tmp = path + ".tmp"
         with open(tmp, "w") as f:
             json.dump(doc, f)
@@ -376,17 +386,23 @@ class TriggerCapture:
                 "trigger-fired profile captures").set(self.captures)
         return path
 
-    def _open_window(self, trace_path: str) -> None:
+    def _open_window(self, trace_path: str) -> float:
+        """Start the profiler window; -> the perf_counter() time of its
+        `kme.capture` marker."""
         import torch
-        from torch.profiler import ProfilerActivity, profile
+        from torch.profiler import (ProfilerActivity, profile,
+                                    record_function)
 
         acts = [ProfilerActivity.CPU]
         if torch.cuda.is_available():
             acts.append(ProfilerActivity.CUDA)
         prof = profile(activities=acts)
         prof.start()
+        with record_function(CAPTURE_MARKER):
+            at = time.perf_counter()
         self._window = (prof, trace_path,
                         time.monotonic() + self.window_s)
+        return at
 
     def _poll_window(self, force: bool = False) -> Optional[str]:
         """End the open profiler window once its time is up (or now,
@@ -455,6 +471,10 @@ def format_capture(path: str) -> str:
         lines.append(f"  trace events: {len(doc['trace_events'])}")
     if doc.get("device_trace"):
         lines.append(f"  device trace: {doc['device_trace']}")
+    if doc.get("device_trace_anchor_us") is not None:
+        lines.append(f"  device trace anchor: {CAPTURE_MARKER} at "
+                     f"{doc['device_trace_anchor_us']:.1f} us on the "
+                     f"trace recorder's timeline")
     if doc.get("repro"):
         lines.append(f"  repro: {doc['repro']}")
     if doc.get("resolve_with"):

@@ -22,6 +22,8 @@ import bisect
 import json
 import threading
 
+import numpy as np
+
 N_BUCKETS = 16
 
 # upper bound of bucket i: 0 for i=0, 2^i - 1 for 1..14, +Inf for 15
@@ -118,6 +120,7 @@ class Histogram:
 
 LAT_N_BUCKETS = 28
 LAT_BOUNDS = tuple(1e-6 * (1 << i) for i in range(LAT_N_BUCKETS - 1))
+_LAT_BOUNDS_NP = np.array(LAT_BOUNDS)
 
 
 class LatencyHistogram:
@@ -152,6 +155,23 @@ class LatencyHistogram:
             self._counts[i] += n
             self._count += n
             self._sum += seconds * n
+
+    def observe_many(self, seconds) -> None:
+        """observe(v) for every value of an array of seconds: one
+        bucket search over the array and one lock acquisition."""
+        v = np.asarray(seconds, dtype=np.float64).ravel()
+        if not v.size:
+            return
+        add = np.bincount(np.searchsorted(_LAT_BOUNDS_NP, v, side="left"),
+                          minlength=LAT_N_BUCKETS).tolist()
+        total = float(v.sum())
+        with self._lock:
+            counts = self._counts
+            for i, k in enumerate(add):
+                if k:
+                    counts[i] += k
+            self._count += len(v)
+            self._sum += total
 
     # -- readers (each takes one consistent view under the lock) -------
 
@@ -231,6 +251,20 @@ class Registry:
         # e2e_us} dicts (deterministic trace ids — telemetry/dtrace.py)
         # so a cluster-level quantile outlier resolves to a waterfall
         self._exemplars: list = []
+        # fn() run before every export, outside the lock: brings up to
+        # date the gauges whose values live elsewhere (the collector's
+        # pauses, the TCP handlers' CPU), so any scrape reads them current
+        self._collectors: list = []
+
+    def add_collector(self, fn) -> None:
+        with self._lock:
+            self._collectors.append(fn)
+
+    def _collect(self) -> None:
+        with self._lock:
+            fns = list(self._collectors)
+        for fn in fns:
+            fn()
 
     def _get(self, cls, name: str, help: str):
         with self._lock:
@@ -287,6 +321,7 @@ class Registry:
 
     def prometheus_text(self) -> str:
         """Prometheus text exposition format 0.0.4."""
+        self._collect()
         with self._lock:
             items = list(self._metrics.items())
         lines = []
@@ -324,6 +359,7 @@ class Registry:
     def snapshot(self) -> dict:
         """Plain-dict view: {"counters": {...}, "gauges": {...},
         "histograms": {name: {"buckets", "sum", "count"}}}."""
+        self._collect()
         with self._lock:
             out = {"counters": {}, "gauges": {}, "histograms": {},
                    "latencies": {}}
