@@ -37,15 +37,30 @@ records carrying an ``(epoch, out_seq)`` produce stamp:
 Unstamped produces behave exactly as before; log lines stay
 ``[key,value]`` for them and gain two elements (``[key,value,epoch,
 out_seq]``) only when stamped, so pre-existing logs load unchanged.
+
+In memory a topic's log (`_Log`) holds no object per record that the
+interpreter's collector tracks: keys and values are UTF-8 bytes in
+``bytearray`` segments of at most 4 MiB, each allocated whole, and the
+rest eight int64 words a record in pages of the same kind. A log that grows
+without end therefore costs a full collection nothing, and no append
+copies the stored bytes. `fetch` builds the ``Record`` objects of
+the slice it returns, outside the broker lock; they die with the
+caller's reference.
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
+import functools
+import itertools
 import json
+import operator
 import os
+import struct
 import sys
 import threading
+from array import array
 from typing import Dict, IO, List, Optional
 
 from kme_tpu_torch import faults
@@ -102,11 +117,205 @@ class Record:
     tid: Optional[int] = None
 
 
+# a topic log's byte segments: the first is small (most topics hold a
+# few records), each next one twice the last, up to _SEG_MAX; a record
+# larger than that gets a segment of its own size
+_SEG_MIN = 1 << 16
+_SEG_MAX = 1 << 22
+# a record's eight int64 words, in this order; _PAGE records' words to
+# a page
+_WORDS = struct.Struct("=8q")
+_W_START, _W_KEND, _W_END, _W_HAS, _W_EPOCH, _W_SEQ, _W_ATS, _W_TID = \
+    range(8)
+_W = 8
+_PAGE = 1 << 12
+# bits of the _W_HAS word: which optional fields the record has
+_H_KEY, _H_EPOCH, _H_SEQ, _H_ATS, _H_TID = 1, 2, 4, 8, 16
+_I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
+
+
+def _utf8(s) -> bytes:
+    """A key or value as stored; 'surrogatepass' so that any str a
+    JSON produce can carry (lone surrogates included) round-trips."""
+    if not isinstance(s, str):
+        raise BrokerError(f"record keys and values are str, not "
+                          f"{type(s).__name__}")
+    return s.encode("utf-8", "surrogatepass")
+
+
+def _i64(name: str, v) -> Optional[int]:
+    """An optional stamp as an int64 word holds it."""
+    if v is None or (type(v) is int and _I64_MIN <= v <= _I64_MAX):
+        return v
+    try:
+        v = operator.index(v)
+    except TypeError:
+        raise BrokerError(f"{name} must be an integer, not "
+                          f"{type(v).__name__}") from None
+    if not _I64_MIN <= v <= _I64_MAX:
+        raise BrokerError(f"{name} {v} is outside int64")
+    return v
+
+
+class _Log:
+    """One topic's records, kept where the collector does not look.
+
+    The offset is the index. Record i's key and value are UTF-8 bytes
+    back to back in segment ``bisect_right(seg_first, i) - 1``. Its
+    eight int64 words (``_WORDS``, in page ``i // _PAGE``) hold where
+    they lie (key at ``[start, kend)``, value at ``[kend, end)``), which
+    optional fields it has (``_H_*`` bits; a key of None has no bytes
+    and no bit) and its stamps (0 where absent). Segments and pages are
+    allocated whole and filled in place, so an append never moves what
+    is stored, and nothing below the fill point changes: readers decode
+    it after the broker lock is released."""
+
+    __slots__ = ("n", "segs", "seg_first", "pages", "fill", "nbytes",
+                 "_view", "_page")
+
+    def __init__(self) -> None:
+        self.n = 0
+        self.segs: List[bytearray] = []
+        self.seg_first: List[int] = []
+        self.pages: List[bytearray] = []
+        self.fill = 0
+        self.nbytes = 0
+        self._view = memoryview(b"")
+        self._page = bytearray()
+
+    def __len__(self) -> int:
+        return self.n
+
+    def append(self, kb: Optional[bytes], vb: bytes,
+               epoch: Optional[int], out_seq: Optional[int],
+               ats: Optional[int], tid: Optional[int]) -> int:
+        """Append one record and return its offset; the stamps are
+        int64 (_i64) or None."""
+        i = self.n
+        nk = 0 if kb is None else len(kb)
+        n = nk + len(vb)
+        f = self.fill
+        view = self._view
+        if f + n > len(view) or not self.segs:
+            size = min(_SEG_MAX, _SEG_MIN << min(len(self.segs), 6))
+            seg = bytearray(max(size, n))
+            self.segs.append(seg)
+            self.seg_first.append(i)
+            self._view = view = memoryview(seg)
+            f = 0
+        k = f + nk
+        e = k + len(vb)
+        if nk:
+            view[f:k] = kb
+        view[k:e] = vb
+        j = i % _PAGE
+        if not j:
+            self._page = bytearray(_PAGE * _WORDS.size)
+            self.pages.append(self._page)
+        _WORDS.pack_into(
+            self._page, j * _WORDS.size, f, k, e,
+            (kb is not None) | (epoch is not None) << 1
+            | (out_seq is not None) << 2 | (ats is not None) << 3
+            | (tid is not None) << 4,
+            epoch or 0, out_seq or 0, ats or 0, tid or 0)
+        self.fill = e
+        self.nbytes += n
+        self.n = i + 1
+        return i
+
+    def take(self, lo: int, hi: int) -> tuple:
+        """Under the broker lock: what records [lo, hi) are built from
+        — a copy of their words and the segments their bytes lie in."""
+        s0 = bisect.bisect_right(self.seg_first, lo) - 1
+        s1 = bisect.bisect_right(self.seg_first, hi - 1)
+        sz = _WORDS.size
+        words = b"".join(
+            self.pages[p][max(lo - p * _PAGE, 0) * sz:
+                          min(hi - p * _PAGE, _PAGE) * sz]
+            for p in range(lo // _PAGE, (hi - 1) // _PAGE + 1))
+        return lo, self.segs[s0:s1], self.seg_first[s0:s1], words
+
+
+def _words(taken: tuple) -> array:
+    words = array("q")
+    words.frombytes(taken[3])
+    return words
+
+
+def _rows(taken: tuple) -> List[tuple]:
+    """The records of a `_Log.take` as (offset, key, value, epoch,
+    out_seq, ats, tid) tuples, decoded outside the broker lock. A
+    segment's bytes decode in one call when they are ASCII (the wire's
+    JSON always is): byte offsets are then string offsets."""
+    lo, segs, firsts, _ = taken
+    words = _words(taken)
+    n = len(words) // _W
+    out: List[tuple] = []
+    for j, seg in enumerate(segs):
+        a = max(firsts[j] - lo, 0)
+        b = n if j + 1 == len(segs) else firsts[j + 1] - lo
+        w = words[a * _W:b * _W]
+        base = w[_W_START]
+        chunk = seg[base:w[-_W + _W_END]]
+        kends = w[_W_KEND::_W]
+        if chunk.isascii():
+            text = chunk.decode("ascii")
+            keys = [text[s - base:k - base]
+                    for s, k in zip(w[_W_START::_W], kends)]
+            values = [text[k - base:e - base]
+                      for k, e in zip(kends, w[_W_END::_W])]
+        else:
+            keys = [chunk[s - base:k - base].decode("utf-8", "surrogatepass")
+                    for s, k in zip(w[_W_START::_W], kends)]
+            values = [chunk[k - base:e - base].decode("utf-8",
+                                                      "surrogatepass")
+                      for k, e in zip(kends, w[_W_END::_W])]
+        has = w[_W_HAS::_W]
+        kinds = set(has)
+        every = functools.reduce(operator.and_, kinds)
+        some = functools.reduce(operator.or_, kinds)
+
+        def field(col, bit):
+            if every & bit:
+                return col
+            if not some & bit:
+                return itertools.repeat(None)
+            return [x if h & bit else None for x, h in zip(col, has)]
+
+        out += zip(range(lo + a, lo + b), field(keys, _H_KEY), values,
+                   field(w[_W_EPOCH::_W], _H_EPOCH),
+                   field(w[_W_SEQ::_W], _H_SEQ),
+                   field(w[_W_ATS::_W], _H_ATS),
+                   field(w[_W_TID::_W], _H_TID))
+    return out
+
+
+def _records(rows: List[tuple]) -> List[Record]:
+    """`_rows` as Records. Record's own __init__ sets each field through
+    the frozen class's object.__setattr__, twice the cost of this."""
+    out: List[Record] = []
+    put = out.append
+    new = object.__new__
+    for o, k, v, ep, sq, at, td in rows:
+        r = new(Record)
+        r.__dict__.update(offset=o, key=k, value=v, epoch=ep, out_seq=sq,
+                          ats=at, tid=td)
+        put(r)
+    return out
+
+
+def _admitted(taken: tuple) -> List[Optional[int]]:
+    """The admission stamps (``ats``) of a `_Log.take`'s records."""
+    words = _words(taken)
+    return [a if h & _H_ATS else None
+            for a, h in zip(words[_W_ATS::_W], words[_W_HAS::_W])]
+
+
 class _Topic:
     def __init__(self, partitions: int = 1,
                  logfile: Optional[IO] = None) -> None:
         self.partitions = partitions
-        self.log: List[Record] = []
+        self.log = _Log()
         self.logfile = logfile
         # idempotent-produce watermark: highest out_seq made durable on
         # this topic (-1 = no stamped record yet); recovered from the
@@ -467,11 +676,13 @@ class InProcessBroker:
         self._fence_epoch = 0
         self.fenced_produces = 0
         self.dup_suppressed = 0
-        # latency attribution hook: fn(topic, records, now_us) called
-        # after each non-empty fetch DELIVERS records to a consumer —
-        # the serving process hosts the broker, so consumer receipt of
-        # MatchOut is observable here (MatchService wires this to the
-        # lat_consume histogram). Called outside the broker lock.
+        # latency attribution hook: fn(topic, ats, now_us) called after
+        # each non-empty fetch DELIVERS records to a consumer, with the
+        # admission stamps (``Record.ats``, None where absent) of the
+        # records delivered — the serving process hosts the broker, so
+        # consumer receipt of MatchOut is observable here (MatchService
+        # wires this to the lat_consume histogram). Called outside the
+        # broker lock.
         self.deliver_observer = None
         if persist_dir is not None:
             os.makedirs(persist_dir, exist_ok=True)
@@ -509,7 +720,8 @@ class InProcessBroker:
                 key, value = row[0], row[1]
                 epoch = row[2] if len(row) == 4 else None
                 out_seq = row[3] if len(row) == 4 else None
-            except (ValueError, TypeError, UnicodeDecodeError):
+            except (ValueError, TypeError, UnicodeDecodeError,
+                    BrokerError):
                 # produce() appends each record as ONE newline-terminated
                 # write, and partial writes are prefixes — so any line
                 # that HAS its newline was committed whole; failing to
@@ -519,8 +731,9 @@ class InProcessBroker:
                     f"corrupt record in {path} at byte {pos}: refusing "
                     f"to load (only an unterminated final line is "
                     f"repairable; committed records are immutable)")
-            topic.log.append(Record(len(topic.log), key, value,
-                                    epoch, out_seq))
+            topic.log.append(None if key is None else _utf8(key),
+                             _utf8(value), _i64("epoch", epoch),
+                             _i64("out_seq", out_seq), None, None)
             if out_seq is not None:
                 topic.max_out_seq = max(topic.max_out_seq, int(out_seq))
             if epoch is not None:
@@ -580,6 +793,12 @@ class InProcessBroker:
         in-memory record (Record.tid); durable rows are unchanged."""
         if faults.should("broker.produce"):
             raise BrokerError("injected fault: broker.produce")
+        kb = None if key is None else _utf8(key)
+        vb = _utf8(value)
+        if not (epoch is None and out_seq is None and ats is None
+                and tid is None):
+            epoch, out_seq = _i64("epoch", epoch), _i64("out_seq", out_seq)
+            ats, tid = _i64("ats", ats), _i64("tid", tid)
         with self._data:
             t = self._topics.get(topic)
             if t is None:
@@ -609,11 +828,9 @@ class InProcessBroker:
                 if not ok:
                     self.overload_rejects += 1
             if shed_detail is None:
-                off = len(t.log)
                 if ats is None:
                     ats = self._clock.time_us()
-                t.log.append(Record(off, key, value, epoch, out_seq,
-                                    ats, tid))
+                off = t.log.append(kb, vb, epoch, out_seq, ats, tid)
                 if out_seq is not None:
                     t.max_out_seq = out_seq
                 if topic in self._commits:
@@ -685,8 +902,12 @@ class InProcessBroker:
         cls_col = classify_actions(wb.action)
         oid_col, aid_col = wb.oid, wb.aid
         parse_ns = _time.perf_counter_ns() - t0
-        if ats is None:
-            ats = self._clock.time_us()
+        kb = None if key is None else _utf8(key)
+        vbs = [_utf8(v) for v in values]
+        epoch, seq0 = _i64("epoch", epoch), _i64("seq0", seq0)
+        if seq0 is not None:
+            _i64("out_seq", seq0 + max(wb.n - 1, 0))
+        ats = self._clock.time_us() if ats is None else _i64("ats", ats)
         appended, last_off = 0, -1
         shed_detail = overload_msg = None
         with self._data:
@@ -724,9 +945,8 @@ class InProcessBroker:
                     if not ok:
                         self.overload_rejects += 1
                         break
-                off = len(t.log)
-                t.log.append(Record(off, key, values[i], epoch, out_seq,
-                                    ats, wb.record_tid(i)))
+                off = t.log.append(kb, vbs[i], epoch, out_seq, ats,
+                                   wb.record_tid(i))
                 if out_seq is not None:
                     t.max_out_seq = out_seq
                 if t.logfile is not None:
@@ -782,10 +1002,10 @@ class InProcessBroker:
         with self._lock:
             return self._fence_epoch
 
-    def fetch(self, topic: str, offset: int, max_records: int = 1024,
-              timeout: float = 0.0) -> List[Record]:
-        """Records from `offset` (at most max_records). Blocks up to
-        `timeout` seconds while the log end is <= offset."""
+    def _take(self, topic: str, offset: int, max_records: int,
+              timeout: float) -> Optional[tuple]:
+        """The locked half of a fetch: wait, then `_Log.take` the slice
+        (None when it is empty)."""
         if faults.should("broker.fetch"):
             raise BrokerError("injected fault: broker.fetch")
         with self._data:
@@ -795,14 +1015,37 @@ class InProcessBroker:
             if timeout > 0 and len(t.log) <= offset:
                 self._data.wait_for(lambda: len(t.log) > offset,
                                     timeout=timeout)
-            recs = t.log[offset:offset + max_records]
+            # list-slice semantics over the offsets, as the log's
+            # offsets are its indices
+            span = range(len(t.log))[offset:offset + max_records]
+            return t.log.take(span.start, span.stop) if span else None
+
+    def _delivered(self, topic: str, taken: Optional[tuple]) -> None:
         obs = self.deliver_observer
-        if obs is not None and recs:
+        if obs is not None and taken is not None:
             try:
-                obs(topic, recs, self._clock.time_us())
+                obs(topic, _admitted(taken), self._clock.time_us())
             except Exception:
                 pass        # observability must never fail a fetch
+
+    def fetch(self, topic: str, offset: int, max_records: int = 1024,
+              timeout: float = 0.0) -> List[Record]:
+        """Records from `offset` (at most max_records). Blocks up to
+        `timeout` seconds while the log end is <= offset."""
+        taken = self._take(topic, offset, max_records, timeout)
+        recs = [] if taken is None else _records(_rows(taken))
+        self._delivered(topic, taken)
         return recs
+
+    def fetch_rows(self, topic: str, offset: int, max_records: int = 1024,
+                   timeout: float = 0.0) -> List[tuple]:
+        """`fetch` as (offset, key, value, epoch, out_seq, ats, tid)
+        tuples: for a caller that would only take each Record apart
+        again to serialize it (the TCP handlers)."""
+        taken = self._take(topic, offset, max_records, timeout)
+        rows = [] if taken is None else _rows(taken)
+        self._delivered(topic, taken)
+        return rows
 
     def commit(self, topic: str, offset: int) -> None:
         """Advance a consumer watermark (arms the `max_lag` ingress
@@ -819,6 +1062,13 @@ class InProcessBroker:
             if t is None:
                 raise BrokerError(f"unknown topic {topic!r}")
             return len(t.log)
+
+    def log_totals(self) -> tuple:
+        """(records, key and value bytes) held by every topic's log."""
+        with self._lock:
+            logs = [t.log for t in self._topics.values()]
+            return (sum(len(g) for g in logs),
+                    sum(g.nbytes for g in logs))
 
     def sync(self) -> None:
         """fsync every topic log to stable storage. `produce` only

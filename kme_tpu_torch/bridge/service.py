@@ -716,11 +716,10 @@ class MatchService:
             lat_consume = self._lat["consume"]
             topic_out = self.topic_out
 
-            def _on_deliver(topic, recs, now_us):
+            def _on_deliver(topic, atss, now_us):
                 if topic != topic_out:
                     return
-                for r in recs:
-                    ats = getattr(r, "ats", None)
+                for ats in atss:
                     if ats is not None:
                         lat_consume.observe(max(0, now_us - ats) * 1e-6)
 
@@ -1411,6 +1410,14 @@ class MatchService:
                     "mean wire-frame decode cost per binary "
                     "record (ns)").set(
                 round(self.broker.wire_parse_ns / nbin) if nbin else 0)
+        totals = getattr(self.broker, "log_totals", None)
+        if totals is not None:
+            nrec, nbytes = totals()
+            t.gauge("broker_log_records",
+                    "records held by the broker's topic logs").set(nrec)
+            t.gauge("broker_log_bytes",
+                    "key and value bytes held by the broker's topic "
+                    "logs").set(nbytes)
         ov = getattr(self._session, "h2d_overlap_frac", None)
         if ov:
             t.gauge("h2d_overlap_frac",

@@ -147,20 +147,20 @@ def _unopt(v: int) -> Optional[int]:
     return None if v == _I64_NONE else v
 
 
-def _row(r: Record) -> list:
-    """Wire row for a fetched record — the shortest shape that loses
-    nothing: [o,k,v], +[epoch,out_seq] when stamped, +[ats] when the
-    broker recorded an admission time, +[tid] when the record carries a
-    trace word (ats stays in position 5, null when absent)."""
-    ats = getattr(r, "ats", None)
-    tid = getattr(r, "tid", None)
-    if tid is not None:
-        return [r.offset, r.key, r.value, r.epoch, r.out_seq, ats, tid]
-    if ats is not None:
-        return [r.offset, r.key, r.value, r.epoch, r.out_seq, ats]
-    if r.epoch is None and r.out_seq is None:
-        return [r.offset, r.key, r.value]
-    return [r.offset, r.key, r.value, r.epoch, r.out_seq]
+def _row(row: tuple) -> tuple:
+    """Wire row for a fetched record (`InProcessBroker.fetch_rows`) —
+    the shortest shape that loses nothing: [o,k,v], +[epoch,out_seq]
+    when stamped, +[ats] when the broker recorded an admission time,
+    +[tid] when the record carries a trace word (ats stays in position
+    5, null when absent). A tuple: JSON writes it as the same array,
+    and the collector stops tracking a tuple of plain values."""
+    if row[6] is not None:
+        return row
+    if row[5] is not None:
+        return row[:6]
+    if row[3] is None and row[4] is None:
+        return row[:3]
+    return row[:5]
 
 
 class _Handler(socketserver.StreamRequestHandler):
@@ -324,31 +324,29 @@ class _Handler(socketserver.StreamRequestHandler):
                     out_seq=rec[3] if len(rec) > 3 else None)
             resp = {"ok": True, "last_offset": off}
         elif op == "fetch":
-            recs = broker.fetch(
+            rows = broker.fetch_rows(
                 req["topic"], int(req["offset"]),
                 int(req.get("max", 1024)),
                 float(req.get("timeout_ms", 0)) / 1e3)
             # rows: [o,k,v] bare, [o,k,v,epoch,out_seq] stamped,
             # [o,k,v,epoch,out_seq,ats] with an admission stamp
-            resp = {"ok": True, "records": [_row(r) for r in recs]}
+            resp = {"ok": True, "records": [_row(r) for r in rows]}
         elif op == "fetch_bin":
-            recs = broker.fetch(
+            rows = broker.fetch_rows(
                 req["topic"], int(req["offset"]),
                 int(req.get("max", 1024)),
                 float(req.get("timeout_ms", 0)) / 1e3)
             parts = []
-            for r in recs:
-                kb = b"" if r.key is None else r.key.encode()
-                vb = r.value.encode()
+            for o, key, value, epoch, out_seq, ats, tid in rows:
+                kb = b"" if key is None else key.encode()
+                vb = value.encode()
                 parts.append(
-                    _REC_HDR.pack(r.offset, _opt(r.epoch),
-                                  _opt(r.out_seq),
-                                  _opt(getattr(r, "ats", None)),
-                                  _opt(getattr(r, "tid", None)))
-                    + bytes([255 if r.key is None else len(kb)]) + kb
+                    _REC_HDR.pack(o, _opt(epoch), _opt(out_seq),
+                                  _opt(ats), _opt(tid))
+                    + bytes([255 if key is None else len(kb)]) + kb
                     + struct.pack("<I", len(vb)) + vb)
             tail = b"".join(parts)
-            resp = {"ok": True, "n": len(recs), "nbytes": len(tail)}
+            resp = {"ok": True, "n": len(rows), "nbytes": len(tail)}
         elif op == "fence":
             broker.fence(int(req["epoch"]))
             resp = {"ok": True}
